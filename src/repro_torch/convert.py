@@ -1,0 +1,59 @@
+"""Weights carried across from the reference, through numpy.
+
+The reference's float parameter pytree, `QuantizedClassifier` codes and
+norm stats arrive as numpy arrays (for example through
+``jax.tree_util.tree_map(np.asarray, tree)``) and leave as the port's
+tensors on ``device``, in the same layouts: ``w_i`` (I, 3H), ``w_h``
+(H, 3H), ``fc.w`` (H, K). This module takes numpy only.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.fex import FExNormStats
+from repro_torch.core.gru_int import QuantizedClassifier
+
+__all__ = ["params_from_numpy", "quantized_from_numpy", "norm_stats_from_numpy"]
+
+
+def _t(a, device, dtype) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """``{"gru": [{w_i, w_h, b_i, b_h}, ...], "fc": {w, b}}`` of numpy
+    float arrays -> the same dict of float32 tensors."""
+    f = lambda a: _t(a, device, torch.float32)  # noqa: E731
+    return {
+        "gru": [{k: f(layer[k]) for k in ("w_i", "w_h", "b_i", "b_h")}
+                for layer in tree["gru"]],
+        "fc": {"w": f(tree["fc"]["w"]), "b": f(tree["fc"]["b"])},
+    }
+
+
+def quantized_from_numpy(q: Any, device) -> QuantizedClassifier:
+    """An object with ``gru`` (per-layer dicts of int8 weight / int32
+    bias codes), ``fc_w`` and ``fc_b`` numpy arrays -> the port's
+    `QuantizedClassifier`."""
+    wt = lambda a: _t(a, device, torch.int8)  # noqa: E731
+    bt = lambda a: _t(a, device, torch.int32)  # noqa: E731
+    return QuantizedClassifier(
+        gru=tuple(
+            {"w_i": wt(l["w_i"]), "w_h": wt(l["w_h"]),
+             "b_i": bt(l["b_i"]), "b_h": bt(l["b_h"])}
+            for l in q.gru
+        ),
+        fc_w=wt(q.fc_w),
+        fc_b=bt(q.fc_b),
+    )
+
+
+def norm_stats_from_numpy(mu, sigma, device) -> FExNormStats:
+    """Per-channel FV_Log mean and std -> `FExNormStats` (float32)."""
+    return FExNormStats(
+        mu=_t(mu, device, torch.float32), sigma=_t(sigma, device, torch.float32)
+    )

@@ -1,0 +1,189 @@
+"""GRU-FC classifier (paper Sections II, III-E).
+
+PyTorch counterpart of `repro.core.gru`. Network: 16-in -> GRU(48) ->
+GRU(48) -> FC(12), PyTorch gate convention:
+
+    r = sigmoid(W_ir x + b_ir + W_hr h + b_hr)
+    z = sigmoid(W_iz x + b_iz + W_hz h + b_hz)
+    n = tanh   (W_in x + b_in + r * (W_hn h + b_hn))
+    h' = (1 - z) * n + z * h
+
+Parameters keep the reference layout: per layer ``w_i`` (I, 3H), ``w_h``
+(H, 3H), ``b_i`` / ``b_h`` (3H,); ``fc.w`` (H, K), ``fc.b`` (K,).
+
+With ``quantized=True`` (QAT) weights are fake-quantized to int8, biases
+to the accumulator grid and activations to Q6.8, and the gate
+nonlinearities are the Q6.8 ROMs of `repro_torch.core.quant`: on the
+Q6.8 grid the ROM equals ``fake_quant(sigmoid(.))`` exactly, so no device
+sigmoid or tanh decides a code. The float backend (no fake-quant) is
+ported with its own slice.
+
+Products of Q6.8 activations and int8 weights are exact in float32, so
+the float matmuls here are exact as long as they run in full float32:
+TF32 must be off on the card (`_matmul` refuses otherwise).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.core import quant
+
+__all__ = [
+    "GRUConfig",
+    "init_gru_classifier",
+    "gru_cell",
+    "fc_logits",
+    "gru_classifier_forward",
+    "gru_classifier_step",
+    "init_states",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class GRUConfig:
+    input_dim: int = 16
+    hidden_dim: int = 48
+    num_layers: int = 2
+    num_classes: int = 12
+    quantized: bool = True  # QAT fake-quant on weights + activations
+
+    @property
+    def weight_spec(self) -> quant.QuantSpec:
+        return quant.WEIGHT_INT8
+
+    @property
+    def act_spec(self) -> quant.QuantSpec:
+        return quant.ACT_Q6_8
+
+
+Params = Dict[str, Any]
+
+
+def init_gru_classifier(
+    config: GRUConfig,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> Params:
+    """Uniform(-1/sqrt(H), 1/sqrt(H)) init, PyTorch-style, drawn from
+    ``generator`` on the host and placed on ``device``."""
+    h = config.hidden_dim
+    k = 1.0 / math.sqrt(h)
+
+    def u(*shape):
+        x = torch.rand(shape, generator=generator, dtype=torch.float32)
+        return (x * (2 * k) - k).to(device)
+
+    params: Params = {"gru": [], "fc": {}}
+    for layer in range(config.num_layers):
+        in_dim = config.input_dim if layer == 0 else h
+        params["gru"].append(
+            {
+                "w_i": u(in_dim, 3 * h),
+                "w_h": u(h, 3 * h),
+                "b_i": u(3 * h),
+                "b_h": u(3 * h),
+            }
+        )
+    params["fc"] = {"w": u(h, config.num_classes), "b": u(config.num_classes)}
+    return params
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the QAT classifier needs full-float32 matmuls; set "
+            "torch.backends.cuda.matmul.allow_tf32 = False"
+        )
+    return x @ w
+
+
+def _layer_weights(layer: Params):
+    # Biases are pre-loaded into the 24-bit HPE accumulator, which works
+    # at the Q6.8 x int8 product scale (frac 15).
+    wq = lambda w: quant.fake_quant(w, quant.WEIGHT_INT8)  # noqa: E731
+    bq = lambda b: quant.fake_quant(b, quant.BIAS_Q8_15)  # noqa: E731
+    return wq(layer["w_i"]), wq(layer["w_h"]), bq(layer["b_i"]), bq(layer["b_h"])
+
+
+def _gate(lookup, x: torch.Tensor) -> torch.Tensor:
+    """A Q6.8 ROM lookup (`quant.lut_sigmoid_q68` / `lut_tanh_q68`) on a
+    float tensor that lies on the Q6.8 grid."""
+    # no Q6.8 clip: a gate sum spans twice the activation range
+    codes = torch.round(x * 2.0**quant.ACT_Q6_8.frac_bits).to(torch.int64)
+    return quant.dequantize_int(lookup(codes), quant.ACT_Q6_8)
+
+
+def gru_cell(
+    layer: Params, h: torch.Tensor, x: torch.Tensor, config: GRUConfig
+) -> torch.Tensor:
+    """One QAT GRU step: x (B, I), h (B, H) -> h' (B, H)."""
+    if not config.quantized:
+        raise NotImplementedError(
+            "the float classifier backend is ported in a later slice "
+            "(ROADMAP queue 1, \"Float classifier backend\")"
+        )
+    aq = lambda v: quant.fake_quant(v, quant.ACT_Q6_8)  # noqa: E731
+    w_i, w_h, b_i, b_h = _layer_weights(layer)
+    gi = aq(_matmul(x, w_i) + b_i)  # (B, 3H)
+    gh = aq(_matmul(h, w_h) + b_h)
+    i_r, i_z, i_n = torch.chunk(gi, 3, dim=-1)
+    h_r, h_z, h_n = torch.chunk(gh, 3, dim=-1)
+    # Gate outputs are register values: on the IC sigmoid/tanh are Q6.8
+    # ROM lookups, so downstream consumers never see a float
+    # intermediate (this is what keeps QAT bit-replayable on codes).
+    r = _gate(quant.lut_sigmoid_q68, i_r + h_r)
+    z = _gate(quant.lut_sigmoid_q68, i_z + h_z)
+    n = _gate(quant.lut_tanh_q68, i_n + aq(r * h_n))
+    return aq((1.0 - z) * n + z * h)
+
+
+def fc_logits(params: Params, x: torch.Tensor, config: GRUConfig) -> torch.Tensor:
+    """The dense FC head on the last axis: (..., H) -> (..., K)."""
+    w = quant.fake_quant(params["fc"]["w"], quant.WEIGHT_INT8)
+    b = quant.fake_quant(params["fc"]["b"], quant.BIAS_Q8_15)
+    return quant.fake_quant(_matmul(x, w) + b, quant.ACT_Q6_8)
+
+
+def gru_classifier_forward(
+    params: Params, fv: torch.Tensor, config: GRUConfig
+) -> torch.Tensor:
+    """fv (B, T, C) -> logits (B, T, num_classes), per frame."""
+    xs = fv
+    for layer in params["gru"]:
+        h = torch.zeros(
+            (xs.shape[0], config.hidden_dim), dtype=xs.dtype, device=xs.device
+        )
+        hs = []
+        for t in range(xs.shape[1]):
+            h = gru_cell(layer, h, xs[:, t], config)
+            hs.append(h)
+        xs = torch.stack(hs, dim=1)
+    return fc_logits(params, xs, config)
+
+
+def gru_classifier_step(
+    params: Params,
+    states: List[torch.Tensor],
+    fv_t: torch.Tensor,
+    config: GRUConfig,
+):
+    """Streaming step: one frame fv_t (B, C) -> (new states, logits (B, K))."""
+    new_states = []
+    x = fv_t
+    for layer, h in zip(params["gru"], states):
+        x = gru_cell(layer, h, x, config)
+        new_states.append(x)
+    return new_states, fc_logits(params, x, config)
+
+
+def init_states(config: GRUConfig, batch: int, device) -> List[torch.Tensor]:
+    """Per-layer float32 hidden states, zeros on ``device``."""
+    return [
+        torch.zeros((batch, config.hidden_dim), dtype=torch.float32, device=device)
+        for _ in range(config.num_layers)
+    ]

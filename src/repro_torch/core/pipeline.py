@@ -1,0 +1,189 @@
+"""End-to-end KWS pipeline assembly (Fig. 3): FEx -> classifier.
+
+Counterpart of `repro.core.pipeline`. Both stages are string-keyed
+backends: `KWSPipelineConfig.frontend` names a registered
+`repro_torch.core.frontend.FeatureFrontend` and
+`KWSPipelineConfig.classifier` a registered
+`repro_torch.core.classifier.ClassifierBackend`.
+
+This slice serves the raw-audio tick: the software frontend and the qat
+and integer classifiers. Options that later slices port (another
+frontend, a cascade, ΔGRU thresholds) raise at construction.
+
+The FV_Raw -> FV_Norm post-processing (log ROM, (x-mu)/sigma, Q6.8) is
+the chip's digital back-end and is shared by every frontend.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core.classifier import (
+    ClassifierBackend,
+    get_classifier,
+    resolve_classifier_key,
+)
+from repro_torch.core.fex import FExConfig, FExNormStats
+from repro_torch.core.frontend import FeatureFrontend, FrontendState, get_frontend
+from repro_torch.core.gru import GRUConfig, init_gru_classifier
+from repro_torch.kernels.build import resolve_device
+
+__all__ = ["KWSPipelineConfig", "KWSPipeline"]
+
+
+@dataclasses.dataclass(frozen=True)
+class KWSPipelineConfig:
+    frontend: str = "software"  # registered FeatureFrontend key
+    fex: FExConfig = dataclasses.field(default_factory=FExConfig)
+    gru: GRUConfig = dataclasses.field(default_factory=GRUConfig)
+    use_log: bool = True
+    use_norm: bool = True
+    # Registered ClassifierBackend key ("qat" / "integer"); None resolves
+    # from gru.quantized.
+    classifier: Optional[str] = None
+    # ΔGRU thresholds and the stage-1 wake cascade of the reference; their
+    # slices (ROADMAP queue 1) are not ported yet.
+    delta: Any = None
+    cascade: Any = None
+
+    def __post_init__(self):
+        if self.delta is not None:
+            raise NotImplementedError(
+                "KWSPipelineConfig.delta (ΔGRU thresholds) is ported in a "
+                "later slice: ROADMAP queue 1, \"ΔGRU backends\""
+            )
+        if self.cascade is not None:
+            raise NotImplementedError(
+                "KWSPipelineConfig.cascade (stage-1 wake gate) is ported in "
+                "a later slice: ROADMAP queue 1, \"Cascade gate\""
+            )
+
+    @property
+    def classifier_key(self) -> str:
+        return resolve_classifier_key(self.classifier, self.gru)
+
+
+class KWSPipeline:
+    """Stateless-functional pipeline with convenience wrappers.
+
+    A `FrontendState` may be bound at construction (the default for
+    every call) or passed per call; methods never mutate it. Tensors
+    stay on the device they come in on; the creating entry points
+    (`init_params`, `streaming_init`, `streaming_features_init`) take a
+    ``device`` that defaults to the card.
+    """
+
+    def __init__(
+        self,
+        config: KWSPipelineConfig,
+        state: Optional[FrontendState] = None,
+        norm_stats: Optional[FExNormStats] = None,
+    ):
+        self.config = config
+        self.frontend: FeatureFrontend = get_frontend(config.frontend)
+        self.classifier: ClassifierBackend = get_classifier(config.classifier_key)
+        if state is None:
+            state = FrontendState()
+        if norm_stats is not None:
+            state = state.with_norm_stats(norm_stats)
+        self.state = state
+        # memo for prepare_params: (params object, prepared form); the
+        # strong reference keeps the key's id() from being recycled
+        self._prepared = None
+
+    def _resolve(self, state: Optional[FrontendState]) -> FrontendState:
+        return self.state if state is None else state
+
+    # ---------- features ----------
+
+    def _postprocess(self, fv_raw: torch.Tensor, state: FrontendState) -> torch.Tensor:
+        """FV_Raw codes -> FV_Norm: the chip's digital back-end (log ROM,
+        normalizer, Q6.8 saturation), shared by every frontend."""
+        x = fv_raw
+        fexc = self.config.fex
+        if self.config.use_log:
+            x = quant.log_compress_lut(x, fexc.quant_bits, fexc.log_bits)
+        if self.config.use_norm:
+            if state.norm_stats is None:
+                raise ValueError("use_norm requires fitted norm_stats")
+            x = (x - state.norm_stats.mu) / state.norm_stats.sigma
+        else:
+            in_bits = fexc.log_bits if self.config.use_log else fexc.quant_bits
+            x = x * 2.0 ** -(in_bits - 5)
+        return quant.fake_quant(x, quant.ACT_Q6_8)
+
+    def features_from_raw(
+        self, fv_raw: torch.Tensor, state: Optional[FrontendState] = None
+    ) -> torch.Tensor:
+        """Post-processing only: recorded FV_Raw codes -> FV_Norm."""
+        return self._postprocess(fv_raw, self._resolve(state))
+
+    # ---------- classifier ----------
+
+    def init_params(
+        self, generator: Optional[torch.Generator] = None, device=None
+    ) -> Dict[str, Any]:
+        """Float training params from ``generator``, on ``device`` (the
+        card by default); `prepare_params` converts for the backend."""
+        return init_gru_classifier(
+            self.config.gru, generator, resolve_device(device)
+        )
+
+    def prepare_params(self, params):
+        """Float params -> whatever the configured backend consumes
+        (`QuantizedClassifier` codes for ``classifier="integer"``).
+        Idempotent, and memoized by parameter identity so per-frame
+        callers do not re-quantize every 16 ms tick."""
+        if self._prepared is not None and self._prepared[0] is params:
+            return self._prepared[1]
+        prepared = self.classifier.prepare(params, self.config.gru)
+        self._prepared = (params, prepared)
+        return prepared
+
+    def logits(self, params, fv_norm: torch.Tensor) -> torch.Tensor:
+        """(B, F, C) -> final-frame logits (B, K)."""
+        return self.classifier.forward(
+            self.prepare_params(params), fv_norm, self.config.gru
+        )[:, -1, :]
+
+    # ---------- streaming serving ----------
+
+    @property
+    def chunk_samples(self) -> int:
+        """Raw-audio samples per 16 ms streaming hop (at fs_audio)."""
+        fexc = self.config.fex
+        return int(round(fexc.fs_audio * fexc.frame_shift_ms / 1000.0))
+
+    def streaming_init(self, batch: int, device=None):
+        """Classifier state for a batch of streams: float32 for qat,
+        int32 Q6.8 codes for integer."""
+        return self.classifier.init_states(
+            self.config.gru, batch, resolve_device(device)
+        )
+
+    def streaming_step(self, params, states, fv_t: torch.Tensor):
+        """One 16 ms frame for a batch of streams -> (states, logits)."""
+        return self.classifier.step(
+            self.prepare_params(params), states, fv_t, self.config.gru
+        )
+
+    def streaming_features_init(self, batch: int, device=None):
+        """Frontend carry (filter state) for ``batch`` streams."""
+        return self.frontend.streaming_init(
+            self.config, batch, resolve_device(device)
+        )
+
+    def streaming_features_apply(self, carry, chunk: torch.Tensor, state: FrontendState):
+        """One raw hop (B, chunk_samples) -> (carry, fv_norm (B, C))."""
+        carry, fv_raw = self.frontend.streaming_step(
+            chunk, self.config, state, carry
+        )
+        return carry, self._postprocess(fv_raw, state)
+
+    def streaming_logits_apply(self, params, states, fv_t: torch.Tensor):
+        """`streaming_step` on already backend-shaped ``params``."""
+        return self.classifier.step(params, states, fv_t, self.config.gru)

@@ -1,0 +1,75 @@
+"""Plain version of the fused serving tick.
+
+Counterpart of `repro.kernels.tick_fused.ref.tick_reference` for the
+qat and integer classifiers with no cascade: the frontend feature frame
+(or an FV_Norm passthrough), every GRU layer through the pipeline's
+classifier backend, the FC head, softmax, exponential score smoothing
+and the masked state advance. The CPU tier of the serving tick, and what
+the CUDA kernel is held against on the card.
+
+The state crossing this boundary is the 3-tuple ``(gru, carry, scores)``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.frontend import masked_select
+
+# (gru states tuple, frontend carry dict, smoothed scores)
+TickState = Tuple[Any, Any, torch.Tensor]
+
+
+def softmax(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis with the max subtracted, as
+    ``jax.nn.softmax``; the denominator is summed left to right, the
+    order the CUDA tick uses."""
+    e = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+    total = e[..., :1]
+    for k in range(1, e.shape[-1]):
+        total = total + e[..., k : k + 1]
+    return e / total
+
+
+def smoothing_weights(smoothing: float) -> Tuple[float, float]:
+    """``(smoothing, 1 - smoothing)`` rounded as float32 arithmetic does."""
+    s = np.float32(smoothing)
+    return float(s), float(np.float32(1.0) - s)
+
+
+def tick_reference(
+    pipeline,
+    raw_audio: bool,
+    params,
+    state: TickState,
+    inp: torch.Tensor,
+    mask: torch.Tensor,
+    frontend_state,
+    smoothing: float,
+):
+    """One serving tick on explicit state tensors.
+
+    inp is a raw-audio slab (N, chunk_samples) when ``raw_audio`` else an
+    FV_Norm slab (N, C); mask (N,) bool marks slots that submitted this
+    tick. Frontend carry, GRU states and smoothed scores advance ONLY
+    under the mask: an idle slot's slice of every tensor is returned
+    unchanged. Returns ``((gru, carry, scores), scores, top)``.
+    """
+    gru_in, carry_in, scores_in = state
+    if raw_audio:
+        new_carry, fv = pipeline.streaming_features_apply(
+            carry_in, inp, frontend_state
+        )
+        carry = masked_select(mask, new_carry, carry_in)
+    else:
+        carry, fv = carry_in, inp
+    new_gru, logits = pipeline.streaming_logits_apply(params, list(gru_in), fv)
+    gru = masked_select(mask, tuple(new_gru), tuple(gru_in))
+    s, one_minus = smoothing_weights(smoothing)
+    smoothed = s * scores_in + one_minus * softmax(logits)
+    scores = masked_select(mask, smoothed, scores_in)
+    top = torch.argmax(scores, dim=-1)
+    return (gru, carry, scores), scores, top
