@@ -1,7 +1,7 @@
 """Weights carried across from the reference, through numpy.
 
-The reference's float parameter pytree, `QuantizedClassifier` codes and
-norm stats arrive as numpy arrays (for example through
+The reference's float parameter pytree, `QuantizedClassifier` codes,
+norm stats and ΔGRU states arrive as numpy arrays (for example through
 ``jax.tree_util.tree_map(np.asarray, tree)``) and leave as the port's
 tensors on ``device``, in the same layouts: ``w_i`` (I, 3H), ``w_h``
 (H, 3H), ``fc.w`` (H, K). This module takes numpy only.
@@ -9,7 +9,7 @@ tensors on ``device``, in the same layouts: ``w_i`` (I, 3H), ``w_h``
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -17,7 +17,12 @@ import torch
 from repro_torch.core.fex import FExNormStats
 from repro_torch.core.gru_int import QuantizedClassifier
 
-__all__ = ["params_from_numpy", "quantized_from_numpy", "norm_stats_from_numpy"]
+__all__ = [
+    "params_from_numpy",
+    "quantized_from_numpy",
+    "norm_stats_from_numpy",
+    "delta_states_from_numpy",
+]
 
 
 def _t(a, device, dtype) -> torch.Tensor:
@@ -57,3 +62,14 @@ def norm_stats_from_numpy(mu, sigma, device) -> FExNormStats:
     return FExNormStats(
         mu=_t(mu, device, torch.float32), sigma=_t(sigma, device, torch.float32)
     )
+
+
+def delta_states_from_numpy(states, device) -> List[Dict[str, torch.Tensor]]:
+    """A ΔGRU state (a list of per-layer dicts of numpy arrays: float32
+    for "delta", int32 for "delta-int", int32 counters) -> the same list
+    of dicts of tensors, dtypes kept, so a server can start mid-stream
+    from the reference's state."""
+    return [
+        {k: torch.tensor(np.array(v), device=device) for k, v in layer.items()}
+        for layer in states
+    ]

@@ -2,16 +2,20 @@
 
 Counterpart of `repro.core.classifier`: every way of evaluating the
 GRU-FC network is a `ClassifierBackend` registered under a string key,
-selected via `KWSPipelineConfig.classifier`. This slice ports
+selected via `KWSPipelineConfig.classifier`:
 
-  "qat"     — the quantization-aware fake-quant forward of
-              `repro_torch.core.gru` (the default inference path);
-  "integer" — the bit-exact integer engine of `repro_torch.core.gru_int`
-              over int8/int32 codes, matmuls through the `intgemm`
-              kernel; bit-identical to "qat" on the same parameters.
-
-"float", "delta" and "delta-int" are ported by later slices and raise
-`NotImplementedError` naming the slice.
+  "float"     — plain float32 forward of `repro_torch.core.gru`, no
+                fake-quant anywhere (agrees with the reference within a
+                tolerance only);
+  "qat"       — the quantization-aware fake-quant forward of
+                `repro_torch.core.gru` (the default inference path);
+  "integer"   — the bit-exact integer engine of `repro_torch.core.gru_int`
+                over int8/int32 codes, matmuls through the `intgemm`
+                kernel; bit-identical to "qat" on the same parameters;
+  "delta"     — the ΔGRU of `repro_torch.core.gru_delta` in the QAT
+                float domain (θ = 0 is "qat" bit for bit);
+  "delta-int" — the ΔGRU on the integer backend's codes (θ = 0 is
+                "integer" bit for bit).
 
 The backend boundary speaks float FV_Norm frames in and float logits out
 for every backend; the integer backend converts at the boundary (exact
@@ -25,7 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core import gru_int
+from repro_torch.core import gru_delta, gru_int
 from repro_torch.core.gru import (
     GRUConfig,
     gru_classifier_forward,
@@ -40,15 +44,19 @@ __all__ = [
     "get_classifier",
     "available_classifiers",
     "resolve_classifier_key",
+    "FloatClassifier",
     "QATClassifier",
     "IntegerClassifier",
+    "DeltaClassifier",
+    "DeltaIntClassifier",
 ]
 
 
 class ClassifierBackend:
     """One execution path of the GRU-FC classifier.
 
-    Implementations are stateless singletons. Subclasses implement:
+    Implementations are stateless singletons (`with_config` may return a
+    copy bound to pipeline-level config). Subclasses implement:
 
       prepare(params, cfg)        float params -> the form this backend
                                   consumes (idempotent)
@@ -60,9 +68,18 @@ class ClassifierBackend:
     """
 
     name: str = "?"
+    # True for the ΔGRU backends: per-layer state dicts with skip counters,
+    # and the tick's sparse column update (K4)
+    is_delta: bool = False
 
     def prepare(self, params: Any, cfg: GRUConfig) -> Any:
         return params
+
+    def with_config(self, pipeline_config: Any) -> "ClassifierBackend":
+        """The backend bound to pipeline-level config beyond the
+        `GRUConfig` (the ΔGRU thresholds of `KWSPipelineConfig.delta`);
+        dense backends return ``self``."""
+        return self
 
     def init_states(self, cfg: GRUConfig, batch: int, device) -> List[torch.Tensor]:
         raise NotImplementedError
@@ -75,13 +92,6 @@ class ClassifierBackend:
 
 
 _REGISTRY: Dict[str, ClassifierBackend] = {}
-
-# Backends of the reference that later slices port (ROADMAP queue 1).
-_LATER = {
-    "float": "\"Float classifier backend\"",
-    "delta": "\"ΔGRU backends\"",
-    "delta-int": "\"ΔGRU backends\"",
-}
 
 
 def register_classifier(name: str):
@@ -96,11 +106,6 @@ def register_classifier(name: str):
 
 
 def get_classifier(name: str) -> ClassifierBackend:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"classifier {name!r} is ported in a later slice: ROADMAP "
-            f"queue 1, {_LATER[name]}"
-        )
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -121,13 +126,15 @@ def resolve_classifier_key(classifier: Optional[str], gru: GRUConfig) -> str:
     return "qat" if gru.quantized else "float"
 
 
-@register_classifier("qat")
-class QATClassifier(ClassifierBackend):
-    """QAT fake-quant forward (8-bit weights, Q6.8 activations)."""
+class _FloatBase(ClassifierBackend):
+    """Shared float-forward plumbing; `_cfg` pins the fake-quant mode."""
 
-    @staticmethod
-    def _cfg(cfg: GRUConfig) -> GRUConfig:
-        return cfg if cfg.quantized else dataclasses.replace(cfg, quantized=True)
+    _quantized: bool = True
+
+    def _cfg(self, cfg: GRUConfig) -> GRUConfig:
+        if cfg.quantized == self._quantized:
+            return cfg
+        return dataclasses.replace(cfg, quantized=self._quantized)
 
     def init_states(self, cfg, batch, device):
         return init_states(cfg, batch, device)
@@ -137,6 +144,20 @@ class QATClassifier(ClassifierBackend):
 
     def step(self, params, states, fv_t, cfg):
         return gru_classifier_step(params, states, fv_t, self._cfg(cfg))
+
+
+@register_classifier("float")
+class FloatClassifier(_FloatBase):
+    """Plain float32 forward: no fake-quant anywhere."""
+
+    _quantized = False
+
+
+@register_classifier("qat")
+class QATClassifier(_FloatBase):
+    """QAT fake-quant forward (8-bit weights, Q6.8 activations)."""
+
+    _quantized = True
 
 
 @register_classifier("integer")
@@ -178,3 +199,72 @@ class IntegerClassifier(ClassifierBackend):
                 "call pipeline.prepare_params(params) (or "
                 "repro_torch.serving.quantize.quantize_classifier) first"
             )
+
+
+class _DeltaBase(ClassifierBackend):
+    """Shared ΔGRU plumbing; subclasses pick the arithmetic domain.
+
+    Instances carry their `gru_delta.DeltaConfig` (the registry singleton
+    holds the θ = 0 default); `with_config` returns a copy bound to
+    `KWSPipelineConfig.delta`. The per-layer state dicts thread through
+    `init_states`, the server's state, `masked_select` and the slot reset
+    like the dense backends' hidden states.
+    """
+
+    is_delta = True
+
+    def __init__(self, delta: Optional[gru_delta.DeltaConfig] = None):
+        self.delta = gru_delta.DeltaConfig() if delta is None else delta
+
+    def with_config(self, pipeline_config):
+        delta = getattr(pipeline_config, "delta", None)
+        if delta is None or delta == self.delta:
+            return self
+        return type(self)(delta)
+
+    def _thetas(self, cfg: GRUConfig):
+        return self.delta.code_thresholds(cfg.num_layers)
+
+
+@register_classifier("delta")
+class DeltaClassifier(_DeltaBase):
+    """ΔGRU in the QAT fake-quant float domain. Params stay float (like
+    "qat"); state leaves are float32 grid values plus int32 counters."""
+
+    def init_states(self, cfg, batch, device):
+        return gru_delta.delta_init_states(cfg, batch, device)
+
+    def forward(self, params, fv, cfg):
+        return gru_delta.delta_classifier_forward(params, fv, cfg, self._thetas(cfg))
+
+    def step(self, params, states, fv_t, cfg):
+        return gru_delta.delta_classifier_step(
+            params, states, fv_t, cfg, self._thetas(cfg)
+        )
+
+
+@register_classifier("delta-int")
+class DeltaIntClassifier(_DeltaBase):
+    """ΔGRU on the "integer" backend's codes: int8 weight codes through
+    `intgemm`, int32 Q6.8 state and frac-15 accumulator codes, float
+    FV_Norm / logits at the boundary like `IntegerClassifier`."""
+
+    def prepare(self, params, cfg):
+        return IntegerClassifier.prepare(self, params, cfg)
+
+    def init_states(self, cfg, batch, device):
+        return gru_delta.int_delta_init_states(cfg, batch, device)
+
+    def forward(self, params, fv, cfg):
+        IntegerClassifier._check_prepared(params)
+        codes = gru_delta.int_delta_classifier_forward(
+            params, gru_int.quantize_acts(fv), cfg, self._thetas(cfg)
+        )
+        return gru_int.dequantize_acts(codes)
+
+    def step(self, params, states, fv_t, cfg):
+        IntegerClassifier._check_prepared(params)
+        states, codes = gru_delta.int_delta_classifier_step(
+            params, states, gru_int.quantize_acts(fv_t), cfg, self._thetas(cfg)
+        )
+        return states, gru_int.dequantize_acts(codes)

@@ -17,7 +17,7 @@ streaming replaces with edge replication.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,6 +38,8 @@ __all__ = [
     "get_frontend",
     "available_frontends",
     "masked_select",
+    "tree_leaves",
+    "tree_clone",
     "SoftwareFrontend",
 ]
 
@@ -59,6 +61,26 @@ def masked_select(mask: torch.Tensor, new_tree: Any, old_tree: Any) -> Any:
         )
     m = mask.reshape(mask.shape + (1,) * (new_tree.dim() - mask.dim()))
     return torch.where(m, new_tree, old_tree)
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a tree (dict, tuple, list or a bare tensor) in the
+    order `masked_select` walks it: a dense classifier state's per-layer
+    tensors or a ΔGRU state's per-layer dicts alike."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_clone(tree: Any) -> Any:
+    """A copy of a tree of tensors with every leaf cloned."""
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_clone(v) for v in tree)
+    return tree.clone()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,12 +15,14 @@ With ``quantized=True`` (QAT) weights are fake-quantized to int8, biases
 to the accumulator grid and activations to Q6.8, and the gate
 nonlinearities are the Q6.8 ROMs of `repro_torch.core.quant`: on the
 Q6.8 grid the ROM equals ``fake_quant(sigmoid(.))`` exactly, so no device
-sigmoid or tanh decides a code. The float backend (no fake-quant) is
-ported with its own slice.
+sigmoid or tanh decides a code. With ``quantized=False`` (the float
+backend) nothing is quantized and the gates are float ``sigmoid`` /
+``tanh``; that path agrees with the reference within a tolerance only.
 
 Products of Q6.8 activations and int8 weights are exact in float32, so
-the float matmuls here are exact as long as they run in full float32:
-TF32 must be off on the card (`_matmul` refuses otherwise).
+the QAT matmuls are exact as long as they run in full float32: TF32 must
+be off on the card (`_matmul` refuses otherwise, for the float backend
+too).
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ def init_gru_classifier(
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
-            "the QAT classifier needs full-float32 matmuls; set "
+            "the classifier needs full-float32 matmuls; set "
             "torch.backends.cuda.matmul.allow_tf32 = False"
         )
     return x @ w
@@ -121,12 +123,16 @@ def _gate(lookup, x: torch.Tensor) -> torch.Tensor:
 def gru_cell(
     layer: Params, h: torch.Tensor, x: torch.Tensor, config: GRUConfig
 ) -> torch.Tensor:
-    """One QAT GRU step: x (B, I), h (B, H) -> h' (B, H)."""
+    """One GRU step: x (B, I), h (B, H) -> h' (B, H)."""
     if not config.quantized:
-        raise NotImplementedError(
-            "the float classifier backend is ported in a later slice "
-            "(ROADMAP queue 1, \"Float classifier backend\")"
-        )
+        gi = _matmul(x, layer["w_i"]) + layer["b_i"]
+        gh = _matmul(h, layer["w_h"]) + layer["b_h"]
+        i_r, i_z, i_n = torch.chunk(gi, 3, dim=-1)
+        h_r, h_z, h_n = torch.chunk(gh, 3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (1.0 - z) * n + z * h
     aq = lambda v: quant.fake_quant(v, quant.ACT_Q6_8)  # noqa: E731
     w_i, w_h, b_i, b_h = _layer_weights(layer)
     gi = aq(_matmul(x, w_i) + b_i)  # (B, 3H)
@@ -144,6 +150,8 @@ def gru_cell(
 
 def fc_logits(params: Params, x: torch.Tensor, config: GRUConfig) -> torch.Tensor:
     """The dense FC head on the last axis: (..., H) -> (..., K)."""
+    if not config.quantized:
+        return _matmul(x, params["fc"]["w"]) + params["fc"]["b"]
     w = quant.fake_quant(params["fc"]["w"], quant.WEIGHT_INT8)
     b = quant.fake_quant(params["fc"]["b"], quant.BIAS_Q8_15)
     return quant.fake_quant(_matmul(x, w) + b, quant.ACT_Q6_8)

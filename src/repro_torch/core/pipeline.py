@@ -6,9 +6,10 @@ backends: `KWSPipelineConfig.frontend` names a registered
 `KWSPipelineConfig.classifier` a registered
 `repro_torch.core.classifier.ClassifierBackend`.
 
-This slice serves the raw-audio tick: the software frontend and the qat
-and integer classifiers. Options that later slices port (another
-frontend, a cascade, ΔGRU thresholds) raise at construction.
+The software frontend and all five classifier backends (float, qat,
+integer, delta, delta-int) are ported; the ΔGRU thresholds come from
+`KWSPipelineConfig.delta`. The stage-1 cascade, which a later slice
+ports, raises at construction.
 
 The FV_Raw -> FV_Norm post-processing (log ROM, (x-mu)/sigma, Q6.8) is
 the chip's digital back-end and is shared by every frontend.
@@ -30,6 +31,7 @@ from repro_torch.core.classifier import (
 from repro_torch.core.fex import FExConfig, FExNormStats
 from repro_torch.core.frontend import FeatureFrontend, FrontendState, get_frontend
 from repro_torch.core.gru import GRUConfig, init_gru_classifier
+from repro_torch.core.gru_delta import DeltaConfig
 from repro_torch.kernels.build import resolve_device
 
 __all__ = ["KWSPipelineConfig", "KWSPipeline"]
@@ -42,20 +44,16 @@ class KWSPipelineConfig:
     gru: GRUConfig = dataclasses.field(default_factory=GRUConfig)
     use_log: bool = True
     use_norm: bool = True
-    # Registered ClassifierBackend key ("qat" / "integer"); None resolves
-    # from gru.quantized.
+    # Registered ClassifierBackend key ("float" / "qat" / "integer" /
+    # "delta" / "delta-int"); None resolves from gru.quantized.
     classifier: Optional[str] = None
-    # ΔGRU thresholds and the stage-1 wake cascade of the reference; their
-    # slices (ROADMAP queue 1) are not ported yet.
-    delta: Any = None
+    # ΔGRU thresholds for the "delta" / "delta-int" backends (None: θ = 0).
+    delta: Optional[DeltaConfig] = None
+    # The stage-1 wake cascade of the reference; its slice (ROADMAP
+    # queue 1) is not ported yet.
     cascade: Any = None
 
     def __post_init__(self):
-        if self.delta is not None:
-            raise NotImplementedError(
-                "KWSPipelineConfig.delta (ΔGRU thresholds) is ported in a "
-                "later slice: ROADMAP queue 1, \"ΔGRU backends\""
-            )
         if self.cascade is not None:
             raise NotImplementedError(
                 "KWSPipelineConfig.cascade (stage-1 wake gate) is ported in "
@@ -85,7 +83,11 @@ class KWSPipeline:
     ):
         self.config = config
         self.frontend: FeatureFrontend = get_frontend(config.frontend)
-        self.classifier: ClassifierBackend = get_classifier(config.classifier_key)
+        # with_config binds the ΔGRU thresholds of config.delta; dense
+        # backends return the registry singleton unchanged
+        self.classifier: ClassifierBackend = get_classifier(
+            config.classifier_key
+        ).with_config(config)
         if state is None:
             state = FrontendState()
         if norm_stats is not None:
@@ -159,8 +161,9 @@ class KWSPipeline:
         return int(round(fexc.fs_audio * fexc.frame_shift_ms / 1000.0))
 
     def streaming_init(self, batch: int, device=None):
-        """Classifier state for a batch of streams: float32 for qat,
-        int32 Q6.8 codes for integer."""
+        """Classifier state for a batch of streams: per-layer float32 for
+        float / qat, int32 Q6.8 codes for integer, per-layer dicts for
+        delta / delta-int."""
         return self.classifier.init_states(
             self.config.gru, batch, resolve_device(device)
         )

@@ -59,12 +59,12 @@ _SIGNATURES = {
         "intgemm_error_string": ([_I], ctypes.c_char_p),
     },
     "tick_fused": {
-        # inp, mask, n, s1, s2, h1, h2, scores, top, fv_out,
-        # w, b, coeffs, mu, sigma, log_rom, sig_rom, tanh_rom,
-        # q_max, q_scale, inv_frame, smoothing, one_minus, raw, integer,
-        # stream
+        # inp, mask, n, s1, s2, gru (address of a host struct GruState),
+        # scores, top, fv_out, w, b, wf, bf, theta, coeffs, mu, sigma,
+        # log_rom, sig_rom, tanh_rom, q_max, q_scale, inv_frame,
+        # smoothing, one_minus, raw, backend, stream
         "tick_fused_launch": (
-            [_P, _P, _I] + [_P] * 7 + [_P] * 8 + [_F] * 5 + [_I, _I, _P],
+            [_P, _P, _I] + [_P] * 6 + [_P] * 11 + [_F] * 5 + [_I, _I, _P],
             _I,
         ),
         "tick_fused_error_string": ([_I], ctypes.c_char_p),

@@ -1,13 +1,19 @@
-// The whole 16 ms serving tick as one launch, for the qat and integer
-// classifiers, on raw audio hops or FV_Norm frames (no cascade).
+// The whole 16 ms serving tick as one launch, for the float, qat, integer,
+// delta and delta-int classifiers, on raw audio hops or FV_Norm frames (no
+// cascade).
 //
 // Replaces src/repro/kernels/tick_fused/kernel.py:256 tick_fused_pallas
-// (pallas_call at :368); the math is src/repro/kernels/tick_fused/ref.py:48
-// tick_reference, whose PyTorch twin is repro_torch/kernels/tick_fused/ref.py.
+// (pallas_call at :368) and, in its ΔGRU branch, the gather-compacted
+// column update K4 of src/repro/kernels/tick_fused/kernel.py:76-182 that
+// runs inside it; the math is src/repro/kernels/tick_fused/ref.py:48
+// tick_reference, whose PyTorch twin is repro_torch/kernels/tick_fused/ref.py
+// (with gather.py as K4's plain version).
 //
-// Bound: operations. Per stream and tick the frontend runs 512 dependent
-// biquad steps for each of 16 channels (~6 k flops a channel) and the
-// classifier ~47 k operations, against ~1.1 kB of input and state.
+// Bound: operations for the dense backends (per stream and tick the
+// frontend runs 512 dependent biquad steps for each of 16 channels, ~6 k
+// flops a channel, and the classifier ~47 k operations, against ~1.1 kB of
+// input and state); bytes come close for the ΔGRU backends, whose state is
+// ~3.3 kB a stream read and written each tick.
 // Design: one block of 256 threads owns 16 streams.
 //   * Frontend: one thread per (stream, channel) oversamples the hop
 //     inline (edge-replicated, as _chunk_to_internal), runs the TDF-II
@@ -18,18 +24,35 @@
 //     in shared memory; threads stride over (stream, gate column) for the
 //     gate accumulators, then over (stream, unit) for the gates, which are
 //     Q6.8 ROM lookups with round-half-even rescales, layer by layer, and
-//     over (stream, class) for the FC head.
+//     over (stream, class) for the FC head. The float backend reads its
+//     float32 weights (96.8 kB) through the read-only cache instead, so a
+//     block keeps ~53 kB of shared memory and four blocks fit on an SM; its
+//     gates are expf / tanhf.
+//   * ΔGRU (K4): per layer, threads over (stream, column) form the
+//     thresholded deltas of the input and the state against their
+//     reference memories (|Δ| > θ on the Q6.8 grid) and advance the
+//     memories where a delta fires; warp 0 (input columns) and warp 1
+//     (state columns) build the block's fired-column lists in shared
+//     memory with __ballot_sync and a __popc prefix sum over the columns
+//     that fired for any submitting stream; then each (stream, gate column)
+//     thread adds one rank-1 term per listed column, in ascending column
+//     order, to its accumulator (the contribution is clipped to int24 once
+//     in the code domain, as intgemm clips) and forms the gate
+//     preactivation from the accumulator plus bias. Skipped / total column
+//     counters advance per submitting stream.
 //   * Tail: one thread per stream: softmax, smoothing, the masked state
 //     advance and first-index argmax.
-// Streams that did not submit are skipped and keep every state byte; the
-// ragged last block is bounds-checked. State is updated in place (the
-// counterpart of the reference's buffer donation).
+// Streams that did not submit are skipped (they contribute no columns) and
+// keep every state byte; the ragged last block is bounds-checked. State is
+// updated in place (the counterpart of the reference's buffer donation).
 //
 // Rounding: the IIR uses __fmaf_rn exactly where the reference's compiled
 // scan fuses (b0*x + s1, b1*x - a1*y, b2*x - a2*y); everything else is
-// compiled with -fmad=false so it rounds as the plain version does. QAT
-// accumulates the gate dot products in float32 on the exact
-// code * 2^-7 weights; integer runs the shared int24 dot of intgemm.cuh.
+// compiled with -fmad=false so it rounds as the plain version does. QAT and
+// delta accumulate in float32 on the exact code * 2^-7 weights; integer and
+// delta-int run the shared int24 dot of intgemm.cuh. On the fixed-point
+// grids these sums are exact, so their order does not matter; the float
+// backend's is, and it agrees with the plain version within a tolerance.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,8 +72,15 @@ constexpr int ACT_MAX = 8191;
 constexpr int LUT_MIN = 2 * ACT_MIN;
 constexpr int LUT_SIZE = 2 * (ACT_MAX - ACT_MIN) + 1;
 constexpr int LOG_SIZE = 4096;
+constexpr float Q68_LSB = 0.00390625f;         // 2^-8
+constexpr float W_LSB = 0.0078125f;            // 2^-7
+constexpr float ACC_LSB = 3.0517578125e-05f;   // 2^-15
 
-// Packed weight codes (int8) and bias codes (int32), layer by layer.
+// The classifier backends, as the wrapper numbers them.
+enum Backend { BK_QAT = 0, BK_INTEGER = 1, BK_FLOAT = 2, BK_DELTA = 3, BK_DELTA_INT = 4 };
+
+// Packed weights (int8 codes, or float32 for the float backend) and biases
+// (int32 codes, or float32), layer by layer; offsets in elements.
 constexpr int W_L1I = 0;
 constexpr int W_L1H = W_L1I + C * G;
 constexpr int W_L2I = W_L1H + H * G;
@@ -66,10 +96,26 @@ constexpr int B_TOTAL = 4 * G + K;
 static_assert(W_TOTAL % 16 == 0, "weights are staged as 16-byte vectors");
 
 // Shared memory: weights, biases, 3 x [SB][H] activations (input frame,
-// h1, h2; float bits for qat, codes for integer), [SB][2][G] gate codes,
-// [SB][K] logits, [SB] active flags.
-constexpr int SMEM_BYTES = W_TOTAL + 4 * B_TOTAL + 4 * 3 * SB * H +
-                           4 * SB * 2 * G + 4 * SB * K + 4 * SB;
+// h1, h2; float bits for float / qat / delta, codes for integer /
+// delta-int), [SB][2][G] gate preactivations, [SB][K] logits, [SB] active
+// flags; the ΔGRU branch adds [SB][H] input and state deltas (codes), the
+// [2][H] fired-column lists and their [2] lengths.
+constexpr int SMEM_BASE = W_TOTAL + 4 * B_TOTAL + 4 * 3 * SB * H +
+                          4 * SB * 2 * G + 4 * SB * K + 4 * SB;
+constexpr int SMEM_DELTA = 4 * 2 * SB * H + 4 * 2 * H + 4 * 2;
+
+// Per-layer classifier state. The dense backends use h only; the ΔGRU
+// backends all seven (float32 for delta, int32 for delta-int; the counters
+// are int32 for both). The wrapper mirrors this layout in ctypes.
+struct GruState {
+  void* h[2];
+  void* x_ref[2];
+  void* h_ref[2];
+  void* acc_x[2];
+  void* acc_h[2];
+  int32_t* skipped[2];
+  int32_t* total[2];
+};
 
 struct TickArgs {
   const float* inp;
@@ -77,12 +123,15 @@ struct TickArgs {
   int n;
   float* s1;
   float* s2;
-  int32_t* h[2];
+  GruState g;
   float* scores;
   int64_t* top;
   float* fv_out;
   const int8_t* w;
   const int32_t* b;
+  const float* wf;
+  const float* bf;
+  const int32_t* theta;  // per layer (theta_x, theta_h), Q6.8 codes
   const float* coeffs;
   const float* mu;
   const float* sigma;
@@ -95,11 +144,16 @@ struct TickArgs {
   float smoothing;
   float one_minus;
   int raw;
-  int integer;
+  int backend;
 };
 
 __device__ __forceinline__ int clip_act(int v) {
   return min(max(v, ACT_MIN), ACT_MAX);
+}
+
+// int32 addition that wraps, as the plain version's int32 tensors do.
+__device__ __forceinline__ int32_t wrap_add(int32_t x, int32_t y) {
+  return static_cast<int32_t>(static_cast<uint32_t>(x) + static_cast<uint32_t>(y));
 }
 
 // round(v / 2^shift), ties to even (arithmetic shift floors negatives).
@@ -113,6 +167,11 @@ __device__ __forceinline__ int round_shift_even(int v, int shift) {
 // fake_quant to Q6.8 as a code: round(v * 256) half to even, saturated.
 __device__ __forceinline__ int q68_code(float v) {
   return clip_act(__float2int_rn(__fmul_rn(v, 256.0f)));
+}
+
+// The code of a float that lies on the Q6.8 grid (exact).
+__device__ __forceinline__ int grid_code(float v) {
+  return __float2int_rn(__fmul_rn(v, 256.0f));
 }
 
 __device__ __forceinline__ int rom_index(int code_sum) {
@@ -130,23 +189,67 @@ __device__ __forceinline__ void biquad_step(float x, float b0, float b1,
   acc = __fadd_rn(acc, fabsf(y));
 }
 
-// One gate / logit accumulator as a Q6.8 code: x (in_dim) . w[:, col] + b.
+// One gate / logit accumulator as a Q6.8 code: x (in_dim) . w[:, col] + b,
+// x as codes (integer) or as float bits on the Q6.8 grid (qat).
 __device__ __forceinline__ int accum(const int32_t* x, int in_dim,
                                      const int8_t* w, int ldw,
                                      const int32_t* b, int col,
-                                     bool integer) {
-  if (integer) {
+                                     bool codes) {
+  if (codes) {
     return clip_act(
         round_shift_even(intgemm_dot(x, w, in_dim, ldw, col) + b[col], 7));
   }
   const float* xf = reinterpret_cast<const float*>(x);
   float acc = 0.0f;
   for (int k = 0; k < in_dim; ++k) {
-    const float wk = __fmul_rn(static_cast<float>(w[k * ldw + col]), 0.0078125f);
+    const float wk = __fmul_rn(static_cast<float>(w[k * ldw + col]), W_LSB);
     acc = __fadd_rn(acc, __fmul_rn(xf[k], wk));
   }
-  acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(b[col]), 3.0517578125e-05f));
+  acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(b[col]), ACC_LSB));
   return q68_code(acc);
+}
+
+// The float backend's accumulator: x . w[:, col] + b in float32, weights
+// read through the read-only cache.
+__device__ __forceinline__ float accum_float(const float* x, int in_dim,
+                                             const float* w, int ldw,
+                                             const float* b, int col) {
+  float acc = 0.0f;
+  for (int k = 0; k < in_dim; ++k) {
+    acc = __fadd_rn(acc, __fmul_rn(x[k], __ldg(&w[k * ldw + col])));
+  }
+  return __fadd_rn(acc, __ldg(&b[col]));
+}
+
+// K4's rank-1 terms for one (stream, gate column): sum over the listed
+// columns i, in list order, of d[i] * w[i, col]. Code domain: exact int32
+// sum, clipped once to int24. Float domain: each product is exact
+// (code * code * 2^-15) and the float sum runs in the plain version's order.
+__device__ __forceinline__ int32_t sparse_dot_int(const int32_t* d,
+                                                  const int32_t* list, int n,
+                                                  const int8_t* w, int col) {
+  int32_t acc = 0;
+  for (int k = 0; k < n; ++k) {
+    const int i = list[k];
+    acc += d[i] * static_cast<int32_t>(w[i * G + col]);
+  }
+  return min(max(acc, INTGEMM_ACC_MIN), INTGEMM_ACC_MAX);
+}
+
+__device__ __forceinline__ float sparse_dot_float(const int32_t* d,
+                                                  const int32_t* list, int n,
+                                                  const int8_t* w, int col) {
+  float acc = 0.0f;
+  for (int k = 0; k < n; ++k) {
+    const int i = list[k];
+    const int32_t p = d[i] * static_cast<int32_t>(w[i * G + col]);
+    acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(p), ACC_LSB));
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float sigmoid_f(float v) {
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v)));
 }
 
 __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
@@ -157,16 +260,25 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   int32_t* gate_s = act_s + 3 * SB * H;    // [SB][2][G]
   float* logit_s = reinterpret_cast<float*>(gate_s + SB * 2 * G);  // [SB][K]
   int* active_s = reinterpret_cast<int*>(logit_s + SB * K);        // [SB]
+  int32_t* dx_s = active_s + SB;           // ΔGRU only: [SB][H]
+  int32_t* dh_s = dx_s + SB * H;           // [SB][H]
+  int32_t* list_s = dh_s + SB * H;         // [2][H] input, state columns
+  int* nlist_s = list_s + 2 * H;           // [2]
 
   const int tid = threadIdx.x;
   const int base = blockIdx.x * SB;
-  const bool integer = a.integer != 0;
+  const int bk = a.backend;
+  const bool codes = bk == BK_INTEGER || bk == BK_DELTA_INT;
+  const bool flt = bk == BK_FLOAT;
+  const bool delta = bk == BK_DELTA || bk == BK_DELTA_INT;
 
   // ---- stage weights, biases, flags and hidden state ----
-  const int4* w_src = reinterpret_cast<const int4*>(a.w);
-  int4* w_dst = reinterpret_cast<int4*>(w_s);
-  for (int i = tid; i < W_TOTAL / 16; i += THREADS) w_dst[i] = w_src[i];
-  for (int i = tid; i < B_TOTAL; i += THREADS) b_s[i] = a.b[i];
+  if (!flt) {
+    const int4* w_src = reinterpret_cast<const int4*>(a.w);
+    int4* w_dst = reinterpret_cast<int4*>(w_s);
+    for (int i = tid; i < W_TOTAL / 16; i += THREADS) w_dst[i] = w_src[i];
+    for (int i = tid; i < B_TOTAL; i += THREADS) b_s[i] = a.b[i];
+  }
   if (tid < SB) {
     const int stream = base + tid;
     active_s[tid] = (stream < a.n && a.mask[stream]) ? 1 : 0;
@@ -177,8 +289,8 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     const int u = i % H;
     const int stream = base + s;
     if (stream < a.n) {
-      act_s[(1 + layer) * SB * H + s * H + u] =
-          a.h[layer][static_cast<int64_t>(stream) * H + u];
+      act_s[(1 + layer) * SB * H + s * H + u] = static_cast<const int32_t*>(
+          a.g.h[layer])[static_cast<int64_t>(stream) * H + u];
     }
   }
   __syncthreads();
@@ -213,15 +325,18 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
         const int idx = min(max(static_cast<int>(raw_code), 0), LOG_SIZE - 1);
         const float norm =
             __fdiv_rn(__fsub_rn(a.log_rom[idx], a.mu[c]), a.sigma[c]);
-        fv = __fmul_rn(static_cast<float>(q68_code(norm)), 0.00390625f);
+        fv = __fmul_rn(static_cast<float>(q68_code(norm)), Q68_LSB);
       } else {
         fv = a.inp[sc];
       }
       if (a.fv_out != nullptr) a.fv_out[sc] = fv;
-      if (integer) {
+      if (codes) {
         act_s[s * H + c] = q68_code(fv);
+      } else if (bk == BK_DELTA) {  // the ΔGRU snaps its input to the grid
+        act_s[s * H + c] =
+            __float_as_int(__fmul_rn(static_cast<float>(q68_code(fv)), Q68_LSB));
       } else {
-        reinterpret_cast<float*>(act_s)[s * H + c] = fv;
+        act_s[s * H + c] = __float_as_int(fv);
       }
     }
   }
@@ -232,17 +347,124 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     const int in_dim = layer == 0 ? C : H;
     const int32_t* x_s = act_s + layer * SB * H;  // input frame, then new h1
     int32_t* h_s = act_s + (layer + 1) * SB * H;
-    const int8_t* wi = w_s + (layer == 0 ? W_L1I : W_L2I);
-    const int8_t* wh = w_s + (layer == 0 ? W_L1H : W_L2H);
-    const int32_t* bi = b_s + (layer == 0 ? B_L1I : B_L2I);
-    const int32_t* bh = b_s + (layer == 0 ? B_L1H : B_L2H);
-    for (int item = tid; item < SB * G; item += THREADS) {
-      const int s = item / G;
-      const int j = item % G;
-      if (!active_s[s]) continue;
-      int32_t* g = gate_s + s * 2 * G;
-      g[j] = accum(x_s + s * H, in_dim, wi, G, bi, j, integer);
-      g[G + j] = accum(h_s + s * H, H, wh, G, bh, j, integer);
+    const int w_i_off = layer == 0 ? W_L1I : W_L2I;
+    const int w_h_off = layer == 0 ? W_L1H : W_L2H;
+    const int b_i_off = layer == 0 ? B_L1I : B_L2I;
+    const int b_h_off = layer == 0 ? B_L1H : B_L2H;
+    const int8_t* wi = w_s + w_i_off;
+    const int8_t* wh = w_s + w_h_off;
+    const int32_t* bi = b_s + b_i_off;
+    const int32_t* bh = b_s + b_h_off;
+    if (delta) {
+      // (1-4) thresholded deltas; the memories advance where one fires
+      const int cols = in_dim + H;
+      const int tx = a.theta[2 * layer];
+      const int th = a.theta[2 * layer + 1];
+      for (int item = tid; item < SB * cols; item += THREADS) {
+        const int s = item / cols;
+        const int col = item % cols;
+        const bool is_x = col < in_dim;
+        const int i = is_x ? col : col - in_dim;
+        int d = 0;
+        if (active_s[s]) {
+          const int64_t off =
+              static_cast<int64_t>(base + s) * (is_x ? in_dim : H) + i;
+          void* ref_p = is_x ? a.g.x_ref[layer] : a.g.h_ref[layer];
+          const int32_t cur_bits = (is_x ? x_s : h_s)[s * H + i];
+          const int cur = codes ? cur_bits : grid_code(__int_as_float(cur_bits));
+          const int ref = codes ? static_cast<int32_t*>(ref_p)[off]
+                                : grid_code(static_cast<float*>(ref_p)[off]);
+          const int diff = cur - ref;
+          if (abs(diff) > (is_x ? tx : th)) {
+            d = diff;
+            if (codes) {
+              static_cast<int32_t*>(ref_p)[off] = ref + diff;
+            } else {
+              float* rf = static_cast<float*>(ref_p) + off;
+              *rf = __fadd_rn(*rf, __fmul_rn(static_cast<float>(diff), Q68_LSB));
+            }
+          }
+        }
+        (is_x ? dx_s : dh_s)[s * H + i] = d;
+      }
+      __syncthreads();
+      // (5-6) fired-column lists (warp 0: input, warp 1: state) and the
+      // skipped / total counters (one thread per stream)
+      const int warp = tid / 32;
+      const int lane = tid % 32;
+      if (warp < 2) {
+        const int32_t* d_s = warp == 0 ? dx_s : dh_s;
+        const int ncols = warp == 0 ? in_dim : H;
+        int32_t* list = list_s + warp * H;
+        int count = 0;
+        for (int c0 = 0; c0 < ncols; c0 += 32) {
+          const int col = c0 + lane;
+          bool fired = false;
+          if (col < ncols) {
+            for (int s = 0; s < SB; ++s) fired |= d_s[s * H + col] != 0;
+          }
+          const unsigned ballot = __ballot_sync(0xffffffffu, fired);
+          if (fired) list[count + __popc(ballot & ((1u << lane) - 1u))] = col;
+          count += __popc(ballot);
+        }
+        if (lane == 0) nlist_s[warp] = count;
+      } else if (tid >= 64 && tid < 64 + SB) {
+        const int s = tid - 64;
+        if (active_s[s]) {
+          int fired = 0;
+          for (int i = 0; i < in_dim; ++i) fired += dx_s[s * H + i] != 0;
+          for (int u = 0; u < H; ++u) fired += dh_s[s * H + u] != 0;
+          const int64_t stream = base + s;
+          a.g.skipped[layer][stream] += cols - fired;
+          a.g.total[layer][stream] += cols;
+        }
+      }
+      __syncthreads();
+      // (7-8) rank-1 terms into the accumulators, then acc + b
+      const int nx = nlist_s[0];
+      const int nh = nlist_s[1];
+      for (int item = tid; item < SB * G; item += THREADS) {
+        const int s = item / G;
+        const int j = item % G;
+        if (!active_s[s]) continue;
+        const int64_t off = static_cast<int64_t>(base + s) * G + j;
+        int32_t* g = gate_s + s * 2 * G;
+        if (codes) {
+          int32_t* ax = static_cast<int32_t*>(a.g.acc_x[layer]) + off;
+          int32_t* ah = static_cast<int32_t*>(a.g.acc_h[layer]) + off;
+          const int32_t nax = wrap_add(*ax, sparse_dot_int(dx_s + s * H, list_s, nx, wi, j));
+          const int32_t nah = wrap_add(*ah, sparse_dot_int(dh_s + s * H, list_s + H, nh, wh, j));
+          *ax = nax;
+          *ah = nah;
+          g[j] = clip_act(round_shift_even(wrap_add(nax, bi[j]), 7));
+          g[G + j] = clip_act(round_shift_even(wrap_add(nah, bh[j]), 7));
+        } else {
+          float* ax = static_cast<float*>(a.g.acc_x[layer]) + off;
+          float* ah = static_cast<float*>(a.g.acc_h[layer]) + off;
+          const float nax = __fadd_rn(*ax, sparse_dot_float(dx_s + s * H, list_s, nx, wi, j));
+          const float nah = __fadd_rn(*ah, sparse_dot_float(dh_s + s * H, list_s + H, nh, wh, j));
+          *ax = nax;
+          *ah = nah;
+          g[j] = q68_code(__fadd_rn(nax, __fmul_rn(static_cast<float>(bi[j]), ACC_LSB)));
+          g[G + j] = q68_code(__fadd_rn(nah, __fmul_rn(static_cast<float>(bh[j]), ACC_LSB)));
+        }
+      }
+    } else {
+      for (int item = tid; item < SB * G; item += THREADS) {
+        const int s = item / G;
+        const int j = item % G;
+        if (!active_s[s]) continue;
+        int32_t* g = gate_s + s * 2 * G;
+        if (flt) {
+          const float* xf = reinterpret_cast<const float*>(x_s + s * H);
+          const float* hf = reinterpret_cast<const float*>(h_s + s * H);
+          g[j] = __float_as_int(accum_float(xf, in_dim, a.wf + w_i_off, G, a.bf + b_i_off, j));
+          g[G + j] = __float_as_int(accum_float(hf, H, a.wf + w_h_off, G, a.bf + b_h_off, j));
+        } else {
+          g[j] = accum(x_s + s * H, in_dim, wi, G, bi, j, codes);
+          g[G + j] = accum(h_s + s * H, H, wh, G, bh, j, codes);
+        }
+      }
     }
     __syncthreads();
     for (int item = tid; item < SB * H; item += THREADS) {
@@ -251,18 +473,27 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
       if (!active_s[s]) continue;
       const int32_t* gi = gate_s + s * 2 * G;
       const int32_t* gh = gi + G;
+      int32_t* hp = h_s + s * H + u;
+      if (flt) {
+        const float r = sigmoid_f(__fadd_rn(__int_as_float(gi[u]), __int_as_float(gh[u])));
+        const float z =
+            sigmoid_f(__fadd_rn(__int_as_float(gi[H + u]), __int_as_float(gh[H + u])));
+        const float nn = tanhf(__fadd_rn(__int_as_float(gi[2 * H + u]),
+                                         __fmul_rn(r, __int_as_float(gh[2 * H + u]))));
+        const float h_new = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), nn),
+                                      __fmul_rn(z, __int_as_float(*hp)));
+        *hp = __float_as_int(h_new);
+        continue;
+      }
       const int r = a.sig_rom[rom_index(gi[u] + gh[u])];
       const int z = a.sig_rom[rom_index(gi[H + u] + gh[H + u])];
       const int rn = clip_act(round_shift_even(r * gh[2 * H + u], 8));
       const int nn = a.tanh_rom[rom_index(gi[2 * H + u] + rn)];
-      int32_t* hp = h_s + s * H + u;
-      const int h_old =
-          integer ? *hp : __float2int_rn(__fmul_rn(__int_as_float(*hp), 256.0f));
+      const int h_old = codes ? *hp : grid_code(__int_as_float(*hp));
       const int h_new =
           clip_act(round_shift_even((256 - z) * nn + z * h_old, 8));
-      *hp = integer ? h_new
-                    : __float_as_int(
-                          __fmul_rn(static_cast<float>(h_new), 0.00390625f));
+      *hp = codes ? h_new
+                  : __float_as_int(__fmul_rn(static_cast<float>(h_new), Q68_LSB));
     }
     __syncthreads();
   }
@@ -272,9 +503,14 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     const int s = item / K;
     const int k = item % K;
     if (!active_s[s]) continue;
-    const int code = accum(act_s + 2 * SB * H + s * H, H, w_s + W_FC, K,
-                           b_s + B_FC, k, integer);
-    logit_s[s * K + k] = __fmul_rn(static_cast<float>(code), 0.00390625f);
+    const int32_t* h2 = act_s + 2 * SB * H + s * H;
+    if (flt) {
+      logit_s[s * K + k] = accum_float(reinterpret_cast<const float*>(h2), H,
+                                       a.wf + W_FC, K, a.bf + B_FC, k);
+    } else {
+      const int code = accum(h2, H, w_s + W_FC, K, b_s + B_FC, k, codes);
+      logit_s[s * K + k] = __fmul_rn(static_cast<float>(code), Q68_LSB);
+    }
   }
   __syncthreads();
 
@@ -284,7 +520,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     const int s = (i / H) % SB;
     const int u = i % H;
     if (active_s[s]) {
-      a.h[layer][static_cast<int64_t>(base + s) * H + u] =
+      static_cast<int32_t*>(a.g.h[layer])[static_cast<int64_t>(base + s) * H + u] =
           act_s[(1 + layer) * SB * H + s * H + u];
     }
   }
@@ -322,24 +558,30 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
 
 extern "C" int tick_fused_launch(
     const void* inp, const void* mask, int n, void* s1, void* s2,
-    void* h1, void* h2, void* scores, void* top, void* fv_out, const void* w,
-    const void* b, const void* coeffs, const void* mu, const void* sigma,
+    const void* gru, void* scores, void* top, void* fv_out, const void* w,
+    const void* b, const void* wf, const void* bf, const void* theta,
+    const void* coeffs, const void* mu, const void* sigma,
     const void* log_rom, const void* sig_rom, const void* tanh_rom,
     float q_max, float q_scale, float inv_frame, float smoothing,
-    float one_minus, int raw, int integer, void* stream) {
+    float one_minus, int raw, int backend, void* stream) {
+  if (backend < BK_QAT || backend > BK_DELTA_INT) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   TickArgs a;
   a.inp = static_cast<const float*>(inp);
   a.mask = static_cast<const uint8_t*>(mask);
   a.n = n;
   a.s1 = static_cast<float*>(s1);
   a.s2 = static_cast<float*>(s2);
-  a.h[0] = static_cast<int32_t*>(h1);
-  a.h[1] = static_cast<int32_t*>(h2);
+  a.g = *static_cast<const GruState*>(gru);  // a host struct of pointers
   a.scores = static_cast<float*>(scores);
   a.top = static_cast<int64_t*>(top);
   a.fv_out = static_cast<float*>(fv_out);
   a.w = static_cast<const int8_t*>(w);
   a.b = static_cast<const int32_t*>(b);
+  a.wf = static_cast<const float*>(wf);
+  a.bf = static_cast<const float*>(bf);
+  a.theta = static_cast<const int32_t*>(theta);
   a.coeffs = static_cast<const float*>(coeffs);
   a.mu = static_cast<const float*>(mu);
   a.sigma = static_cast<const float*>(sigma);
@@ -352,12 +594,14 @@ extern "C" int tick_fused_launch(
   a.smoothing = smoothing;
   a.one_minus = one_minus;
   a.raw = raw;
-  a.integer = integer;
+  a.backend = backend;
+  const int smem =
+      SMEM_BASE + ((backend == BK_DELTA || backend == BK_DELTA_INT) ? SMEM_DELTA : 0);
   const cudaError_t e = cudaFuncSetAttribute(
-      tick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      tick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BASE + SMEM_DELTA);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = (n + SB - 1) / SB;
-  tick_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(a);
+  tick_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

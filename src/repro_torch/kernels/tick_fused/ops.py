@@ -2,18 +2,21 @@
 
 Counterpart of `repro.kernels.tick_fused.ops.tick_fused`. A CUDA tensor
 launches the hand-written kernel (``csrc/tick_fused.cu``, which replaces
-``src/repro/kernels/tick_fused/kernel.py:256 tick_fused_pallas``): the
+``src/repro/kernels/tick_fused/kernel.py:256 tick_fused_pallas`` and, for
+the ΔGRU backends, the gather-compacted column update K4 inside it): the
 whole tick in ONE launch. A CPU tensor takes the plain version
 `tick_reference`. Any other device raises.
 
 The kernel is built for the paper's model: 16 channels, 256-sample hops
 (512 internal samples), two GRU(48) layers, 12 classes, the log +
-normalizer post-processing, and the qat or integer classifier. Any other
-geometry on a CUDA tensor raises rather than running something else.
+normalizer post-processing, and any of the five classifier backends
+(float, qat, integer, delta, delta-int). Any other geometry on a CUDA
+tensor raises rather than running something else.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -30,19 +33,36 @@ _GEOMETRY = dict(
     num_channels=16, chunk_samples=256, frame_len=512, input_dim=16,
     hidden_dim=48, num_layers=2, num_classes=12, quant_bits=12, log_bits=10,
 )
+# The kernel's backend numbers (enum Backend in csrc/tick_fused.cu).
+_BACKENDS = {"qat": 0, "integer": 1, "float": 2, "delta": 3, "delta-int": 4}
+# The per-layer leaves of a ΔGRU state, in the order of struct GruState.
+_DELTA_KEYS = ("h", "x_ref", "h_ref", "acc_x", "acc_h", "skipped", "total")
+
+
+class GruStatePointers(ctypes.Structure):
+    """ctypes mirror of ``struct GruState`` in csrc/tick_fused.cu: per
+    layer, the device pointers of the classifier state (the dense
+    backends fill ``h`` only). Passed to the launch by address."""
+
+    _fields_ = [(key, ctypes.c_void_p * 2) for key in _DELTA_KEYS]
 
 
 @dataclasses.dataclass(frozen=True)
 class TickOperands:
     """Everything the kernel reads besides the per-tick slab and state,
-    resident on the card: int8 weight codes and int32 bias codes packed
-    layer by layer (both backends run on codes; for qat they are exactly
-    the fake-quantized weights), the filterbank, the norm stats, and the
-    log / sigmoid / tanh ROMs."""
+    resident on the card: the weights packed layer by layer (int8 weight
+    codes and int32 bias codes for qat, integer, delta and delta-int,
+    which all run on codes; float32 ``wf`` / ``bf`` for float), the
+    per-layer ΔGRU thresholds (θ_x, θ_h) as Q6.8 codes (zero for the
+    dense backends), the filterbank, the norm stats, and the log /
+    sigmoid / tanh ROMs."""
 
-    integer: bool
+    backend: str
     w: torch.Tensor
     b: torch.Tensor
+    wf: torch.Tensor
+    bf: torch.Tensor
+    theta: torch.Tensor
     coeffs: torch.Tensor
     mu: torch.Tensor
     sigma: torch.Tensor
@@ -72,38 +92,57 @@ def _check_geometry(pipeline) -> None:
             "the CUDA tick implements the paper's post-processing "
             "(use_log=True, use_norm=True)"
         )
-    if cfg.classifier_key not in ("qat", "integer"):
+    if cfg.classifier_key not in _BACKENDS:
         raise ValueError(
-            f"the CUDA tick serves the qat and integer classifiers; got "
+            f"the CUDA tick serves the classifiers {sorted(_BACKENDS)}; got "
             f"{cfg.classifier_key!r}"
         )
 
 
-def pack_operands(pipeline, params, frontend_state, device) -> TickOperands:
-    """Upload what the kernel reads once; a server does this at
-    construction. ``params`` are float (qat) or `QuantizedClassifier`
-    (integer) parameters."""
-    _check_geometry(pipeline)
-    cfg = pipeline.config
-    if frontend_state is None or frontend_state.norm_stats is None:
-        raise ValueError("use_norm requires fitted norm_stats")
-    q = params
-    if not isinstance(q, QuantizedClassifier):
-        q = quantize_classifier(params, cfg.gru)
+def _packed(gru_layers, fc_w, fc_b):
+    """Weights and biases in the kernel's layer-by-layer layout."""
     w = torch.cat(
-        [t.reshape(-1) for layer in q.gru for t in (layer["w_i"], layer["w_h"])]
-        + [q.fc_w.reshape(-1)]
+        [t.reshape(-1) for layer in gru_layers for t in (layer["w_i"], layer["w_h"])]
+        + [fc_w.reshape(-1)]
     )
     b = torch.cat(
-        [t for layer in q.gru for t in (layer["b_i"], layer["b_h"])] + [q.fc_b]
+        [t for layer in gru_layers for t in (layer["b_i"], layer["b_h"])] + [fc_b]
     )
-    ns = frontend_state.norm_stats
+    return w, b
+
+
+def pack_operands(pipeline, params, frontend_state, device) -> TickOperands:
+    """Upload what the kernel reads once; a server does this at
+    construction. ``params`` are float parameters (float, qat, delta) or
+    `QuantizedClassifier` codes (integer, delta-int)."""
+    _check_geometry(pipeline)
+    cfg = pipeline.config
+    key = cfg.classifier_key
+    if frontend_state is None or frontend_state.norm_stats is None:
+        raise ValueError("use_norm requires fitted norm_stats")
     f32 = lambda t: t.to(device=device, dtype=torch.float32).contiguous()  # noqa: E731
+    unused = lambda dtype: torch.empty((0,), dtype=dtype, device=device)  # noqa: E731
+    if key == "float":
+        wf, bf = _packed(params["gru"], params["fc"]["w"], params["fc"]["b"])
+        wf, bf = f32(wf), f32(bf)
+        w, b = unused(torch.int8), unused(torch.int32)
+    else:
+        q = params
+        if not isinstance(q, QuantizedClassifier):
+            q = quantize_classifier(params, cfg.gru)
+        w, b = _packed(q.gru, q.fc_w, q.fc_b)
+        w = w.to(device=device, dtype=torch.int8).contiguous()
+        b = b.to(device=device, dtype=torch.int32).contiguous()
+        wf, bf = unused(torch.float32), unused(torch.float32)
+    thetas = [0, 0] * cfg.gru.num_layers
+    if pipeline.classifier.is_delta:
+        thetas = [t for pair in pipeline.classifier.delta.code_thresholds(
+            cfg.gru.num_layers) for t in pair]
+    ns = frontend_state.norm_stats
     fexc = cfg.fex
     return TickOperands(
-        integer=cfg.classifier_key == "integer",
-        w=w.to(device=device, dtype=torch.int8).contiguous(),
-        b=b.to(device=device, dtype=torch.int32).contiguous(),
+        backend=key, w=w, b=b, wf=wf, bf=bf,
+        theta=torch.tensor(thetas, dtype=torch.int32, device=device),
         coeffs=f32(_nominal_coeffs(cfg, frontend_state, device)),
         mu=f32(ns.mu),
         sigma=f32(ns.sigma),
@@ -125,6 +164,38 @@ def _require(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"tick_fused: {name} must be contiguous")
 
 
+def _gru_pointers(classifier, gru, n, c, h, dev) -> GruStatePointers:
+    """Check the classifier state against what the kernel writes and
+    collect its device pointers."""
+    ptrs = GruStatePointers()
+    layers = tuple(gru)
+    backend = classifier.name
+    if len(layers) != 2:
+        raise ValueError(f"tick_fused: gru must hold 2 layers; got {len(layers)}")
+    if classifier.is_delta:
+        dtype = torch.float32 if backend == "delta" else torch.int32
+        for layer, st in enumerate(layers):
+            in_dim = c if layer == 0 else h
+            shapes = dict(h=(n, h), x_ref=(n, in_dim), h_ref=(n, h),
+                          acc_x=(n, 3 * h), acc_h=(n, 3 * h),
+                          skipped=(n,), total=(n,))
+            if not isinstance(st, dict) or set(st) != set(_DELTA_KEYS):
+                raise ValueError(
+                    f"tick_fused: gru[{layer}] must be a dict of {_DELTA_KEYS}"
+                )
+            for key in _DELTA_KEYS:
+                t = st[key]
+                want = torch.int32 if key in ("skipped", "total") else dtype
+                _require(t, f"gru[{layer}][{key!r}]", shapes[key], want, dev)
+                getattr(ptrs, key)[layer] = t.data_ptr()
+        return ptrs
+    dtype = torch.int32 if backend == "integer" else torch.float32
+    for layer, t in enumerate(layers):
+        _require(t, f"gru[{layer}]", (n, h), dtype, dev)
+        ptrs.h[layer] = t.data_ptr()
+    return ptrs
+
+
 def tick_fused(
     pipeline,
     raw_audio: bool,
@@ -141,9 +212,11 @@ def tick_fused(
     """One fused serving tick; ``state`` is the ``(gru, carry, scores)``
     tuple of `tick_reference`. Returns ``(new_state, scores, top)``.
 
-    On the card the kernel writes the new state INTO the given state
-    tensors (the counterpart of the reference's buffer donation): treat
-    ``state`` as consumed and use the returned one. ``operands`` come
+    ``gru`` is a tuple of per-layer tensors, or of per-layer dicts of the
+    seven ΔGRU leaves for delta / delta-int. On the card the kernel
+    writes the new state INTO the given state tensors (the counterpart of
+    the reference's buffer donation): treat ``state`` as consumed and use
+    the returned one. ``operands`` come
     from `pack_operands` (built here when None). ``fv_out``, an (N, C)
     float32 CUDA tensor, receives the kernel's FV_Norm frame of every
     submitting stream (a diagnostic output of the kernel).
@@ -160,18 +233,21 @@ def tick_fused(
         operands = pack_operands(pipeline, params, frontend_state, dev)
     else:
         _check_geometry(pipeline)
-    if operands.w.device != dev:
-        raise ValueError(f"operands on {operands.w.device}, inputs on {dev}")
+    if operands.theta.device != dev:
+        raise ValueError(f"operands on {operands.theta.device}, inputs on {dev}")
+    if operands.backend != pipeline.config.classifier_key:
+        raise ValueError(
+            f"operands packed for {operands.backend!r}, pipeline serves "
+            f"{pipeline.config.classifier_key!r}"
+        )
     gru, carry, scores = state
     n = inp.shape[0]
     cfg = pipeline.config
     c, h, k = cfg.fex.num_channels, cfg.gru.hidden_dim, cfg.gru.num_classes
     in_dim = pipeline.chunk_samples if raw_audio else c
-    h_dtype = torch.int32 if operands.integer else torch.float32
     _require(inp, "inp", (n, in_dim), torch.float32, dev)
     _require(mask, "mask", (n,), torch.bool, dev)
-    for i, t in enumerate(gru):
-        _require(t, f"gru[{i}]", (n, h), h_dtype, dev)
+    ptrs = _gru_pointers(pipeline.classifier, gru, n, c, h, dev)
     for key in ("s1", "s2"):
         _require(carry[key], f"carry[{key!r}]", (n, c), torch.float32, dev)
     _require(scores, "scores", (n, k), torch.float32, dev)
@@ -187,13 +263,14 @@ def tick_fused(
         rc = lib.tick_fused_launch(
             inp.data_ptr(), mask.data_ptr(), n,
             carry["s1"].data_ptr(), carry["s2"].data_ptr(),
-            gru[0].data_ptr(), gru[1].data_ptr(), scores.data_ptr(),
+            ctypes.addressof(ptrs), scores.data_ptr(),
             top.data_ptr(), None if fv_out is None else fv_out.data_ptr(),
-            op.w.data_ptr(), op.b.data_ptr(), op.coeffs.data_ptr(),
+            op.w.data_ptr(), op.b.data_ptr(), op.wf.data_ptr(), op.bf.data_ptr(),
+            op.theta.data_ptr(), op.coeffs.data_ptr(),
             op.mu.data_ptr(), op.sigma.data_ptr(), op.log_rom.data_ptr(),
             op.sig_rom.data_ptr(), op.tanh_rom.data_ptr(),
             op.q_max, op.q_scale, 1.0 / cfg.fex.frame_len, s, one_minus,
-            int(raw_audio), int(op.integer),
+            int(raw_audio), _BACKENDS[op.backend],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check("tick_fused", rc)

@@ -1,18 +1,26 @@
 """Plain version of the fused serving tick.
 
-Counterpart of `repro.kernels.tick_fused.ref.tick_reference` for the
-qat and integer classifiers with no cascade: the frontend feature frame
-(or an FV_Norm passthrough), every GRU layer through the pipeline's
-classifier backend, the FC head, softmax, exponential score smoothing
-and the masked state advance. The CPU tier of the serving tick, and what
-the CUDA kernel is held against on the card.
+Counterpart of `repro.kernels.tick_fused.ref.tick_reference` for every
+classifier backend with no cascade: the frontend feature frame (or an
+FV_Norm passthrough), every GRU layer through the pipeline's classifier
+backend, the FC head, softmax, exponential score smoothing and the
+masked state advance. The CPU tier of the serving tick, and what the
+CUDA kernel is held against on the card.
 
-The state crossing this boundary is the 3-tuple ``(gru, carry, scores)``.
+The state crossing this boundary is the 3-tuple ``(gru, carry, scores)``;
+``gru`` is a tuple of per-layer tensors, or of per-layer dicts for the
+ΔGRU backends.
+
+``step_fn`` overrides the classifier step (default:
+``pipeline.streaming_logits_apply``); `gather.make_sparse_step` gives the
+gather-compacted ΔGRU step, the plain version of the kernel's sparse
+update. It receives the tick's mask as a fourth argument, so a sparse
+step can drop the Δ·W work of streams whose new state is discarded.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +57,7 @@ def tick_reference(
     mask: torch.Tensor,
     frontend_state,
     smoothing: float,
+    step_fn: Optional[Callable] = None,
 ):
     """One serving tick on explicit state tensors.
 
@@ -66,7 +75,10 @@ def tick_reference(
         carry = masked_select(mask, new_carry, carry_in)
     else:
         carry, fv = carry_in, inp
-    new_gru, logits = pipeline.streaming_logits_apply(params, list(gru_in), fv)
+    if step_fn is None:
+        new_gru, logits = pipeline.streaming_logits_apply(params, list(gru_in), fv)
+    else:
+        new_gru, logits = step_fn(params, list(gru_in), fv, mask)
     gru = masked_select(mask, tuple(new_gru), tuple(gru_in))
     s, one_minus = smoothing_weights(smoothing)
     smoothed = s * scores_in + one_minus * softmax(logits)

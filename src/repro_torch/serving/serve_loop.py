@@ -15,9 +15,10 @@ lives in one `ServerState`; a stream that did not submit keeps every
 byte of its state across the tick. `open_stream`/`close_stream` recycle
 slots through a `StreamRouter`, zeroing only the reused slot.
 
-This slice serves the qat and integer classifiers on one device. Async
-ingress, metrics, `resize` and sharding arrive with later slices
-(ROADMAP queue 1).
+It serves all five classifier backends (float, qat, integer, delta,
+delta-int) on one device; the ΔGRU backends' per-stream sparsity is
+`StreamingKWSServer.sparsity`. The cascade, async ingress, metrics,
+`resize` and sharding arrive with later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.frontend import tree_leaves
+from repro_torch.core.gru_delta import effective_mac_fraction
 from repro_torch.kernels.build import resolve_device
 from repro_torch.kernels.tick_fused import pack_operands, tick_fused
 from repro_torch.serving.autoscale import StreamRouter
@@ -41,8 +44,10 @@ _TICK_IMPLS = ("auto",)
 class ServerState:
     """All per-slot state of a `StreamingKWSServer`.
 
-    gru    — per-layer classifier state, (max_streams, H) each: float32
-             for qat, int32 Q6.8 codes for integer.
+    gru    — per-layer classifier state: (max_streams, H) float32 for
+             float / qat, int32 Q6.8 codes for integer; for delta /
+             delta-int a dict per layer of the seven ΔGRU leaves (h,
+             x_ref, h_ref, acc_x, acc_h and the skipped / total counters).
     carry  — frontend carry {"s1", "s2"}, (max_streams, C) float32 each.
     scores — exponentially smoothed posteriors, (max_streams, K).
 
@@ -58,7 +63,7 @@ class ServerState:
 
 def _reset_slot(state: ServerState, slot: int) -> None:
     """Zero one slot's slice of every state tensor, in place."""
-    for t in (*state.gru, *state.carry.values(), state.scores):
+    for t in tree_leaves((state.gru, state.carry, state.scores)):
         t[slot] = 0
 
 
@@ -79,8 +84,8 @@ class StreamingKWSServer:
     constructor raises, and ``device="cpu"`` runs the plain PyTorch tick.
     ``tick_impl`` accepts only ``"auto"``: on the card the tick is the
     CUDA kernel and nothing else. ``params`` are the float parameters (or
-    `QuantizedClassifier` codes for ``classifier="integer"``) on
-    ``device``; the server backend-shapes them once.
+    `QuantizedClassifier` codes for ``classifier="integer"`` /
+    ``"delta-int"``) on ``device``; the server backend-shapes them once.
 
     `step_batch` and `run_batch` return owned host copies. `run_batch`
     runs its ticks as a loop on the device and copies to the host once.
@@ -134,6 +139,27 @@ class StreamingKWSServer:
     def scores(self) -> np.ndarray:
         """Smoothed per-slot posteriors as an owned host array."""
         return _host(self.state.scores)
+
+    @property
+    def sparsity(self) -> np.ndarray:
+        """Per-slot effective-MAC fraction, (max_streams,) float32.
+
+        For the ΔGRU backends it reads the skipped / total counters the
+        tick advances per stream (executed / offered over the whole
+        classifier, the always-dense FC included; see
+        `repro_torch.core.gru_delta.effective_mac_fraction`): 1.0 is
+        dense, 0.1 means the engine skipped 90 % of the eligible work.
+        Counters reset with the slot on `open_stream` and advance only
+        under the submitted mask. Dense backends report all ones. An
+        owned host copy, computed on the host from the counters.
+        """
+        if self.pipeline.classifier.is_delta:
+            counters = [{k: st[k].to("cpu") for k in ("skipped", "total")}
+                        for st in self.state.gru]
+            return effective_mac_fraction(
+                counters, self.pipeline.config.gru
+            ).numpy()
+        return np.ones((self.max_streams,), np.float32)
 
     # ---- slot lifecycle ----
 

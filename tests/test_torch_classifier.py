@@ -1,10 +1,12 @@
-"""The port's qat and integer classifiers against the reference.
+"""The port's float, qat and integer classifiers against the reference.
 
 Parameters are made by the reference and carried across through numpy
 (`repro_torch.convert`); inputs lie on the Q6.8 grid, as every frame the
-frontend makes does. States and logit codes must be array-equal, and the
+frontend makes does. qat / integer states and logit codes must be
+array-equal, the float backend agree within FLOAT_ATOL (R3), and the
 plain integer GEMM must equal `intgemm_ref` and an int64 numpy oracle,
-saturation and degenerate shapes included (R4).
+saturation and degenerate shapes included (R4). The ΔGRU backends are
+held in tests/test_torch_delta.py.
 """
 
 import jax
@@ -30,6 +32,10 @@ from repro_torch.serving.quantize import quantize_classifier
 
 CFG = jgru.GRUConfig()
 TCFG = tgru.GRUConfig()
+# float32 forward: matmul order and sigmoid / tanh differ from XLA's in the
+# last bits (the forward's logits differed by at most 6e-8 on this seed;
+# the bound is the one tests/test_torch_delta.py states for the server)
+FLOAT_ATOL = 2e-6
 
 
 @pytest.fixture(scope="module")
@@ -161,18 +167,40 @@ def test_plain_intgemm_matches_reference_and_oracle(m, k, n, kind):
 
 
 def test_registry_ports_qat_and_integer_only():
-    assert available_classifiers() == ("integer", "qat")
-    for later in ("float", "delta", "delta-int"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            get_classifier(later)
+    # every backend of the reference is ported now; only the cascade waits
+    assert available_classifiers() == ("delta", "delta-int", "float", "integer", "qat")
+    for name in available_classifiers():
+        assert get_classifier(name).name == name
     with pytest.raises(KeyError, match="registered classifiers"):
         get_classifier("bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, \"ΔGRU backends\""):
-        KWSPipelineConfig(delta=object())
+    assert KWSPipeline(KWSPipelineConfig(gru=tgru.GRUConfig(quantized=False))).classifier.name == "float"
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, \"Cascade gate\""):
         KWSPipelineConfig(cascade=object())
-    with pytest.raises(TypeError, match="QuantizedClassifier"):
-        get_classifier("integer").step({}, [], torch.zeros(1, 16), TCFG)
+    for name in ("integer", "delta-int"):
+        with pytest.raises(TypeError, match="QuantizedClassifier"):
+            get_classifier(name).step({}, [], torch.zeros(1, 16), TCFG)
+
+
+def test_float_forward_and_step_within_tolerance(params):
+    jp, tp = params
+    fcfg, tfcfg = jgru.GRUConfig(quantized=False), tgru.GRUConfig(quantized=False)
+    fv = np.random.default_rng(6).standard_normal((3, 8, 16)).astype(np.float32)
+    want = jax.jit(lambda p, x: jgru.gru_classifier_forward(p, x, fcfg))(jp, fv)
+    got = tgru.gru_classifier_forward(tp, torch.from_numpy(fv), tfcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=FLOAT_ATOL)
+    jpipe, tpipe = JPipeline(JConfig(classifier="float")), KWSPipeline(KWSPipelineConfig(classifier="float"))
+    np.testing.assert_allclose(tpipe.logits(tp, torch.from_numpy(fv)).numpy(),
+                               np.asarray(jpipe.logits(jp, fv)), rtol=0, atol=FLOAT_ATOL)
+    js, ts = jpipe.streaming_init(3), tpipe.streaming_init(3, device="cpu")
+    for t in range(8):
+        js, jl = jpipe.streaming_step(jp, js, fv[:, t])
+        ts, tl = tpipe.streaming_step(tp, ts, torch.from_numpy(fv[:, t]))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=FLOAT_ATOL)
+    for a, b in zip(ts, js):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=FLOAT_ATOL)
+    # the float backend quantizes nothing: its states leave the Q6.8 grid
+    assert (ts[0].numpy() * 256 % 1 != 0).any()
 
 
 def test_init_params_uses_the_generator():

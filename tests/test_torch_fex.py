@@ -25,6 +25,8 @@ from repro_torch.core.frontend import (
     available_frontends,
     get_frontend,
     masked_select,
+    tree_clone,
+    tree_leaves,
 )
 from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
 
@@ -145,3 +147,20 @@ def test_masked_select_keeps_idle_rows_exactly():
     out = masked_select(mask, new, old)
     np.testing.assert_array_equal(out["a"].numpy(), [[1, 1], [-1, -1], [1, 1]])
     np.testing.assert_array_equal(out["b"][1].numpy(), [5, 1, 5])
+
+
+def test_tree_leaves_and_clone_walk_dense_and_delta_states_alike():
+    dense = (torch.ones(3, 2), torch.zeros(3, 2))
+    delta = ({"h": torch.ones(3, 2), "skipped": torch.zeros(3, dtype=torch.int32)},)
+    tree = (dense, delta, {"s1": torch.full((3,), 2.0)}, torch.zeros(3, 4))
+    leaves = tree_leaves(tree)
+    assert [tuple(t.shape) for t in leaves] == [(3, 2), (3, 2), (3, 2), (3,), (3,), (3, 4)]
+    assert leaves[3].dtype == torch.int32
+    copy = tree_clone(tree)
+    assert type(copy[1][0]) is dict and list(copy[1][0]) == ["h", "skipped"]
+    for a, b in zip(tree_leaves(copy), leaves):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    # masked_select walks the same order
+    mask = torch.tensor([True, False, True])
+    picked = masked_select(mask, copy, tree)
+    assert len(tree_leaves(picked)) == len(leaves)

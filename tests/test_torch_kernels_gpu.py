@@ -11,15 +11,25 @@ import pytest
 import torch
 
 from repro_torch.core.fex import FExNormStats
+from repro_torch.core.frontend import tree_clone, tree_leaves
+from repro_torch.core.gru_delta import DeltaConfig
 from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.intgemm import intgemm, intgemm_ref
 from repro_torch.kernels.tick_fused import pack_operands, tick_fused, tick_reference
+from repro_torch.kernels.tick_fused.gather import make_sparse_step
 from repro_torch.serving.serve_loop import StreamingKWSServer
 
 pytestmark = pytest.mark.gpu
 
 N = 4096  # the main path's stream count
+# (classifier, θ): θ = 64 is above every Q6.8 delta, so no column fires
+BACKENDS = [("qat", None), ("integer", None), ("float", None),
+            ("delta", 0.0), ("delta", 0.15), ("delta", 64.0),
+            ("delta-int", 0.0), ("delta-int", 0.15), ("delta-int", 64.0)]
+# the float backend against its plain version: the kernel sums and
+# evaluates sigmoid / tanh in its own order (states and scores)
+FLOAT_TOL = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -58,42 +68,65 @@ def test_intgemm_kernel_equals_plain(dev, m, k, n, kind):
     assert torch.equal(got, intgemm_ref(x, w))
 
 
-@pytest.mark.parametrize("classifier", ["qat", "integer"])
+def _pipe(dev, classifier, theta):
+    delta = None if theta is None else DeltaConfig(theta, theta)
+    return KWSPipeline(KWSPipelineConfig(classifier=classifier, delta=delta),
+                       norm_stats=_norm_stats(dev))
+
+
+@pytest.mark.parametrize("classifier,theta", BACKENDS, ids=[f"{c}-{t}" for c, t in BACKENDS])
 @pytest.mark.parametrize("raw", [True, False], ids=["raw", "fv"])
 @pytest.mark.parametrize("n", [N, 37], ids=["full", "ragged"])
-def test_tick_kernel_equals_plain(dev, classifier, raw, n):
-    pipe = KWSPipeline(KWSPipelineConfig(classifier=classifier), norm_stats=_norm_stats(dev))
+def test_tick_kernel_equals_plain(dev, classifier, theta, raw, n):
+    """Against the plain tick; for the ΔGRU backends its sparse step (K4's
+    plain version) at both extremes of the fired-column list."""
+    pipe = _pipe(dev, classifier, theta)
     params = pipe.prepare_params(pipe.init_params(torch.Generator().manual_seed(1), device=dev))
     ops = pack_operands(pipe, params, pipe.state, dev)
+    step_fn = make_sparse_step(pipe)
     state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
              torch.zeros((n, 12), device=dev))
     g = torch.Generator(device=dev).manual_seed(2)
     gains = torch.logspace(-2, -0.3, n, device=dev)[:, None]
+    flt = classifier == "float"
     for t, frac in enumerate([1.0, 0.7, 0.0, 0.5]):
         if raw:
             inp = torch.randn((n, 256), generator=g, device=dev) * gains
         else:
             inp = torch.round(torch.randn((n, 16), generator=g, device=dev) * 512) / 256
         mask = torch.rand(n, generator=g, device=dev) < frac
-        clone = lambda s: (tuple(x.clone() for x in s[0]), {k: v.clone() for k, v in s[1].items()}, s[2].clone())  # noqa: E731
-        (pg, pc, ps), _, ptop = tick_reference(pipe, raw, params, clone(state), inp, mask, pipe.state, 0.7)
+        (pg, pc, ps), _, ptop = tick_reference(pipe, raw, params, tree_clone(state), inp, mask,
+                                               pipe.state, 0.7, step_fn=step_fn)
         fv = torch.zeros((n, 16), device=dev)
-        (kg, kc, ks), _, ktop = tick_fused(pipe, raw, params, clone(state), inp, mask, pipe.state, 0.7, operands=ops, fv_out=fv)
-        for a, b in zip(kg, pg):
-            assert torch.equal(a, b), f"tick {t}"
+        before = dict(build.launches)
+        (kg, kc, ks), _, ktop = tick_fused(pipe, raw, params, tree_clone(state), inp, mask, pipe.state, 0.7, operands=ops, fv_out=fv)
+        assert build.launches["tick_fused"] == before.get("tick_fused", 0) + 1
+        for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
+            if flt:
+                assert float((a - b).abs().max()) <= FLOAT_TOL, f"tick {t}"
+            else:
+                assert torch.equal(a, b), f"tick {t}"
         for key in ("s1", "s2"):
             assert torch.equal(kc[key], pc[key])
-        assert torch.equal(ktop, ptop)
-        assert float((ks - ps).abs().max()) <= 1e-6
+        assert float((ks - ps).abs().max()) <= (FLOAT_TOL if flt else 1e-6)
+        if flt:  # top where the plain tick's two best scores are clearly apart
+            best2 = torch.topk(ps, 2, dim=-1).values
+            clear = best2[:, 0] - best2[:, 1] > 2 * FLOAT_TOL
+            assert torch.equal(ktop[clear], ptop[clear]), f"tick {t}"
+        else:
+            assert torch.equal(ktop, ptop)
         if raw:
-            _, pfv = pipe.streaming_features_apply(clone(state)[1], inp, pipe.state)
+            _, pfv = pipe.streaming_features_apply(tree_clone(state)[1], inp, pipe.state)
             assert torch.equal(fv[mask], pfv[mask])
         state = (kg, kc, ks)
+    if theta == 64.0:  # nothing fired: every offered column was skipped
+        for st in kg:
+            assert torch.equal(st["skipped"], st["total"])
 
 
-@pytest.mark.parametrize("classifier", ["qat", "integer"])
-def test_server_launches_one_tick_kernel_per_tick(dev, classifier):
-    pipe = KWSPipeline(KWSPipelineConfig(classifier=classifier), norm_stats=_norm_stats(dev))
+@pytest.mark.parametrize("classifier,theta", BACKENDS[:5], ids=[f"{c}-{t}" for c, t in BACKENDS[:5]])
+def test_server_launches_one_tick_kernel_per_tick(dev, classifier, theta):
+    pipe = _pipe(dev, classifier, theta)
     srv = StreamingKWSServer(pipe, pipe.init_params(torch.Generator().manual_seed(3)), max_streams=64)
     for sid in range(40):
         srv.open_stream(sid)
@@ -104,6 +137,12 @@ def test_server_launches_one_tick_kernel_per_tick(dev, classifier):
     srv.run_batch((rng.standard_normal((4, 64, 256)) * 0.1).astype(np.float32), np.ones((4, 64), bool))
     assert build.launches["tick_fused"] == 7
     assert build.launches["intgemm"] == 0
+    sp = srv.sparsity
+    assert sp.shape == (64,) and (sp <= 1).all()
+    if theta is None:
+        assert (sp == 1).all()
+    elif theta > 0:
+        assert (sp < 1).any()
 
 
 def test_integer_pipeline_step_launches_intgemm_five_times(dev):
@@ -119,6 +158,23 @@ def test_integer_pipeline_step_launches_intgemm_five_times(dev):
     )
     assert torch.equal(logits.cpu(), cpu_logits)
     for a, b in zip(states, cpu_states):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_delta_int_pipeline_step_launches_intgemm_five_times(dev):
+    pipe = KWSPipeline(KWSPipelineConfig(classifier="delta-int", delta=DeltaConfig(0.15, 0.15)))
+    params = pipe.init_params(torch.Generator().manual_seed(6), device=dev)
+    fv = torch.round(torch.randn((N, 16), device=dev) * 512) / 256
+    states, cpu_states = pipe.streaming_init(N, dev), pipe.streaming_init(N, "cpu")
+    q = pipe.prepare_params(params)
+    cpu_q = q.to("cpu")
+    for _ in range(2):
+        build.launches.clear()
+        states, logits = pipe.streaming_step(q, states, fv)
+        assert build.launches["intgemm"] == 5
+        cpu_states, cpu_logits = pipe.streaming_step(cpu_q, cpu_states, fv.cpu())
+        assert torch.equal(logits.cpu(), cpu_logits)
+    for a, b in zip(tree_leaves(states), tree_leaves(cpu_states)):
         assert torch.equal(a.cpu(), b)
 
 
