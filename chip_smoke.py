@@ -2,36 +2,51 @@
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
-drives the port's main path, the raw-audio serving tick of
-`repro_torch.serving.serve_loop.StreamingKWSServer`, at 4096 streams of
-the paper's model (random weights from a seed) for every classifier
-backend (qat, integer, float, delta and delta-int at θ = 0.15), and holds
-each CUDA kernel against its plain PyTorch version on the card:
+drives the port's main paths at the paper's full width (random weights
+and a die drawn from a seed) and holds each CUDA kernel against its
+plain PyTorch version on the card:
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds both kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-     and prints ptxas' registers / shared memory / spills;
+  2. builds every kernel from ``src/repro_torch/kernels/csrc`` with nvcc
+     (one process per source, all at once) and prints ptxas' registers /
+     shared memory / spills;
   3. intgemm against its plain version at the classifier's shapes, a
      saturating case and 1x1x1: bit-equal;
-  4. tick_fused against the plain tick for the five backends (delta and
+  4. calibration: a die drawn from a torch.Generator on the card and
+     calibrated there (`init_frontend_state`); the noiseless bench on
+     the card equals the same bench on the CPU;
+  5. the batch features path: `record_features` of 128 seeded 1 s clips
+     (batches of 64) for the software, hardware and hardware-pallas
+     frontends, each with its launch counts (K1; the K1 scan entry; the
+     scan entry and K5); codes equal to the CPU's on a small input;
+     K1, the scan entry and K5 against their plain versions at the
+     path's shapes (bit-equal), K5 within 1 count of the float64 oracle
+     (also at b = frames = c = 1), hardware-pallas within the
+     reference's 2 LSB of hardware; norm stats fitted from the recorded
+     hardware-pallas codes;
+  6. tick_fused against the plain tick for the five backends (delta and
      delta-int at θ = 0 and 0.15, held against the plain tick with K4's
-     plain gather step), raw audio and FV_Norm, over ticks with partial
-     masks and an all-idle tick: state (ΔGRU memories, accumulators and
-     counters included), FV codes and top bit-equal, scores within 1e-6;
+     plain gather step), raw audio and FV_Norm, with the software
+     frontend and, on raw audio, the hardware frontend on the calibrated
+     die, over ticks with partial masks and an all-idle tick: state
+     (ΔGRU memories, accumulators and counters, the hardware carry
+     {s1, s2, r, j}), FV codes and top bit-equal, scores within 1e-6;
      float within FLOAT_TOL;
-  5. the server at 4096 streams, each backend: step_batch ticks and a
-     run_batch, every tick held against the plain tick loop; tick_fused
-     launches once per tick (running K4 inside for delta / delta-int) and
-     intgemm never; the mean of srv.sparsity for the ΔGRU runs;
-  6. the integer and delta-int pipelines' streaming_step: 5 intgemm
+  7. the server at 4096 streams: each backend with the software frontend,
+     and qat and delta (θ = 0.15) with the hardware frontend; step_batch
+     ticks and a run_batch, every tick held against the plain tick loop;
+     tick_fused launches once per tick (running K4 inside for delta /
+     delta-int) and no other kernel; the mean of srv.sparsity for the
+     ΔGRU runs;
+  8. the integer and delta-int pipelines' streaming_step: 5 intgemm
      launches per step, equal to the plain version;
-  7. times on CUDA events after warm-up: ms per step_batch tick and each
+  9. times on CUDA events after warm-up: ms per step_batch tick and each
      kernel's time beside its plain version's, its bound and a library
-     yardstick where one exists, the ΔGRU tick at θ = 0 and 0.15 on raw
-     audio and on the reference's sparsity traffic (8 cycled slabs of
-     N(0, 0.05) FV_Norm frames); one JSON line per kernel, then all
-     kernels in one JSON line;
-  8. the result line ``{"ok": true, "device": {...}}``.
+     yardstick where one exists (the ΔGRU tick at θ = 0 and 0.15 on raw
+     audio and on the reference's sparsity traffic, the hardware tick,
+     K1, the scan entry and K5 at the batch path's shapes); one JSON line
+     per kernel, then all kernels in one JSON line;
+ 10. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
@@ -59,10 +74,17 @@ FLOAT_TOL = 1e-5
 LIVE_TICKS = 24
 REPLAY_TICKS = 8
 PIPELINE_STEPS = 3
+HW_LIVE_TICKS = 12  # hardware-frontend server runs
+HW_REPLAY_TICKS = 4
+FEATURE_CLIPS = 128  # batch features: 1 s clips at 16 kHz
+CLIP_SAMPLES = 16000
+FEATURE_BATCH = 64
 THETA = 0.15  # the reference's ΔGRU operating point
 # (classifier, θ) of the server runs, the main path
 SERVER_RUNS = (("qat", None), ("integer", None), ("float", None),
                ("delta", THETA), ("delta-int", THETA))
+# ... and of the hardware-frontend server runs
+HW_SERVER_RUNS = (("qat", None), ("delta", THETA))
 # stream hold before a timed burst: 1 ms of enqueue time per call at the
 # H100's ~2 GHz clock, far above any wrapper's Python
 HOLD_CYCLES_PER_CALL = 2_000_000
@@ -143,18 +165,25 @@ def _norm_stats():
     )
 
 
-def _setup(dev, classifier: str, theta=None):
+def _setup(dev, classifier: str, theta=None, hw_state=None):
     """A pipeline with fitted norm stats (ΔGRU thresholds θ for the delta
-    backends) and random float params from the seed, on ``dev``."""
+    backends) and random float params from the seed, on ``dev``. With
+    ``hw_state`` (a calibrated die with its norm stats) the pipeline
+    serves the "hardware" frontend on that die."""
     import torch
 
     from repro_torch.core import fex
     from repro_torch.core.gru_delta import DeltaConfig
     from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
 
+    delta = None if theta is None else DeltaConfig(theta, theta)
+    if hw_state is not None:
+        pipe = KWSPipeline(KWSPipelineConfig(frontend="hardware", classifier=classifier,
+                                             delta=delta), state=hw_state)
+        params = pipe.init_params(torch.Generator().manual_seed(SEED + 1), device=dev)
+        return pipe, params
     stats = _norm_stats()
     stats = fex.FExNormStats(mu=stats.mu.to(dev), sigma=stats.sigma.to(dev))
-    delta = None if theta is None else DeltaConfig(theta, theta)
     pipe = KWSPipeline(KWSPipelineConfig(classifier=classifier, delta=delta), norm_stats=stats)
     params = pipe.init_params(torch.Generator().manual_seed(SEED + 1), device=dev)
     return pipe, params
@@ -198,14 +227,16 @@ def phase_intgemm(dev):
     return worst
 
 
-def _label(classifier, theta):
-    return classifier if theta is None else f"{classifier} θ={theta}"
+def _label(classifier, theta, hardware=False):
+    label = classifier if theta is None else f"{classifier} θ={theta}"
+    return f"{label} hardware" if hardware else label
 
 
-def phase_tick(dev):
-    """tick_fused against tick_reference on the card, for every backend;
-    returns {classifier: worst difference} (scores, and the state too for
-    float)."""
+def phase_tick(dev, hw_state=None):
+    """tick_fused against tick_reference on the card, for every backend
+    (with ``hw_state``: the hardware frontend on that die, raw audio
+    only); returns {classifier: worst difference} (scores, and the state
+    too for float)."""
     import torch
 
     from repro_torch.core.frontend import tree_clone, tree_leaves
@@ -217,12 +248,13 @@ def phase_tick(dev):
     for classifier, theta in (("qat", None), ("integer", None), ("float", None),
                               ("delta", 0.0), ("delta", THETA),
                               ("delta-int", 0.0), ("delta-int", THETA)):
-        pipe, params = _setup(dev, classifier, theta)
+        pipe, params = _setup(dev, classifier, theta, hw_state)
         params = pipe.prepare_params(params)
         ops = pack_operands(pipe, params, pipe.state, dev)
         step_fn = make_sparse_step(pipe)  # K4's plain version for the ΔGRU
         flt = classifier == "float"
-        for raw in (True, False):
+        hw = hw_state is not None
+        for raw in ((True,) if hw else (True, False)):
             state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
                      torch.zeros((n, K), device=dev))
             g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -240,7 +272,8 @@ def phase_tick(dev):
                     pipe, raw, params, tree_clone(state), inp, mask, pipe.state, SMOOTHING,
                     operands=ops, fv_out=fv)
                 torch.cuda.synchronize()
-                where = f"tick_fused {_label(classifier, theta)} {'raw' if raw else 'fv'} tick {t}"
+                where = (f"tick_fused {_label(classifier, theta, hw)} "
+                         f"{'raw' if raw else 'fv'} tick {t}")
                 err = float((ks - ps).abs().max())
                 if flt:
                     err = max(err, _gru_diff(kg, pg))
@@ -253,7 +286,7 @@ def phase_tick(dev):
                     if err > SCORE_TOL:
                         raise AssertionError(f"{where}: scores differ by {err}")
                 _check_top(where, ktop, ptop, ps, flt)
-                for key in ("s1", "s2"):
+                for key in pc:
                     if not torch.equal(kc[key], pc[key]):
                         raise AssertionError(f"{where}: carry {key} differs")
                 if raw:
@@ -262,29 +295,31 @@ def phase_tick(dev):
                         raise AssertionError(f"{where}: FV codes differ")
                 worst[classifier] = max(worst.get(classifier, 0.0), err)
                 state = (kg, kc, ks)
-            print(f"tick_fused {_label(classifier, theta)} {'raw' if raw else 'fv'}: 5 ticks "
+            print(f"tick_fused {_label(classifier, theta, hw)} {'raw' if raw else 'fv'}: 5 ticks "
                   f"equal to the plain tick" + (f" within {worst[classifier]:.3g}" if flt else ""))
     return worst
 
 
-def drive_server(dev, classifier: str, theta=None):
-    """The main path: a user's StreamingKWSServer on the card. Returns the
+def drive_server(dev, classifier: str, theta=None, hw_state=None, live_ticks=LIVE_TICKS,
+                 replay_ticks=REPLAY_TICKS):
+    """The main path: a user's StreamingKWSServer on the card (the
+    hardware frontend on ``hw_state``'s die when given). Returns the
     server's outputs, the inputs and the launch counts of the run."""
     import numpy as np
 
     from repro_torch.kernels import build
     from repro_torch.serving.serve_loop import StreamingKWSServer
 
-    pipe, params = _setup(dev, classifier, theta)
+    pipe, params = _setup(dev, classifier, theta, hw_state)
     srv = StreamingKWSServer(pipe, params, max_streams=N_STREAMS, smoothing=SMOOTHING)
     for sid in range(N_STREAMS):
         srv.open_stream(sid)
     rng = np.random.default_rng(SEED + 4)
     gains = np.logspace(-2, -0.3, N_STREAMS).astype(np.float32)[:, None]
     live = [((rng.standard_normal((N_STREAMS, HOP)).astype(np.float32) * gains),
-             rng.random(N_STREAMS) < (0.0 if t == 7 else 0.85)) for t in range(LIVE_TICKS)]
-    replay = (rng.standard_normal((REPLAY_TICKS, N_STREAMS, HOP)).astype(np.float32) * gains,
-              rng.random((REPLAY_TICKS, N_STREAMS)) < 0.85)
+             rng.random(N_STREAMS) < (0.0 if t == 7 else 0.85)) for t in range(live_ticks)]
+    replay = (rng.standard_normal((replay_ticks, N_STREAMS, HOP)).astype(np.float32) * gains,
+              rng.random((replay_ticks, N_STREAMS)) < 0.85)
     build.launches.clear()
     t0 = time.perf_counter()
     outs = [srv.step_batch(slab, mask) for slab, mask in live]
@@ -310,8 +345,9 @@ def check_server(dev, pipe, srv, live, replay, outs, replay_out):
     flt = pipe.config.classifier_key == "float"
     state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
              torch.zeros((n, K), device=dev))
-    ticks = list(live) + [(replay[0][t], replay[1][t]) for t in range(REPLAY_TICKS)]
-    want = list(outs) + [(replay_out[0][t], replay_out[1][t]) for t in range(REPLAY_TICKS)]
+    n_replay = len(replay[0])
+    ticks = list(live) + [(replay[0][t], replay[1][t]) for t in range(n_replay)]
+    want = list(outs) + [(replay_out[0][t], replay_out[1][t]) for t in range(n_replay)]
     worst = 0.0
     for t, ((slab, mask), (scores, top)) in enumerate(zip(ticks, want)):
         state, ps, ptop = tick_reference(
@@ -331,7 +367,7 @@ def check_server(dev, pipe, srv, live, replay, outs, replay_out):
         for a, b in zip(tree_leaves(srv.state.gru), tree_leaves(state[0])):
             if not torch.equal(a, b):
                 raise AssertionError("server GRU state differs from the plain loop")
-    for key in ("s1", "s2"):
+    for key in state[1]:
         if not torch.equal(srv.state.carry[key], state[1][key]):
             raise AssertionError(f"server carry {key} differs from the plain loop")
     return worst
@@ -374,7 +410,7 @@ def phase_pipeline(dev, classifier: str):
 
 
 def tick_bound(n_active: int, raw: bool = True, fires=None, mac_fraction: float = 1.0,
-               weight_bytes: int = 24204):
+               weight_bytes: int = 24204, hardware: bool = False):
     """Least time for one tick of ``n_active`` streams (all submitting):
     each input byte read once, each output written once, and the
     operations the tick needs at the card's CUDA-core rate.
@@ -385,8 +421,11 @@ def tick_bound(n_active: int, raw: bool = True, fires=None, mac_fraction: float 
     accumulator only where one of its columns fired. It does the
     delta-eligible MACs scaled by the measured effective-MAC fraction
     (plus ~4 operations a column for the thresholds, memories and
-    counters)."""
+    counters). ``hardware``: the hardware frontend's VTC and SRO
+    operations, its extra carry and its per-channel calibration."""
     carry = 2 * C * 4 if raw else 0
+    # the hardware carry adds r (read and written) and j (read only)
+    carry_extra = 3 * C * 4 if raw and hardware else 0
     if fires is None:
         state_in = state_out = DENSE_STATE_BYTES
     else:
@@ -396,10 +435,13 @@ def tick_bound(n_active: int, raw: bool = True, fires=None, mac_fraction: float 
         state_out = DELTA_STATE_BYTES - mems - accs + column_frac * mems + acc_frac * accs
     # input, mask, carry and scores in + out, classifier state in, out, top
     per_stream = ((HOP * 4 if raw else C * 4) + 1 + 2 * (carry + K * 4)
-                  + state_in + state_out + 8)
+                  + carry_extra + state_in + state_out + 8)
     tables = weight_bytes + 2352 + 4096 * 4 + 2 * 32767 * 4 + 5 * C * 4 + 2 * C * 4
+    tables += 3 * C * 4 if hardware else 0  # gain, beta, alpha
     byts = n_active * per_stream + tables
     iir = 2 * HOP * C * 11 if raw else 0  # per internal sample: 3 fma (2 each), 2 mul, 2 add, abs, acc
+    if raw and hardware:  # + VTC (2 mul, add, fma), SRO (fma, mul, max)
+        iir = 2 * HOP * C * (11 + 5 + 4)
     post = C * 10 + 2 * HOP if raw else 0
     delta = 4 * (C + 3 * H) if fires is not None else 0
     macs = mac_fraction * ELIGIBLE_MACS + H * K
@@ -452,9 +494,10 @@ def _fv_traffic(n: int):
             for _ in range(8)]
 
 
-def phase_times(dev, srv_qat, live):
+def phase_times(dev, srv_qat, live, hw_state):
     """Kernel, plain and library times on CUDA events at the main path's
-    shapes, and host-clock ms per step_batch tick."""
+    shapes (the hardware tick on ``hw_state``'s die), and host-clock ms
+    per step_batch tick."""
     import torch
 
     from repro_torch.core.frontend import tree_clone
@@ -482,15 +525,17 @@ def phase_times(dev, srv_qat, live):
     audio = [_audio(g, (n, HOP), dev) for _ in range(8)]
     fv_slabs = [x.to(dev) for x in _fv_traffic(n)]
     full = torch.ones(n, dtype=torch.bool, device=dev)
-    for classifier, theta in (("qat", None), ("integer", None), ("float", None),
-                              ("delta", 0.0), ("delta", THETA),
-                              ("delta-int", 0.0), ("delta-int", THETA)):
-        pipe, params = _setup(dev, classifier, theta)
+    for classifier, theta, hw in (("qat", None, False), ("integer", None, False),
+                                  ("float", None, False), ("delta", 0.0, False),
+                                  ("delta", THETA, False), ("delta-int", 0.0, False),
+                                  ("delta-int", THETA, False), ("qat", None, True),
+                                  ("delta", THETA, True)):
+        pipe, params = _setup(dev, classifier, theta, hw_state if hw else None)
         params = pipe.prepare_params(params)
         ops = pack_operands(pipe, params, pipe.state, dev)
         step_fn = make_sparse_step(pipe)
         delta = pipe.classifier.is_delta
-        kinds = (("raw", audio), ("fv", fv_slabs)) if delta else (("raw", audio),)
+        kinds = (("raw", audio), ("fv", fv_slabs)) if delta and not hw else (("raw", audio),)
         for kind, slabs in kinds:
             raw = kind == "raw"
             state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
@@ -503,7 +548,7 @@ def phase_times(dev, srv_qat, live):
                 tick_fused(pipe, raw, params, state, inp, full, pipe.state, SMOOTHING,
                            operands=ops)
 
-            key = f"{_label(classifier, theta)} {kind}"
+            key = f"{_label(classifier, theta, hw)} {kind}"
             out[f"{key} ms"], out[f"{key} enqueue_us"] = _cuda_ms(run, reps=200, hold=True)
             frac, fires, extra = 1.0, None, ""
             if delta:
@@ -518,7 +563,7 @@ def phase_times(dev, srv_qat, live):
                                        pipe.state, SMOOTHING, step_fn=step_fn),
                 reps=2, warmup=1)
             out[f"{key} bound_ms"], out[f"{key} bound_by"] = tick_bound(
-                n, raw, fires, frac, 4 * 24204 if classifier == "float" else 24204)
+                n, raw, fires, frac, 4 * 24204 if classifier == "float" else 24204, hw)
             print(f"tick_fused {key}: {out[f'{key} ms']:.5f} ms on the card "
                   f"({out[f'{key} enqueue_us']:.1f} µs host enqueue a call), plain "
                   f"{out[f'{key} plain_ms']:.2f} ms, bound {out[f'{key} bound_ms']:.5f} ms "
@@ -533,6 +578,230 @@ def phase_times(dev, srv_qat, live):
     out["intgemm_library_ms"], _ = _cuda_ms(lambda: torch.matmul(x64, w64), reps=200, hold=True)
     out["intgemm_bound_ms"], out["intgemm_bound_by"] = intgemm_bound(n, H, G)
     return out
+
+
+def _clips(n: int, samples: int = CLIP_SAMPLES):
+    """Seeded 16 kHz clips: a tone (200 Hz - 6 kHz) plus noise, with
+    per-clip gains from -40 dB to -6 dB full scale."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 7)
+    t = np.arange(samples) / 16000.0
+    tones = np.sin(2 * np.pi * rng.uniform(200, 6000, (n, 1)) * t)
+    gains = np.logspace(-2, -0.3, n)[:, None]
+    return ((0.7 * tones + 0.3 * rng.standard_normal((n, samples))) * gains).astype(np.float32)
+
+
+def _state_to(state, device):
+    """A FrontendState with every tensor moved to ``device``."""
+    import dataclasses
+
+    from repro_torch.core.fex import FExNormStats
+    from repro_torch.core.tdfex import TDFExState
+
+    mv = lambda t: None if t is None else t.to(device)  # noqa: E731
+    chip, ns = state.chip, state.norm_stats
+    return dataclasses.replace(
+        state, beta=mv(state.beta), alpha=mv(state.alpha), coeffs=mv(state.coeffs),
+        chip=None if chip is None else TDFExState(mv(chip.gain_mismatch), mv(chip.cf_mismatch)),
+        norm_stats=None if ns is None else FExNormStats(mv(ns.mu), mv(ns.sigma)),
+    )
+
+
+def _once_ms(fn):
+    """(device ms of one call of ``fn`` on CUDA events, its result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), result
+
+
+def _bound(byts: float, ops: float):
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fex_fused_bound(b: int, t: int, c: int, frame_len: int):
+    """K1: audio read once, coefficients, frames written; 10 flops a
+    (clip, channel, sample) (3 fma, 2 mul, an add, the |y| sum)."""
+    return _bound(b * t * 4 + 5 * c * 4 + b * (t // frame_len) * c * 4, b * t * c * 10)
+
+
+def scan_bound(b: int, t: int, c: int):
+    """The scan entry: audio in, y out, the carry in and out; 9 flops."""
+    return _bound(b * t * 4 + 5 * c * 4 + 4 * b * c * 4 + b * t * c * 4, b * t * c * 9)
+
+
+def tdc_bound(b: int, t: int, c: int, spf: int, os: int):
+    """K5: u read once, f0 / k, counts written; per sample an fma, a max
+    and a product, per ZOH tick an add, a floor, a subtract and the
+    count."""
+    return _bound(b * t * c * 4 + 2 * c * 4 + b * (t // spf) * c * 4, b * t * c * (4 + 4 * os))
+
+
+def phase_calibration(dev):
+    """A die drawn from torch.Generator seed SEED on the card and
+    calibrated there, as a user builds it (`init_frontend_state`); the
+    noiseless bench on the card against the same bench on the CPU."""
+    import torch
+
+    from repro_torch.core.calibration import calibrate_chip
+    from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
+
+    pipe = KWSPipeline(KWSPipelineConfig(frontend="hardware"))
+    t0 = time.perf_counter()
+    state = pipe.init_frontend_state(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for name in ("beta", "alpha", "coeffs"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"calibration: {name} is not finite")
+    if abs(float(state.alpha.mean()) - 1.0) > 1e-5 or state.coeffs.shape != (5, C):
+        raise AssertionError("calibration: alpha is not normalized or coeffs misshapen")
+    tdcfg = pipe.config.tdfex_config
+    beta, alpha = calibrate_chip(tdcfg, state.chip, device=dev)
+    cbeta, calpha = calibrate_chip(tdcfg, _state_to(state, "cpu").chip, device="cpu")
+    if not (torch.equal(beta.cpu(), cbeta) and torch.equal(alpha.cpu(), calpha)):
+        raise AssertionError("calibration on the card differs from the same bench on the CPU")
+    print(f"calibration: die from torch.Generator seed {SEED} calibrated on the card in "
+          f"{secs:.2f} s; beta {float(state.beta.min()):.2f}..{float(state.beta.max()):.2f}, "
+          f"alpha {float(state.alpha.min()):.4f}..{float(state.alpha.max()):.4f}; the noiseless "
+          f"bench equals the CPU's")
+    return state
+
+
+def phase_features(dev, state):
+    """The batch features path: `record_features` of FEATURE_CLIPS clips
+    for the three frontends (launch counts read around each), then each
+    kernel of the path against its plain version at the path's shapes.
+    Returns the recorded codes, the launch counts, the kernels' errors
+    and times, and the norm stats fitted from the hardware-pallas codes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import fex, tdfex
+    from repro_torch.core.calibration import fit_norm_stats_from_counts
+    from repro_torch.core.frontend import FrontendState
+    from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fex_fused import (
+        biquad_stream,
+        biquad_stream_ref,
+        fex_fused,
+        fex_fused_ref,
+    )
+    from repro_torch.kernels.tdc import tdc_counts, tdc_counts_plain, tdc_counts_ref
+    from repro_torch.kernels.tdc.ops import tdc_scale
+
+    audio = _clips(FEATURE_CLIPS)
+    states = {"software": FrontendState(), "hardware": state, "hardware-pallas": state}
+    codes, launches = {}, {}
+    n_batches = -(-FEATURE_CLIPS // FEATURE_BATCH)
+    want_launches = {"software": {"fex_fused": n_batches}, "hardware": {"biquad_stream": n_batches},
+                     "hardware-pallas": {"biquad_stream": n_batches, "tdc": n_batches}}
+    for frontend, st in states.items():
+        pipe = KWSPipeline(KWSPipelineConfig(frontend=frontend), state=st)
+        build.launches.clear()
+        t0 = time.perf_counter()
+        raw = pipe.record_features(audio, batch_size=FEATURE_BATCH)
+        secs = time.perf_counter() - t0
+        launches[frontend] = dict(build.launches)
+        if launches[frontend] != want_launches[frontend]:
+            raise AssertionError(f"record_features {frontend}: launches {launches[frontend]}, "
+                                 f"want {want_launches[frontend]}")
+        n_frames = 2 * CLIP_SAMPLES // 512
+        if raw.shape != (FEATURE_CLIPS, n_frames, C) or not np.isfinite(raw).all():
+            raise AssertionError(f"record_features {frontend}: shape {raw.shape} or not finite")
+        if raw.min() < 0 or raw.max() > 4095 or raw.max() < 1000:
+            raise AssertionError(f"record_features {frontend}: codes {raw.min()}..{raw.max()}")
+        # a small input on the card against the same call on the CPU
+        small = audio[:4, :1600]
+        on_card = pipe.record_features(small, batch_size=2)
+        on_cpu = KWSPipeline(pipe.config, state=_state_to(st, "cpu")).record_features(
+            small, batch_size=2, device="cpu")
+        if not np.array_equal(on_card, on_cpu):
+            raise AssertionError(f"record_features {frontend}: card differs from the CPU")
+        codes[frontend] = raw
+        print(f"record_features {frontend}: {FEATURE_CLIPS} x {CLIP_SAMPLES / 16000:g} s clips in batches of "
+              f"{FEATURE_BATCH} in {secs:.3f} s, launches {launches[frontend]}, codes "
+              f"{int(raw.min())}..{int(raw.max())}; 4 x 0.1 s clips equal to the CPU's")
+    hw_diff = float(np.abs(codes["hardware"] - codes["hardware-pallas"]).max())
+    if hw_diff > 2:
+        raise AssertionError(f"hardware-pallas differs from hardware by {hw_diff} LSB (limit 2)")
+    print(f"hardware-pallas against hardware: at most {hw_diff:.0f} LSB apart (limit 2)")
+
+    # the kernels at the path's shapes: one batch of 64 clips, 32 000
+    # internal samples each
+    tdcfg = KWSPipelineConfig().tdfex_config
+    batch = torch.as_tensor(audio[:FEATURE_BATCH], device=dev)
+    errs, times = {}, {}
+    x = fex.oversample2x(batch)
+    nominal = fex.FExConfig().filterbank().stacked(device=dev)
+    got = fex_fused(x, nominal, 512)
+    times["fex_fused plain_ms"], want = _once_ms(lambda: fex_fused_ref(x, nominal, 512))
+    if not torch.equal(got, want):
+        raise AssertionError("fex_fused differs from its plain version")
+    errs["fex_fused"] = 0.0
+    duty = tdfex.vtc(batch, tdcfg)
+    y, (s1, s2) = biquad_stream(duty, state.coeffs)
+    times["scan plain_ms"], (py, (ps1, ps2)) = _once_ms(lambda: biquad_stream_ref(duty, state.coeffs))
+    if not (torch.equal(y, py) and torch.equal(s1, ps1) and torch.equal(s2, ps2)):
+        raise AssertionError("biquad_stream differs from the plain scan")
+    errs["scan"] = 0.0
+    rect = torch.abs(y)
+    spf, os_ = tdcfg.decimation // tdcfg.tdc_oversample, tdcfg.tdc_oversample
+    gain = 1.0 + state.chip.gain_mismatch
+    f0, k = tdcfg.f_free_hz * gain, tdcfg.k_sro_hz * gain
+    t_use = (rect.shape[1] // spf) * spf
+    counts = tdc_counts(rect, tdcfg, state.chip)
+    times["tdc plain_ms"], plain = _once_ms(
+        lambda: tdc_counts_plain(rect[:, :t_use], f0, k, spf, os_, tdc_scale(tdcfg)))
+    if not torch.equal(counts, plain):
+        raise AssertionError("tdc differs from its plain loop")
+    oracle = tdc_counts_ref(rect.cpu().numpy(), f0.cpu().numpy(), k.cpu().numpy(), spf, os_,
+                            tdcfg.f_tdc)
+    off = float(np.abs(counts.cpu().numpy() - oracle).max())
+    one = rect[:1, :spf, :1].contiguous()  # b = frames = c = 1 (R4)
+    chip1 = tdfex.TDFExState(state.chip.gain_mismatch[:1], state.chip.cf_mismatch[:1])
+    c1 = tdc_counts(one, tdcfg, chip1)
+    p1 = tdc_counts_plain(one, f0[:1], k[:1], spf, os_, tdc_scale(tdcfg))
+    o1 = tdc_counts_ref(one.cpu().numpy(), f0[:1].cpu().numpy(), k[:1].cpu().numpy(), spf, os_,
+                        tdcfg.f_tdc)
+    off = max(off, float(np.abs(c1.cpu().numpy() - o1).max()))
+    if not torch.equal(c1, p1) or off > 1.0:
+        raise AssertionError(f"tdc: (1, 1, 1) differs from plain, or {off} counts off the oracle")
+    errs["tdc"] = 0.0
+    print(f"fex_fused {tuple(x.shape)}, biquad_stream {tuple(duty.shape)} and tdc "
+          f"{tuple(rect.shape)}: bit-equal to their plain versions; tdc at most {off:.0f} count "
+          f"off the float64 oracle (also at b = frames = c = 1)")
+    # kernel times at the same shapes
+    times["fex_fused ms"], _ = _cuda_ms(lambda: fex_fused(x, nominal, 512), reps=20, hold=True)
+    times["scan ms"], _ = _cuda_ms(lambda: biquad_stream(duty, state.coeffs), reps=20, hold=True)
+    times["tdc ms"], _ = _cuda_ms(lambda: tdc_counts(rect, tdcfg, state.chip), reps=20, hold=True)
+    b, t = x.shape
+    times["fex_fused bound_ms"], times["fex_fused bound_by"] = fex_fused_bound(b, t, C, 512)
+    times["scan bound_ms"], times["scan bound_by"] = scan_bound(b, t, C)
+    times["tdc bound_ms"], times["tdc bound_by"] = tdc_bound(b, t_use, C, spf, os_)
+    for name in ("fex_fused", "scan", "tdc"):
+        print(f"{name}: {times[f'{name} ms']:.5f} ms on the card, plain "
+              f"{times[f'{name} plain_ms']:.1f} ms, bound {times[f'{name} bound_ms']:.5f} ms "
+              f"({times[f'{name} bound_by']})")
+    stats = fit_norm_stats_from_counts(torch.as_tensor(codes["hardware-pallas"], device=dev), tdcfg)
+    # the reference's eager fit reads 512 at code 63 where the port's ROM
+    # reads 511 (ROADMAP queue 3, P1): its mu would be higher by the share
+    # of code-63 entries of a channel
+    share63 = (codes["hardware-pallas"] == 63).mean(axis=(0, 1))
+    times["code63_share_max"] = float(share63.max())
+    print(f"norm stats fitted from the hardware-pallas codes; code 63 makes up at most "
+          f"{share63.max():.3g} of a channel's entries (the reference's eager fit: mu higher "
+          f"by that much)")
+    return codes, launches, errs, times, stats
 
 
 def main() -> int:
@@ -566,29 +835,40 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     intgemm_err = phase_intgemm(dev)
+    die = phase_calibration(dev)
+    _, feat_launches, feat_errs, feat_times, hw_stats = phase_features(dev, die)
+    hw_state = die.with_norm_stats(hw_stats)
     tick_err = phase_tick(dev)
+    hw_tick_err = phase_tick(dev, hw_state)
 
     launches = {}
     servers = {}
-    for classifier, theta in SERVER_RUNS:
+    runs = [(c, t, None, LIVE_TICKS, REPLAY_TICKS) for c, t in SERVER_RUNS]
+    runs += [(c, t, hw_state, HW_LIVE_TICKS, HW_REPLAY_TICKS) for c, t in HW_SERVER_RUNS]
+    for classifier, theta, state, n_live, n_replay in runs:
+        hw = state is not None
+        label = _label(classifier, theta, hw)
         pipe, srv, live, replay, outs, replay_out, counts, live_s = drive_server(
-            dev, classifier, theta)
-        want = LIVE_TICKS + REPLAY_TICKS
+            dev, classifier, theta, state, n_live, n_replay)
+        want = n_live + n_replay
         delta = pipe.classifier.is_delta
-        if counts.get("tick_fused", 0) != want or counts.get("intgemm", 0):
-            raise AssertionError(f"server {classifier}: launches {counts}, want "
-                                 f"tick_fused={want} and no intgemm")
-        launches[classifier] = counts
+        if counts != {"tick_fused": want}:
+            raise AssertionError(f"server {label}: launches {counts}, want only "
+                                 f"tick_fused={want}")
+        key = label if hw else classifier
+        launches[key] = counts
         err = check_server(dev, pipe, srv, live, replay, outs, replay_out)
-        tick_err[classifier] = max(tick_err[classifier], err)
+        errs = hw_tick_err if hw else tick_err
+        errs[classifier] = max(errs[classifier], err)
         extra = f"; mean srv.sparsity {float(srv.sparsity.mean()):.4f}" if delta else ""
-        print(f"server {_label(classifier, theta)}: {LIVE_TICKS} step_batch + {REPLAY_TICKS} "
-              f"run_batch ticks at {N_STREAMS} streams, launches {counts}, equal to the plain "
-              f"tick loop (scores within {err:.3g}); live ticks took {live_s:.3f} s{extra}")
-        servers[classifier] = (srv, live)
+        print(f"server {label}: {n_live} step_batch + {n_replay} run_batch ticks at "
+              f"{N_STREAMS} streams, launches {counts}, equal to the plain tick loop (scores "
+              f"within {err:.3g}); live ticks took {live_s:.3f} s{extra}")
+        servers[key] = (srv, live)
     intgemm_launches = sum(phase_pipeline(dev, c) for c in ("integer", "delta-int"))
 
-    times = phase_times(dev, *servers["qat"])
+    times = phase_times(dev, *servers["qat"], hw_state)
+    times.update(feat_times)
     print(f"step_batch at {N_STREAMS} streams (qat, raw audio, host slab in, host "
           f"scores out): {times['step_batch_ms']:.4f} ms per tick")
 
@@ -600,6 +880,17 @@ def main() -> int:
             "ms": times[f"{key} ms"], "plain_ms": times[f"{key} plain_ms"],
             "bound_ms": times[f"{key} bound_ms"], "bound_by": times[f"{key} bound_by"],
             "library_ms": None,
+        }
+
+    def feature_entry(name, key, n_launches, err,
+                      source="src/repro_torch/kernels/csrc/fex_fused.cu",
+                      replaces="src/repro/kernels/fex_fused/kernel.py:82"):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launches, "max_abs_err": err,
+            "ms": times[f"{key} ms"], "plain_ms": times[f"{key} plain_ms"],
+            "bound_ms": times[f"{key} bound_ms"], "bound_by": times[f"{key} bound_by"],
+            "library_ms": None,  # no PyTorch call computes a biquad filterbank or the TDC
         }
 
     d_key = f"{_label('delta', THETA)} raw"
@@ -618,6 +909,18 @@ def main() -> int:
                    launches["delta"]["tick_fused"] + launches["delta-int"]["tick_fused"],
                    max(tick_err["delta"], tick_err["delta-int"]),
                    replaces="src/repro/kernels/tick_fused/kernel.py:76"),
+        tick_entry("tick_fused[hardware]", "qat hardware raw",
+                   sum(n["tick_fused"] for label, n in launches.items() if "hardware" in label),
+                   max(hw_tick_err.values())),
+        feature_entry("fex_fused", "fex_fused", feat_launches["software"]["fex_fused"],
+                      feat_errs["fex_fused"]),
+        # the K1 kernel's per-sample entry: the hardware frontends' Rec-BPF scan
+        feature_entry("fex_fused[scan]", "scan",
+                      sum(n.get("biquad_stream", 0) for n in feat_launches.values()),
+                      feat_errs["scan"]),
+        feature_entry("tdc", "tdc", feat_launches["hardware-pallas"]["tdc"], feat_errs["tdc"],
+                      source="src/repro_torch/kernels/csrc/tdc.cu",
+                      replaces="src/repro/kernels/tdc/kernel.py:77"),
         {
             "name": "intgemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/intgemm.cu",

@@ -1,7 +1,8 @@
 """Weights carried across from the reference, through numpy.
 
 The reference's float parameter pytree, `QuantizedClassifier` codes,
-norm stats and ΔGRU states arrive as numpy arrays (for example through
+norm stats, ΔGRU states and hardware-frontend states (a die drawn with
+``jax.random`` and its calibration) arrive as numpy arrays (for example through
 ``jax.tree_util.tree_map(np.asarray, tree)``) and leave as the port's
 tensors on ``device``, in the same layouts: ``w_i`` (I, 3H), ``w_h``
 (H, 3H), ``fc.w`` (H, K). This module takes numpy only.
@@ -9,19 +10,22 @@ tensors on ``device``, in the same layouts: ``w_i`` (I, 3H), ``w_h``
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.fex import FExNormStats
+from repro_torch.core.frontend import FrontendState
 from repro_torch.core.gru_int import QuantizedClassifier
+from repro_torch.core.tdfex import TDFExState
 
 __all__ = [
     "params_from_numpy",
     "quantized_from_numpy",
     "norm_stats_from_numpy",
     "delta_states_from_numpy",
+    "frontend_state_from_numpy",
 ]
 
 
@@ -73,3 +77,31 @@ def delta_states_from_numpy(states, device) -> List[Dict[str, torch.Tensor]]:
         {k: torch.tensor(np.array(v), device=device) for k, v in layer.items()}
         for layer in states
     ]
+
+
+def frontend_state_from_numpy(
+    device,
+    gain_mismatch=None,
+    cf_mismatch=None,
+    beta=None,
+    alpha=None,
+    coeffs=None,
+    mu=None,
+    sigma=None,
+) -> FrontendState:
+    """A reference `FrontendState`'s leaves as numpy arrays -> the port's
+    `FrontendState` on ``device``: the die's ``gain_mismatch`` /
+    ``cf_mismatch`` (both or neither), its calibration ``beta`` /
+    ``alpha``, the designed (5, C) ``coeffs`` (taken as they are, not
+    redesigned) and the norm stats ``mu`` / ``sigma``. Leaves left None
+    stay None, so a die drawn with ``jax.random`` computes the same thing
+    in the port."""
+    f = lambda a: None if a is None else _t(a, device, torch.float32)  # noqa: E731
+    chip: Optional[TDFExState] = None
+    if (gain_mismatch is None) != (cf_mismatch is None):
+        raise ValueError("a chip needs both gain_mismatch and cf_mismatch")
+    if gain_mismatch is not None:
+        chip = TDFExState(gain_mismatch=f(gain_mismatch), cf_mismatch=f(cf_mismatch))
+    stats = None if mu is None else norm_stats_from_numpy(mu, sigma, device)
+    return FrontendState(norm_stats=stats, chip=chip, beta=f(beta), alpha=f(alpha),
+                         coeffs=f(coeffs))

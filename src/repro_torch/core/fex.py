@@ -14,7 +14,14 @@ The IIR is written as the reference's compiled scan evaluates it: XLA
 contracts ``b0*x + s1`` and ``b2*x - a2*y`` (and ``b1*x - a1*y``) into
 fused multiply-adds. The state of a 512-step recursion amplifies a
 one-ulp difference, so the port rounds exactly there and nowhere else
-(`fma_f32`), and the CUDA tick uses ``__fmaf_rn`` at the same places.
+(`fma_f32`), and the CUDA kernels use ``__fmaf_rn`` at the same places.
+
+On a CUDA tensor the batch filterbank runs the hand-written kernels of
+`repro_torch.kernels.fex_fused`: `fex_frames` is K1 (biquad, |.| and
+frame mean in one launch) and `biquad_filterbank_streaming` its
+per-sample scan entry; on a CPU tensor both take the plain scan
+`biquad_scan`. The streaming frame step `biquad_filterbank_frame_mean`
+is the serving tick's plain version and stays plain on every device.
 """
 
 from __future__ import annotations
@@ -33,11 +40,14 @@ __all__ = [
     "FExNormStats",
     "fma_f32",
     "oversample2x",
+    "biquad_scan",
     "biquad_filterbank",
     "biquad_filterbank_streaming",
     "biquad_filterbank_frame_mean",
     "full_wave_rectify",
     "frame_average",
+    "SUM_BLOCK",
+    "frame_sum",
     "fex_frames",
     "fex_forward",
     "fit_norm_stats",
@@ -139,6 +149,22 @@ def _biquad_step(rows, xc, s1, s2):
     return y, s1_new, s2_new
 
 
+def biquad_scan(
+    x: torch.Tensor,
+    coeffs,
+    state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The plain filterbank scan, on any device: (B, T) ->
+    (y (B, T, C), (s1, s2)), one `_biquad_step` per sample."""
+    rows = _coeff_rows(coeffs, x)
+    s1, s2 = _zero_state(x, rows[0].shape[-1]) if state is None else state
+    ys = []
+    for t in range(x.shape[-1]):
+        y, s1, s2 = _biquad_step(rows, x[:, t : t + 1], s1, s2)
+        ys.append(y)
+    return torch.stack(ys, dim=-2), (s1, s2)
+
+
 def biquad_filterbank_streaming(
     x: torch.Tensor,
     coeffs,
@@ -148,15 +174,12 @@ def biquad_filterbank_streaming(
 
     x: (B, T_chunk); coeffs: BiquadCoeffs or stacked (5, C) tensor;
     state: transposed-DF-II carry (s1, s2), each (B, C), or None for a
-    quiescent filter. Returns (y (B, T_chunk, C), new_state).
+    quiescent filter. Returns (y (B, T_chunk, C), new_state). A CUDA
+    tensor runs the kernel's scan entry, a CPU tensor `biquad_scan`.
     """
-    rows = _coeff_rows(coeffs, x)
-    s1, s2 = _zero_state(x, rows[0].shape[-1]) if state is None else state
-    ys = []
-    for t in range(x.shape[-1]):
-        y, s1, s2 = _biquad_step(rows, x[:, t : t + 1], s1, s2)
-        ys.append(y)
-    return torch.stack(ys, dim=-2), (s1, s2)
+    from repro_torch.kernels.fex_fused.ops import biquad_stream
+
+    return biquad_stream(x, coeffs, state)
 
 
 def biquad_filterbank_frame_mean(
@@ -202,11 +225,39 @@ def frame_average(y: torch.Tensor, frame_len: int) -> torch.Tensor:
     return y.reshape(shape).mean(dim=-2)
 
 
-def fex_frames(audio: torch.Tensor, config: FExConfig) -> torch.Tensor:
-    """audio (B, T @ fs_audio) -> rectified-average frames (B, F, C), float."""
+#: Window of XLA's CPU reduction rewrite, and so of every frame sum.
+SUM_BLOCK = 32
+
+
+def frame_sum(a: torch.Tensor, frame_len: int) -> torch.Tensor:
+    """(B, T, C) -> (B, T // frame_len, C) frame sums in the order of the
+    reference's compiled reductions: XLA's CPU backend splits a long
+    reduction into windows of `SUM_BLOCK`, so the samples are summed left
+    to right in consecutive blocks of 32 and the block sums left to
+    right. Explicit adds, so the bits are the same on every device."""
+    b, t, c = a.shape
+    a = a[:, : (t // frame_len) * frame_len].reshape(b, t // frame_len, frame_len, c)
+    total = None
+    for start in range(0, frame_len, SUM_BLOCK):
+        part = a[:, :, start]
+        for i in range(start + 1, min(start + SUM_BLOCK, frame_len)):
+            part = part + a[:, :, i]
+        total = part if total is None else total + part
+    return total
+
+
+def fex_frames(
+    audio: torch.Tensor, config: FExConfig, coeffs=None
+) -> torch.Tensor:
+    """audio (B, T @ fs_audio) -> rectified-average frames (B, F, C), float:
+    oversampling, then K1 (`repro_torch.kernels.fex_fused.fex_fused`)
+    with ``coeffs`` (None: the nominal filterbank)."""
+    from repro_torch.kernels.fex_fused.ops import fex_fused
+
     x = oversample2x(audio) if config.oversample == 2 else audio
-    y = biquad_filterbank(x, config.filterbank())
-    return frame_average(full_wave_rectify(y), config.frame_len)
+    return fex_fused(
+        x, config.filterbank() if coeffs is None else coeffs, config.frame_len
+    )
 
 
 def fex_forward(

@@ -2,14 +2,32 @@
 
 Counterpart of `repro.core.pipeline`. Both stages are string-keyed
 backends: `KWSPipelineConfig.frontend` names a registered
-`repro_torch.core.frontend.FeatureFrontend` and
-`KWSPipelineConfig.classifier` a registered
-`repro_torch.core.classifier.ClassifierBackend`.
-
-The software frontend and all five classifier backends (float, qat,
-integer, delta, delta-int) are ported; the ΔGRU thresholds come from
-`KWSPipelineConfig.delta`. The stage-1 cascade, which a later slice
+`repro_torch.core.frontend.FeatureFrontend` ("software", "hardware",
+"hardware-pallas") and `KWSPipelineConfig.classifier` a registered
+`repro_torch.core.classifier.ClassifierBackend` ("float", "qat",
+"integer", "delta", "delta-int"; the ΔGRU thresholds come from
+`KWSPipelineConfig.delta`). The stage-1 cascade, which a later slice
 ports, raises at construction.
+
+Every feature entry point routes through the frontend:
+
+  features(audio, state)                batch audio -> (FV_Norm, FV_Raw)
+  record_features(audio, state)         FV_Raw recorded in batches (the
+                                        Section III-F flow: features are
+                                        recorded from the chip once, then
+                                        the classifier trains on them)
+  streaming_features_step(carry, chunk) one 16 ms raw-audio hop -> one
+                                        FV_Norm frame per stream
+  streaming_step(params, states, fv_t)  one GRU step per 16 ms frame
+
+On a CUDA tensor the batch features run the port's kernels: K1 for
+"software", the K1 scan entry and K5 for "hardware-pallas", the scan
+entry and the cumulative-phase TDC (PyTorch, as in the reference) for
+"hardware". Frontend parameters (norm stats, chip mismatch, beta/alpha,
+filterbank coefficients) live in one `FrontendState`, built by
+`init_frontend_state` or `repro_torch.core.calibration`. The reference's
+deprecated shims ``features_software`` and ``record_features_hardware``
+are not ported.
 
 The FV_Raw -> FV_Norm post-processing (log ROM, (x-mu)/sigma, Q6.8) is
 the chip's digital back-end and is shared by every frontend.
@@ -18,8 +36,9 @@ the chip's digital back-end and is shared by every frontend.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import quant
@@ -32,6 +51,7 @@ from repro_torch.core.fex import FExConfig, FExNormStats
 from repro_torch.core.frontend import FeatureFrontend, FrontendState, get_frontend
 from repro_torch.core.gru import GRUConfig, init_gru_classifier
 from repro_torch.core.gru_delta import DeltaConfig
+from repro_torch.core.tdfex import TDFExConfig
 from repro_torch.kernels.build import resolve_device
 
 __all__ = ["KWSPipelineConfig", "KWSPipeline"]
@@ -42,6 +62,9 @@ class KWSPipelineConfig:
     frontend: str = "software"  # registered FeatureFrontend key
     fex: FExConfig = dataclasses.field(default_factory=FExConfig)
     gru: GRUConfig = dataclasses.field(default_factory=GRUConfig)
+    # Hardware-sim parameters of the "hardware*" frontends; None ->
+    # TDFExConfig built around `fex` (the paper's nominal chip).
+    tdfex: Optional[TDFExConfig] = None
     use_log: bool = True
     use_norm: bool = True
     # Registered ClassifierBackend key ("float" / "qat" / "integer" /
@@ -54,11 +77,22 @@ class KWSPipelineConfig:
     cascade: Any = None
 
     def __post_init__(self):
+        # the pipeline post-processes (and shapes hops) with `fex` while
+        # the hardware frontends generate features with `tdfex.fex`
+        if self.tdfex is not None and self.tdfex.fex != self.fex:
+            raise ValueError(
+                "KWSPipelineConfig.fex and KWSPipelineConfig.tdfex.fex "
+                "disagree; pass tdfex=TDFExConfig(fex=your_fex, ...)"
+            )
         if self.cascade is not None:
             raise NotImplementedError(
                 "KWSPipelineConfig.cascade (stage-1 wake gate) is ported in "
                 "a later slice: ROADMAP queue 1, \"Cascade gate\""
             )
+
+    @property
+    def tdfex_config(self) -> TDFExConfig:
+        return self.tdfex if self.tdfex is not None else TDFExConfig(fex=self.fex)
 
     @property
     def classifier_key(self) -> str:
@@ -100,7 +134,60 @@ class KWSPipeline:
     def _resolve(self, state: Optional[FrontendState]) -> FrontendState:
         return self.state if state is None else state
 
+    # ---------- frontend state ----------
+
+    def init_frontend_state(
+        self, generator: Optional[torch.Generator] = None, device=None, **kwargs
+    ) -> FrontendState:
+        """This frontend's state on ``device`` (the card by default): for
+        the hardware paths a chip drawn from ``generator`` (``mismatch``)
+        and its beta / alpha calibration (``calibrate``); a shell for
+        "software". Bound norm stats carry over unless given."""
+        kwargs.setdefault("norm_stats", self.state.norm_stats)
+        return self.frontend.init_state(
+            self.config, generator=generator, device=device, **kwargs
+        )
+
+    def with_state(self, state: FrontendState) -> "KWSPipeline":
+        """A copy of this pipeline with ``state`` bound as the default."""
+        return KWSPipeline(self.config, state=state)
+
     # ---------- features ----------
+
+    def features(
+        self,
+        audio: torch.Tensor,
+        state: Optional[FrontendState] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """audio (B, T) -> (fv_norm (B, F, C), fv_raw codes), through the
+        configured frontend, on the audio's device. ``generator`` draws
+        the hardware frontends' noise (None: noiseless)."""
+        state = self._resolve(state)
+        fv_raw = self.frontend.raw_codes(audio, self.config, state, generator=generator)
+        return self._postprocess(fv_raw, state), fv_raw
+
+    def record_features(
+        self,
+        audio: np.ndarray,
+        state: Optional[FrontendState] = None,
+        generator: Optional[torch.Generator] = None,
+        batch_size: int = 64,
+        device=None,
+    ) -> np.ndarray:
+        """FV_Raw codes of host audio (B, T), recorded on ``device`` (the
+        card by default) in batches of ``batch_size`` and returned as one
+        host array (Section III-F). Works for every frontend; the
+        hardware paths draw their per-record noise from ``generator``."""
+        device = resolve_device(device)
+        state = self._resolve(state)
+        outs = []
+        for i in range(0, audio.shape[0], batch_size):
+            chunk = torch.as_tensor(np.asarray(audio[i : i + batch_size], np.float32),
+                                    device=device)
+            raw = self.frontend.raw_codes(chunk, self.config, state, generator=generator)
+            outs.append(raw.cpu().numpy())
+        return np.concatenate(outs, axis=0)
 
     def _postprocess(self, fv_raw: torch.Tensor, state: FrontendState) -> torch.Tensor:
         """FV_Raw codes -> FV_Norm: the chip's digital back-end (log ROM,
@@ -180,12 +267,32 @@ class KWSPipeline:
             self.config, batch, resolve_device(device)
         )
 
-    def streaming_features_apply(self, carry, chunk: torch.Tensor, state: FrontendState):
-        """One raw hop (B, chunk_samples) -> (carry, fv_norm (B, C))."""
+    def streaming_features_apply(
+        self, carry, chunk: torch.Tensor, state: FrontendState,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """One raw hop (B, chunk_samples) -> (carry, fv_norm (B, C)); the
+        serving tick's plain frontend phase."""
         carry, fv_raw = self.frontend.streaming_step(
-            chunk, self.config, state, carry
+            chunk, self.config, state, carry, generator=generator
         )
         return carry, self._postprocess(fv_raw, state)
+
+    def streaming_features_step(
+        self,
+        carry,
+        chunk: torch.Tensor,
+        state: Optional[FrontendState] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """One raw-audio hop (B, chunk_samples) -> (carry, fv_norm (B, C)).
+
+        Feed consecutive 16 ms hops; the carry holds the per-stream
+        filter (and SRO phase) state, so the concatenated stream matches
+        the batch `features` path up to the chunk-edge oversampler."""
+        return self.streaming_features_apply(
+            carry, chunk, self._resolve(state), generator
+        )
 
     def streaming_logits_apply(self, params, states, fv_t: torch.Tensor):
         """`streaming_step` on already backend-shaped ``params``."""

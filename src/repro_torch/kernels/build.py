@@ -44,7 +44,12 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = {"intgemm": "intgemm.cu", "tick_fused": "tick_fused.cu"}
+SOURCES = {
+    "fex_fused": "fex_fused.cu",
+    "intgemm": "intgemm.cu",
+    "tdc": "tdc.cu",
+    "tick_fused": "tick_fused.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -53,18 +58,30 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    "fex_fused": {
+        # x, x_bf16, coeffs, out, b, t, c, frame_len, inv_frame, stream
+        "fex_fused_launch": ([_P, _I, _P, _P, _I, _I, _I, _I, _F, _P], _I),
+        # x, coeffs, s1, s2, y, b, t, c, stream
+        "biquad_stream_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "fex_fused_error_string": ([_I], ctypes.c_char_p),
+    },
+    "tdc": {
+        # u, f0, k, out, b, t, c, samples_per_frame, os, scale, stream
+        "tdc_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+        "tdc_error_string": ([_I], ctypes.c_char_p),
+    },
     "intgemm": {
         # x, w, out, m, k, n, stream
         "intgemm_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
         "intgemm_error_string": ([_I], ctypes.c_char_p),
     },
     "tick_fused": {
-        # inp, mask, n, s1, s2, gru (address of a host struct GruState),
-        # scores, top, fv_out, w, b, wf, bf, theta, coeffs, mu, sigma,
-        # log_rom, sig_rom, tanh_rom, q_max, q_scale, inv_frame,
-        # smoothing, one_minus, raw, backend, stream
+        # inp, mask, n, s1, s2, gru and hw (addresses of the host structs
+        # GruState and HwFrontend), scores, top, fv_out, w, b, wf, bf,
+        # theta, coeffs, mu, sigma, log_rom, sig_rom, tanh_rom, q_max,
+        # q_scale, inv_frame, smoothing, one_minus, raw, backend, stream
         "tick_fused_launch": (
-            [_P, _P, _I] + [_P] * 6 + [_P] * 11 + [_F] * 5 + [_I, _I, _P],
+            [_P, _P, _I] + [_P] * 7 + [_P] * 11 + [_F] * 5 + [_I, _I, _P],
             _I,
         ),
         "tick_fused_error_string": ([_I], ctypes.c_char_p),

@@ -1,6 +1,6 @@
 // The whole 16 ms serving tick as one launch, for the float, qat, integer,
-// delta and delta-int classifiers, on raw audio hops or FV_Norm frames (no
-// cascade).
+// delta and delta-int classifiers, on raw audio hops (software or hardware
+// frontend) or FV_Norm frames (no cascade).
 //
 // Replaces src/repro/kernels/tick_fused/kernel.py:256 tick_fused_pallas
 // (pallas_call at :368) and, in its ΔGRU branch, the gather-compacted
@@ -19,7 +19,15 @@
 //     inline (edge-replicated, as _chunk_to_internal), runs the TDF-II
 //     chain with its (s1, s2) carry in registers, and turns the rectified
 //     frame mean into FV_Norm (12-bit quantizer, log ROM, normalizer,
-//     Q6.8).
+//     Q6.8). The hardware frontends ("hardware", "hardware-pallas": the
+//     same streaming step) instead pass each sample through the VTC, run
+//     the die's mismatched biquad, sum the SRO frequency
+//     max((f_free + k_sro |y|) gain, 0) over the frame (blocks of 32
+//     samples, then the block sums: the reference's compiled order), and
+//     count tot = r + scale * sum + (j - j), counts = floor(tot),
+//     r' = tot - counts; beta / alpha calibration and the code scale give
+//     the FV_Raw code, and the log ROM, normalizer and Q6.8 follow as for
+//     the software frontend. The carry r is written back, j is read only.
 //   * Classifier: the int8 weight codes (23.6 kB) and int32 bias codes sit
 //     in shared memory; threads stride over (stream, gate column) for the
 //     gate accumulators, then over (stream, unit) for the gates, which are
@@ -47,8 +55,10 @@
 // updated in place (the counterpart of the reference's buffer donation).
 //
 // Rounding: the IIR uses __fmaf_rn exactly where the reference's compiled
-// scan fuses (b0*x + s1, b1*x - a1*y, b2*x - a2*y); everything else is
-// compiled with -fmad=false so it rounds as the plain version does. QAT and
+// scan fuses (b0*x + s1, b1*x - a1*y, b2*x - a2*y), and the hardware
+// branch where the compiled streaming step fuses (the VTC's cubic term,
+// f_free + k_sro*|y|, r + scale*sum); everything else is compiled with
+// -fmad=false so it rounds as the plain version does. QAT and
 // delta accumulate in float32 on the exact code * 2^-7 weights; integer and
 // delta-int run the shared int24 dot of intgemm.cuh. On the fixed-point
 // grids these sums are exact, so their order does not matter; the float
@@ -56,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "biquad.cuh"
 #include "intgemm.cuh"
 
 namespace {
@@ -117,6 +128,24 @@ struct GruState {
   int32_t* total[2];
 };
 
+// The hardware frontends' operands and their two extra carry leaves (on is
+// 0 for the software frontend). The wrapper mirrors this layout in ctypes.
+struct HwFrontend {
+  float* r;             // [n][C] fractional phase carry, read and written
+  const float* j;       // [n][C] frame-edge phase jitter, read only
+  const float* gain;    // [C] 1 + gain mismatch (ones for an ideal die)
+  const float* beta;    // [C]
+  const float* alpha;   // [C]
+  float f_free;         // SRO free-running frequency (Hz)
+  float k_sro;          // SRO gain (Hz per unit rectified input)
+  float tdc_scale;      // n_phases * tdc_oversample / f_tdc
+  float fv_scale;       // 4095 / full-scale counts, folded
+  float hd2;            // VTC distortion coefficients
+  float hd3;
+  int shared_hd;        // hd2 == hd3: the compiled graph shares hd2*x*x
+  int on;
+};
+
 struct TickArgs {
   const float* inp;
   const uint8_t* mask;
@@ -124,6 +153,7 @@ struct TickArgs {
   float* s1;
   float* s2;
   GruState g;
+  HwFrontend hw;
   float* scores;
   int64_t* top;
   float* fv_out;
@@ -178,15 +208,58 @@ __device__ __forceinline__ int rom_index(int code_sum) {
   return min(max(code_sum - LUT_MIN, 0), LUT_SIZE - 1);
 }
 
-__device__ __forceinline__ void biquad_step(float x, float b0, float b1,
-                                            float b2, float a1, float a2,
-                                            float& s1, float& s2,
-                                            float& acc) {
-  const float y = __fmaf_rn(b0, x, s1);
-  const float s1n = __fadd_rn(__fmaf_rn(b1, x, -__fmul_rn(a1, y)), s2);
-  s2 = __fmaf_rn(b2, x, -__fmul_rn(a2, y));
-  s1 = s1n;
-  acc = __fadd_rn(acc, fabsf(y));
+// The VTC's distortion, rounded as the reference's compiled graph: the
+// cubic term is one fused multiply-add; the quadratic one too unless
+// hd2 == hd3, where XLA shares the product hd2*x*x between the two terms.
+__device__ __forceinline__ float vtc(const HwFrontend& hw, float x) {
+  if (hw.shared_hd) {
+    const float p = __fmul_rn(__fmul_rn(x, hw.hd2), x);
+    return __fmaf_rn(p, x, __fadd_rn(x, p));
+  }
+  return __fmaf_rn(__fmul_rn(__fmul_rn(x, hw.hd3), x), x,
+                   __fmaf_rn(__fmul_rn(x, hw.hd2), x, x));
+}
+
+// The software frontend's frame: the rectified sum of one hop, left to
+// right (the reference's in-scan accumulation).
+__device__ __forceinline__ float software_frame(const float* hop, const Biquad& q,
+                                                float& s1, float& s2) {
+  float acc = 0.0f;
+  float cur = hop[0];
+  for (int i = 0; i < HOP; ++i) {
+    const float nxt = (i + 1 < HOP) ? hop[i + 1] : cur;
+    const float mid = __fmul_rn(__fadd_rn(cur, nxt), 0.5f);
+    acc = __fadd_rn(acc, fabsf(biquad_y(q, cur, s1, s2)));
+    acc = __fadd_rn(acc, fabsf(biquad_y(q, mid, s1, s2)));
+    cur = nxt;
+  }
+  return acc;
+}
+
+// The hardware frontends' frame: the SRO frequency summed over one hop, in
+// blocks of 32 internal samples (the reference's compiled frame sum).
+__device__ __forceinline__ float hardware_frame(const float* hop, const Biquad& q,
+                                                const HwFrontend& hw, float gain,
+                                                float& s1, float& s2) {
+  float total = 0.0f, part = 0.0f;
+  float cur = hop[0];
+  for (int i = 0; i < HOP; ++i) {
+    const float nxt = (i + 1 < HOP) ? hop[i + 1] : cur;
+    const float mid = __fmul_rn(__fadd_rn(cur, nxt), 0.5f);
+    const float xs[2] = {cur, mid};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float y = biquad_y(q, vtc(hw, xs[h]), s1, s2);
+      const float f = fmaxf(__fmul_rn(__fmaf_rn(fabsf(y), hw.k_sro, hw.f_free), gain), 0.0f);
+      part = __fadd_rn(part, f);
+    }
+    if ((2 * i + 2) % 32 == 0) {
+      total = __fadd_rn(total, part);
+      part = 0.0f;
+    }
+    cur = nxt;
+  }
+  return total;
 }
 
 // One gate / logit accumulator as a Q6.8 code: x (in_dim) . w[:, col] + b,
@@ -304,24 +377,26 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
       const int64_t sc = static_cast<int64_t>(stream) * C + c;
       float fv;
       if (a.raw) {
-        const float b0 = a.coeffs[0 * C + c], b1 = a.coeffs[1 * C + c],
-                    b2 = a.coeffs[2 * C + c], a1 = a.coeffs[3 * C + c],
-                    a2 = a.coeffs[4 * C + c];
-        float s1 = a.s1[sc], s2 = a.s2[sc], acc = 0.0f;
+        const Biquad q = load_biquad(a.coeffs, c, C);
+        float s1 = a.s1[sc], s2 = a.s2[sc];
         const float* hop = a.inp + static_cast<int64_t>(stream) * HOP;
-        float cur = hop[0];
-        for (int i = 0; i < HOP; ++i) {
-          const float nxt = (i + 1 < HOP) ? hop[i + 1] : cur;
-          const float mid = __fmul_rn(__fadd_rn(cur, nxt), 0.5f);
-          biquad_step(cur, b0, b1, b2, a1, a2, s1, s2, acc);
-          biquad_step(mid, b0, b1, b2, a1, a2, s1, s2, acc);
-          cur = nxt;
+        float raw_code;
+        if (a.hw.on) {
+          const HwFrontend& hw = a.hw;
+          const float total = hardware_frame(hop, q, hw, hw.gain[c], s1, s2);
+          const float j = hw.j[sc];
+          const float tot = __fadd_rn(__fmaf_rn(total, hw.tdc_scale, hw.r[sc]), __fsub_rn(j, j));
+          const float counts = floorf(tot);
+          hw.r[sc] = __fsub_rn(tot, counts);
+          const float sig = __fmul_rn(hw.alpha[c], __fsub_rn(counts, hw.beta[c]));
+          raw_code = fminf(fmaxf(rintf(__fmul_rn(sig, hw.fv_scale)), 0.0f),
+                           static_cast<float>(LOG_SIZE - 1));
+        } else {
+          const float frame = __fmul_rn(software_frame(hop, q, s1, s2), a.inv_frame);
+          raw_code = rintf(__fmul_rn(fminf(fmaxf(frame, 0.0f), a.q_max), a.q_scale));
         }
         a.s1[sc] = s1;
         a.s2[sc] = s2;
-        const float frame = __fmul_rn(acc, a.inv_frame);
-        const float raw_code =
-            rintf(__fmul_rn(fminf(fmaxf(frame, 0.0f), a.q_max), a.q_scale));
         const int idx = min(max(static_cast<int>(raw_code), 0), LOG_SIZE - 1);
         const float norm =
             __fdiv_rn(__fsub_rn(a.log_rom[idx], a.mu[c]), a.sigma[c]);
@@ -558,7 +633,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
 
 extern "C" int tick_fused_launch(
     const void* inp, const void* mask, int n, void* s1, void* s2,
-    const void* gru, void* scores, void* top, void* fv_out, const void* w,
+    const void* gru, const void* hw, void* scores, void* top, void* fv_out, const void* w,
     const void* b, const void* wf, const void* bf, const void* theta,
     const void* coeffs, const void* mu, const void* sigma,
     const void* log_rom, const void* sig_rom, const void* tanh_rom,
@@ -573,7 +648,8 @@ extern "C" int tick_fused_launch(
   a.n = n;
   a.s1 = static_cast<float*>(s1);
   a.s2 = static_cast<float*>(s2);
-  a.g = *static_cast<const GruState*>(gru);  // a host struct of pointers
+  a.g = *static_cast<const GruState*>(gru);  // host structs, copied by value
+  a.hw = *static_cast<const HwFrontend*>(hw);
   a.scores = static_cast<float*>(scores);
   a.top = static_cast<int64_t*>(top);
   a.fv_out = static_cast<float*>(fv_out);

@@ -9,9 +9,11 @@ whole tick in ONE launch. A CPU tensor takes the plain version
 
 The kernel is built for the paper's model: 16 channels, 256-sample hops
 (512 internal samples), two GRU(48) layers, 12 classes, the log +
-normalizer post-processing, and any of the five classifier backends
-(float, qat, integer, delta, delta-int). Any other geometry on a CUDA
-tensor raises rather than running something else.
+normalizer post-processing, any of the three frontends (software, and
+the hardware frontends' common streaming step with its 4-leaf carry
+{s1, s2, r, j}) and any of the five classifier backends (float, qat,
+integer, delta, delta-int). Any other geometry on a CUDA tensor raises
+rather than running something else.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import dataclasses
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.frontend import _nominal_coeffs
+from repro_torch.core.frontend import _HardwareBase, _nominal_coeffs, streaming_tdc_scale
+from repro_torch.core.tdfex import fv_scale
 from repro_torch.core.gru_int import QuantizedClassifier
 from repro_torch.kernels import build
 from repro_torch.kernels.tick_fused.ref import smoothing_weights, tick_reference
@@ -37,6 +40,7 @@ _GEOMETRY = dict(
 _BACKENDS = {"qat": 0, "integer": 1, "float": 2, "delta": 3, "delta-int": 4}
 # The per-layer leaves of a ΔGRU state, in the order of struct GruState.
 _DELTA_KEYS = ("h", "x_ref", "h_ref", "acc_x", "acc_h", "skipped", "total")
+_FRONTENDS = ("software", "hardware", "hardware-pallas")
 
 
 class GruStatePointers(ctypes.Structure):
@@ -47,6 +51,19 @@ class GruStatePointers(ctypes.Structure):
     _fields_ = [(key, ctypes.c_void_p * 2) for key in _DELTA_KEYS]
 
 
+class HwFrontendArgs(ctypes.Structure):
+    """ctypes mirror of ``struct HwFrontend`` in csrc/tick_fused.cu: the
+    hardware frontends' operands and carry pointers (``on`` = 0 for the
+    software frontend). Passed to the launch by address."""
+
+    _fields_ = (
+        [(key, ctypes.c_void_p) for key in ("r", "j", "gain", "beta", "alpha")]
+        + [(key, ctypes.c_float) for key in
+           ("f_free", "k_sro", "tdc_scale", "fv_scale", "hd2", "hd3")]
+        + [("shared_hd", ctypes.c_int), ("on", ctypes.c_int)]
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class TickOperands:
     """Everything the kernel reads besides the per-tick slab and state,
@@ -55,9 +72,16 @@ class TickOperands:
     which all run on codes; float32 ``wf`` / ``bf`` for float), the
     per-layer ΔGRU thresholds (θ_x, θ_h) as Q6.8 codes (zero for the
     dense backends), the filterbank, the norm stats, and the log /
-    sigmoid / tanh ROMs."""
+    sigmoid / tanh ROMs; for the hardware frontends also the die's gain
+    (1 + mismatch), beta and alpha (empty for the software frontend) and
+    the VTC / SRO / TDC constants."""
 
     backend: str
+    hardware: bool
+    gain: torch.Tensor
+    beta: torch.Tensor
+    alpha: torch.Tensor
+    hw_consts: tuple  # f_free, k_sro, tdc_scale, fv_scale, hd2, hd3
     w: torch.Tensor
     b: torch.Tensor
     wf: torch.Tensor
@@ -86,6 +110,10 @@ def _check_geometry(pipeline) -> None:
         raise ValueError(
             f"the CUDA tick is built for {_GEOMETRY} with 2x oversampling; "
             f"got {got}, oversample={cfg.fex.oversample}"
+        )
+    if cfg.frontend not in _FRONTENDS:
+        raise ValueError(
+            f"the CUDA tick serves the frontends {_FRONTENDS}; got {cfg.frontend!r}"
         )
     if not (cfg.use_log and cfg.use_norm):
         raise ValueError(
@@ -140,8 +168,26 @@ def pack_operands(pipeline, params, frontend_state, device) -> TickOperands:
             cfg.gru.num_layers) for t in pair]
     ns = frontend_state.norm_stats
     fexc = cfg.fex
+    hardware = isinstance(pipeline.frontend, _HardwareBase)
+    gain = beta = alpha = unused(torch.float32)
+    hw_consts = (0.0,) * 6
+    if hardware:
+        tdcfg = cfg.tdfex_config
+        chip = frontend_state.chip
+        c = fexc.num_channels
+        gain = f32(torch.ones((c,)) if chip is None else 1.0 + chip.gain_mismatch)
+        b_cal, a_cal = _HardwareBase._calibration(tdcfg, frontend_state)
+        beta = f32(torch.as_tensor(b_cal, dtype=torch.float32).expand(c))
+        alpha = f32(torch.as_tensor(a_cal, dtype=torch.float32).expand(c))
+        hw_consts = (
+            quant._f32(tdcfg.f_free_hz), quant._f32(tdcfg.k_sro_hz),
+            streaming_tdc_scale(tdcfg), fv_scale(tdcfg),
+            quant._f32(10.0 ** (tdcfg.vtc_hd2_db / 20.0)),
+            quant._f32(10.0 ** (tdcfg.vtc_hd3_db / 20.0)),
+        )
     return TickOperands(
-        backend=key, w=w, b=b, wf=wf, bf=bf,
+        backend=key, hardware=hardware, gain=gain, beta=beta, alpha=alpha,
+        hw_consts=hw_consts, w=w, b=b, wf=wf, bf=bf,
         theta=torch.tensor(thetas, dtype=torch.int32, device=device),
         coeffs=f32(_nominal_coeffs(cfg, frontend_state, device)),
         mu=f32(ns.mu),
@@ -235,6 +281,10 @@ def tick_fused(
         _check_geometry(pipeline)
     if operands.theta.device != dev:
         raise ValueError(f"operands on {operands.theta.device}, inputs on {dev}")
+    if operands.hardware != isinstance(pipeline.frontend, _HardwareBase):
+        raise ValueError(
+            f"operands packed for another frontend than {pipeline.config.frontend!r}"
+        )
     if operands.backend != pipeline.config.classifier_key:
         raise ValueError(
             f"operands packed for {operands.backend!r}, pipeline serves "
@@ -248,8 +298,20 @@ def tick_fused(
     _require(inp, "inp", (n, in_dim), torch.float32, dev)
     _require(mask, "mask", (n,), torch.bool, dev)
     ptrs = _gru_pointers(pipeline.classifier, gru, n, c, h, dev)
-    for key in ("s1", "s2"):
+    carry_keys = ("s1", "s2", "r", "j") if operands.hardware else ("s1", "s2")
+    if set(carry) != set(carry_keys):
+        raise ValueError(f"tick_fused: carry must hold {carry_keys}; got {tuple(carry)}")
+    for key in carry_keys:
         _require(carry[key], f"carry[{key!r}]", (n, c), torch.float32, dev)
+    hw = HwFrontendArgs()
+    if operands.hardware:
+        hw.r, hw.j = carry["r"].data_ptr(), carry["j"].data_ptr()
+        hw.gain = operands.gain.data_ptr()
+        hw.beta, hw.alpha = operands.beta.data_ptr(), operands.alpha.data_ptr()
+        (hw.f_free, hw.k_sro, hw.tdc_scale, hw.fv_scale,
+         hw.hd2, hw.hd3) = operands.hw_consts
+        hw.shared_hd = int(operands.hw_consts[4] == operands.hw_consts[5])
+        hw.on = 1
     _require(scores, "scores", (n, k), torch.float32, dev)
     if fv_out is not None:
         _require(fv_out, "fv_out", (n, c), torch.float32, dev)
@@ -263,7 +325,7 @@ def tick_fused(
         rc = lib.tick_fused_launch(
             inp.data_ptr(), mask.data_ptr(), n,
             carry["s1"].data_ptr(), carry["s2"].data_ptr(),
-            ctypes.addressof(ptrs), scores.data_ptr(),
+            ctypes.addressof(ptrs), ctypes.addressof(hw), scores.data_ptr(),
             top.data_ptr(), None if fv_out is None else fv_out.data_ptr(),
             op.w.data_ptr(), op.b.data_ptr(), op.wf.data_ptr(), op.bf.data_ptr(),
             op.theta.data_ptr(), op.coeffs.data_ptr(),

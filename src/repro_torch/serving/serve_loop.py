@@ -4,8 +4,10 @@ Counterpart of the KWS side of `repro.serving.serve_loop`:
 `StreamingKWSServer` serves N concurrent audio streams, one tick per
 16 ms frame. Each tick accepts, per stream, EITHER a precomputed FV_Norm
 frame (C,) OR a raw 16 ms audio hop (`pipeline.chunk_samples` samples);
-raw audio goes through the pipeline's software frontend with a
-per-stream filter carry, so the server is audio in, posteriors out.
+raw audio goes through the pipeline's frontend ("software", or the
+"hardware" / "hardware-pallas" chip simulation on the die of the
+frontend state) with a per-stream carry, so the server is audio in,
+posteriors out.
 
 The whole tick (frontend, both GRU layers, FC, softmax, smoothing and
 the masked state advance) is ONE launch of the hand-written CUDA kernel
@@ -48,7 +50,10 @@ class ServerState:
              float / qat, int32 Q6.8 codes for integer; for delta /
              delta-int a dict per layer of the seven ΔGRU leaves (h,
              x_ref, h_ref, acc_x, acc_h and the skipped / total counters).
-    carry  — frontend carry {"s1", "s2"}, (max_streams, C) float32 each.
+    carry  — frontend carry, (max_streams, C) float32 leaves: the filter
+             state {"s1", "s2"}, and for the hardware frontends also the
+             SRO phase carry "r" and the frame-edge jitter "j" (which the
+             server, drawing no noise, never changes).
     scores — exponentially smoothed posteriors, (max_streams, K).
 
     On the card each tick updates these tensors in place (the

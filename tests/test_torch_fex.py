@@ -15,6 +15,7 @@ import torch
 from repro.core import fex as jfex
 from repro.core import quant as jq
 from repro.core.frontend import FrontendState as JState
+from repro.core.frontend import available_frontends as j_available_frontends
 from repro.core.frontend import get_frontend as j_get_frontend
 from repro.core.pipeline import KWSPipeline as JPipeline
 from repro.core.pipeline import KWSPipelineConfig as JConfig
@@ -134,10 +135,13 @@ def test_oversample2x_matches():
     )
 
 
-def test_frontend_registry_names_only_software():
-    assert available_frontends() == ("software",)
-    with pytest.raises(KeyError, match="registered frontends: \\['software'\\]"):
-        get_frontend("hardware")
+def test_frontend_registry_names_the_references_frontends():
+    assert available_frontends() == ("hardware", "hardware-pallas", "software")
+    assert set(available_frontends()) == set(j_available_frontends())
+    for name in available_frontends():
+        assert get_frontend(name).name == name
+    with pytest.raises(KeyError, match="registered frontends: \\['hardware', 'hardware-pallas', 'software'\\]"):
+        get_frontend("bogus")
 
 
 def test_masked_select_keeps_idle_rows_exactly():

@@ -10,12 +10,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.fex import FExNormStats
-from repro_torch.core.frontend import tree_clone, tree_leaves
+from repro_torch.core.fex import FExConfig, FExNormStats
+from repro_torch.core.frontend import FrontendState, hardware_state, tree_clone, tree_leaves
 from repro_torch.core.gru_delta import DeltaConfig
 from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
+from repro_torch.core.tdfex import TDFExConfig, TDFExState, draw_chip
 from repro_torch.kernels import build
+from repro_torch.kernels.fex_fused import biquad_stream, biquad_stream_ref, fex_fused, fex_fused_ref
 from repro_torch.kernels.intgemm import intgemm, intgemm_ref
+from repro_torch.kernels.tdc import tdc_counts, tdc_counts_plain
+from repro_torch.kernels.tdc.ops import tdc_scale
 from repro_torch.kernels.tick_fused import pack_operands, tick_fused, tick_reference
 from repro_torch.kernels.tick_fused.gather import make_sparse_step
 from repro_torch.serving.serve_loop import StreamingKWSServer
@@ -68,19 +72,37 @@ def test_intgemm_kernel_equals_plain(dev, m, k, n, kind):
     assert torch.equal(got, intgemm_ref(x, w))
 
 
-def _pipe(dev, classifier, theta):
+def _hw_state(dev, seed=0):
+    """A mismatched die drawn from a seed, uncalibrated (nominal beta,
+    unit alpha), with norm stats."""
+    chip = draw_chip(torch.Generator().manual_seed(seed), TDFExConfig(), dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    beta = TDFExConfig().beta_nominal + 2 * torch.randn(16, generator=g)
+    alpha = 1 + 0.05 * torch.randn(16, generator=g)
+    return hardware_state(TDFExConfig(), chip, beta, alpha, _norm_stats(dev), device=dev)
+
+
+def _pipe(dev, classifier, theta, frontend="software"):
     delta = None if theta is None else DeltaConfig(theta, theta)
-    return KWSPipeline(KWSPipelineConfig(classifier=classifier, delta=delta),
-                       norm_stats=_norm_stats(dev))
+    cfg = KWSPipelineConfig(frontend=frontend, classifier=classifier, delta=delta)
+    if frontend == "software":
+        return KWSPipeline(cfg, norm_stats=_norm_stats(dev))
+    return KWSPipeline(cfg, state=_hw_state(dev))
 
 
-@pytest.mark.parametrize("classifier,theta", BACKENDS, ids=[f"{c}-{t}" for c, t in BACKENDS])
-@pytest.mark.parametrize("raw", [True, False], ids=["raw", "fv"])
+def _tick_cases():
+    cases = [(c, t, raw, "software") for c, t in BACKENDS for raw in (True, False)]
+    return cases + [(c, t, True, "hardware") for c, t in BACKENDS]
+
+
+@pytest.mark.parametrize("classifier,theta,raw,frontend", _tick_cases(),
+                         ids=[f"{c}-{t}-{'raw' if r else 'fv'}-{f}" for c, t, r, f in _tick_cases()])
 @pytest.mark.parametrize("n", [N, 37], ids=["full", "ragged"])
-def test_tick_kernel_equals_plain(dev, classifier, theta, raw, n):
+def test_tick_kernel_equals_plain(dev, classifier, theta, raw, frontend, n):
     """Against the plain tick; for the ΔGRU backends its sparse step (K4's
-    plain version) at both extremes of the fired-column list."""
-    pipe = _pipe(dev, classifier, theta)
+    plain version) at both extremes of the fired-column list; with the
+    hardware frontend on a mismatched die, its carry {s1, s2, r, j}."""
+    pipe = _pipe(dev, classifier, theta, frontend)
     params = pipe.prepare_params(pipe.init_params(torch.Generator().manual_seed(1), device=dev))
     ops = pack_operands(pipe, params, pipe.state, dev)
     step_fn = make_sparse_step(pipe)
@@ -106,8 +128,9 @@ def test_tick_kernel_equals_plain(dev, classifier, theta, raw, n):
                 assert float((a - b).abs().max()) <= FLOAT_TOL, f"tick {t}"
             else:
                 assert torch.equal(a, b), f"tick {t}"
-        for key in ("s1", "s2"):
-            assert torch.equal(kc[key], pc[key])
+        assert sorted(kc) == sorted(pc)
+        for key in pc:
+            assert torch.equal(kc[key], pc[key]), key
         assert float((ks - ps).abs().max()) <= (FLOAT_TOL if flt else 1e-6)
         if flt:  # top where the plain tick's two best scores are clearly apart
             best2 = torch.topk(ps, 2, dim=-1).values
@@ -124,9 +147,14 @@ def test_tick_kernel_equals_plain(dev, classifier, theta, raw, n):
             assert torch.equal(st["skipped"], st["total"])
 
 
-@pytest.mark.parametrize("classifier,theta", BACKENDS[:5], ids=[f"{c}-{t}" for c, t in BACKENDS[:5]])
-def test_server_launches_one_tick_kernel_per_tick(dev, classifier, theta):
-    pipe = _pipe(dev, classifier, theta)
+SERVERS = [(c, t, "software") for c, t in BACKENDS[:5]] + [
+    ("qat", None, "hardware"), ("delta-int", 0.15, "hardware-pallas")]
+
+
+@pytest.mark.parametrize("classifier,theta,frontend", SERVERS,
+                         ids=[f"{c}-{t}-{f}" for c, t, f in SERVERS])
+def test_server_launches_one_tick_kernel_per_tick(dev, classifier, theta, frontend):
+    pipe = _pipe(dev, classifier, theta, frontend)
     srv = StreamingKWSServer(pipe, pipe.init_params(torch.Generator().manual_seed(3)), max_streams=64)
     for sid in range(40):
         srv.open_stream(sid)
@@ -135,8 +163,7 @@ def test_server_launches_one_tick_kernel_per_tick(dev, classifier, theta):
     for _ in range(3):
         srv.step_batch((rng.standard_normal((64, 256)) * 0.1).astype(np.float32), rng.random(64) < 0.8)
     srv.run_batch((rng.standard_normal((4, 64, 256)) * 0.1).astype(np.float32), np.ones((4, 64), bool))
-    assert build.launches["tick_fused"] == 7
-    assert build.launches["intgemm"] == 0
+    assert dict(build.launches) == {"tick_fused": 7}
     sp = srv.sparsity
     assert sp.shape == (64,) and (sp <= 1).all()
     if theta is None:
@@ -183,3 +210,104 @@ def test_wrappers_reject_other_devices_and_dtypes(dev):
         intgemm(torch.zeros((2, 3), device=dev, dtype=torch.int64), torch.zeros((3, 2), device=dev, dtype=torch.int8))
     with pytest.raises(ValueError, match="do not chain"):
         intgemm(torch.zeros((2, 3), device=dev, dtype=torch.int32), torch.zeros((4, 2), device=dev, dtype=torch.int8))
+    with pytest.raises(TypeError, match="float32 or torch.bfloat16"):
+        fex_fused(torch.zeros((2, 1024), device=dev, dtype=torch.float64), _coeffs(dev), 512)
+    with pytest.raises(TypeError, match="float32"):
+        biquad_stream(torch.zeros((2, 64), device=dev, dtype=torch.bfloat16), _coeffs(dev))
+    with pytest.raises(ValueError, match="carry must be float32"):
+        biquad_stream(torch.zeros((2, 64), device=dev), _coeffs(dev),
+                      (torch.zeros((3, 16), device=dev), torch.zeros((3, 16), device=dev)))
+    with pytest.raises(TypeError, match="float32"):
+        tdc_counts(torch.zeros((1, 512, 16), device=dev, dtype=torch.float64), TDFExConfig())
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        fex_fused(torch.zeros((2, 1024), device="meta"), _coeffs("cpu"), 512)
+
+
+def test_tick_wrapper_checks_the_hardware_carry(dev):
+    pipe = _pipe(dev, "qat", None, "hardware")
+    params = pipe.prepare_params(pipe.init_params(torch.Generator().manual_seed(1), device=dev))
+    ops = pack_operands(pipe, params, pipe.state, dev)
+    n = 8
+    state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
+             torch.zeros((n, 12), device=dev))
+    inp, mask = torch.zeros((n, 256), device=dev), torch.ones(n, dtype=torch.bool, device=dev)
+    short = (state[0], {k: state[1][k] for k in ("s1", "s2")}, state[2])
+    with pytest.raises(ValueError, match="carry must hold"):
+        tick_fused(pipe, True, params, short, inp, mask, pipe.state, 0.7, operands=ops)
+    bad = (state[0], dict(state[1], r=state[1]["r"][:4]), state[2])
+    with pytest.raises(ValueError, match="carry\\['r'\\]"):
+        tick_fused(pipe, True, params, bad, inp, mask, pipe.state, 0.7, operands=ops)
+    soft = _pipe(dev, "qat", None)
+    with pytest.raises(ValueError, match="another frontend"):
+        tick_fused(soft, True, params, state, inp, mask, soft.state, 0.7, operands=ops)
+
+
+def _coeffs(dev):
+    return FExConfig().filterbank().stacked(device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,c,frame", [(8, 4096, 16, 512), (1, 512, 16, 512), (5, 1100, 8, 256)])
+def test_fex_fused_kernel_equals_plain(dev, dtype, b, t, c, frame):
+    from repro_torch.core.filters import design_filterbank
+
+    g = torch.Generator(device=dev).manual_seed(b + t)
+    x = (torch.randn((b, t), generator=g, device=dev) * 0.2).to(dtype)
+    coeffs = design_filterbank(c, 32000.0)
+    before = build.launches["fex_fused"]
+    got = fex_fused(x, coeffs, frame)
+    assert build.launches["fex_fused"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, t // frame, c)
+    assert torch.equal(got, fex_fused_ref(x[:, : (t // frame) * frame], coeffs, frame))
+
+
+@pytest.mark.parametrize("b,t", [(8, 3000), (1, 1), (33, 512)])
+def test_scan_entry_equals_plain_with_its_carry(dev, b, t):
+    g = torch.Generator(device=dev).manual_seed(b * t)
+    x = torch.randn((b, t), generator=g, device=dev) * 0.3
+    coeffs = _hw_state(dev).coeffs
+    carry = (torch.randn((b, 16), generator=g, device=dev) * 0.01,
+             torch.randn((b, 16), generator=g, device=dev) * 0.01)
+    before = build.launches["biquad_stream"]
+    y, (s1, s2) = biquad_stream(x, coeffs, carry)
+    assert build.launches["biquad_stream"] == before + 1
+    py, (p1, p2) = biquad_stream_ref(x, coeffs, carry)
+    assert torch.equal(y, py) and torch.equal(s1, p1) and torch.equal(s2, p2)
+
+
+@pytest.mark.parametrize("b,frames,c", [(8, 4, 16), (1, 1, 1), (3, 2, 5)])
+@pytest.mark.parametrize("mismatch", [False, True], ids=["ideal", "chip"])
+def test_tdc_kernel_equals_plain(dev, b, frames, c, mismatch):
+    cfg = TDFExConfig()
+    g = torch.Generator(device=dev).manual_seed(b + frames + c)
+    u = torch.randn((b, 512 * frames + 7, c), generator=g, device=dev).abs() * 0.2
+    chip = None
+    gain = torch.ones(c, device=dev)
+    if mismatch:
+        chip = TDFExState(torch.randn(c, generator=g, device=dev) * 0.15, torch.zeros(c, device=dev))
+        gain = 1.0 + chip.gain_mismatch
+    before = build.launches["tdc"]
+    got = tdc_counts(u, cfg, chip)
+    assert build.launches["tdc"] == before + 1
+    want = tdc_counts_plain(u[:, : 512 * frames], cfg.f_free_hz * gain, cfg.k_sro_hz * gain,
+                            512, cfg.tdc_oversample, tdc_scale(cfg))
+    assert got.shape == (b, frames, c) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("frontend", ["software", "hardware", "hardware-pallas"])
+def test_features_run_their_kernels_and_equal_the_cpu(dev, frontend):
+    state = FrontendState() if frontend == "software" else _hw_state(dev)
+    pipe = KWSPipeline(KWSPipelineConfig(frontend=frontend), state=state)
+    rng = np.random.default_rng(3)
+    audio = (rng.standard_normal((6, 2000)) * np.logspace(-2, -0.3, 6)[:, None]).astype(np.float32)
+    build.launches.clear()
+    got = pipe.record_features(audio, batch_size=4)
+    want = {"software": {"fex_fused": 2}, "hardware": {"biquad_stream": 2},
+            "hardware-pallas": {"biquad_stream": 2, "tdc": 2}}[frontend]
+    assert dict(build.launches) == want
+    cpu_state = FrontendState() if frontend == "software" else hardware_state(
+        TDFExConfig(), TDFExState(state.chip.gain_mismatch.cpu(), state.chip.cf_mismatch.cpu()),
+        state.beta.cpu(), state.alpha.cpu(), device="cpu")
+    cpu = KWSPipeline(pipe.config, state=cpu_state).record_features(audio, batch_size=4,
+                                                                    device="cpu")
+    np.testing.assert_array_equal(got, cpu)
