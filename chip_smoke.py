@@ -40,13 +40,27 @@ plain PyTorch version on the card:
      ΔGRU runs;
   8. the integer and delta-int pipelines' streaming_step: 5 intgemm
      launches per step, equal to the plain version;
-  9. times on CUDA events after warm-up: ms per step_batch tick and each
+  9. the cascaded server at 4096 streams on traffic where the gate gates
+     (half the streams -60 dB noise, half tone plus noise): qat and
+     delta-int with the energy gate at 0.15, delta (θ = 0.15) at 0.1 with
+     hangover 3 and decay 0.9, qat on the calibrated die with a "linear"
+     detector fitted on the card from the die's FV_Norm frames (0.5,
+     hangover 3), and an always-on qat server equal to the ungated one;
+     every tick held against the plain tick loop (detector state, GRU
+     state, top, srv.sparsity equal, scores within 1e-6), one tick_fused
+     launch per tick, the mean srv.wake_rate per server;
+ 10. the async ingress on the qat server at 4096 streams: 64 ticks through
+     step_batch, PipelinedIngress(depth=2, window=1) and (window=4), 8
+     through TickCoalescer, each equal to the step_batch sequence, with
+     its launches and ms per tick (host clock); metrics on against off;
+ 11. times on CUDA events after warm-up: ms per step_batch tick and each
      kernel's time beside its plain version's, its bound and a library
      yardstick where one exists (the ΔGRU tick at θ = 0 and 0.15 on raw
      audio and on the reference's sparsity traffic, the hardware tick,
-     K1, the scan entry and K5 at the batch path's shapes); one JSON line
-     per kernel, then all kernels in one JSON line;
- 10. the result line ``{"ok": true, "device": {...}}``.
+     the gated tick beside the ungated one, K1, the scan entry and K5 at
+     the batch path's shapes); one JSON line per kernel, then all kernels
+     in one JSON line;
+ 12. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
@@ -165,11 +179,12 @@ def _norm_stats():
     )
 
 
-def _setup(dev, classifier: str, theta=None, hw_state=None):
+def _setup(dev, classifier: str, theta=None, hw_state=None, cascade=None):
     """A pipeline with fitted norm stats (ΔGRU thresholds θ for the delta
-    backends) and random float params from the seed, on ``dev``. With
-    ``hw_state`` (a calibrated die with its norm stats) the pipeline
-    serves the "hardware" frontend on that die."""
+    backends, the stage-1 gate ``cascade`` when given) and random float
+    params from the seed, on ``dev``. With ``hw_state`` (a calibrated die
+    with its norm stats) the pipeline serves the "hardware" frontend on
+    that die."""
     import torch
 
     from repro_torch.core import fex
@@ -179,12 +194,13 @@ def _setup(dev, classifier: str, theta=None, hw_state=None):
     delta = None if theta is None else DeltaConfig(theta, theta)
     if hw_state is not None:
         pipe = KWSPipeline(KWSPipelineConfig(frontend="hardware", classifier=classifier,
-                                             delta=delta), state=hw_state)
+                                             delta=delta, cascade=cascade), state=hw_state)
         params = pipe.init_params(torch.Generator().manual_seed(SEED + 1), device=dev)
         return pipe, params
     stats = _norm_stats()
     stats = fex.FExNormStats(mu=stats.mu.to(dev), sigma=stats.sigma.to(dev))
-    pipe = KWSPipeline(KWSPipelineConfig(classifier=classifier, delta=delta), norm_stats=stats)
+    pipe = KWSPipeline(KWSPipelineConfig(classifier=classifier, delta=delta, cascade=cascade),
+                       norm_stats=stats)
     params = pipe.init_params(torch.Generator().manual_seed(SEED + 1), device=dev)
     return pipe, params
 
@@ -256,7 +272,7 @@ def phase_tick(dev, hw_state=None):
         hw = hw_state is not None
         for raw in ((True,) if hw else (True, False)):
             state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
-                     torch.zeros((n, K), device=dev))
+                     torch.zeros((n, K), device=dev), None)
             g = torch.Generator(device=dev).manual_seed(SEED + 3)
             for t, frac in enumerate([1.0, 0.6, 0.0, 0.9, 0.3]):
                 if raw:
@@ -264,11 +280,11 @@ def phase_tick(dev, hw_state=None):
                 else:
                     inp = torch.round(torch.randn((n, C), generator=g, device=dev) * 512) / 256
                 mask = torch.rand(n, generator=g, device=dev) < frac
-                (pg, pc, ps), _, ptop = tick_reference(
+                (pg, pc, ps, _), _, ptop = tick_reference(
                     pipe, raw, params, tree_clone(state), inp, mask, pipe.state, SMOOTHING,
                     step_fn=step_fn)
                 fv = torch.zeros((n, C), device=dev)
-                (kg, kc, ks), _, ktop = tick_fused(
+                (kg, kc, ks, _), _, ktop = tick_fused(
                     pipe, raw, params, tree_clone(state), inp, mask, pipe.state, SMOOTHING,
                     operands=ops, fv_out=fv)
                 torch.cuda.synchronize()
@@ -294,32 +310,73 @@ def phase_tick(dev, hw_state=None):
                     if not torch.equal(fv[mask], pfv[mask]):
                         raise AssertionError(f"{where}: FV codes differ")
                 worst[classifier] = max(worst.get(classifier, 0.0), err)
-                state = (kg, kc, ks)
+                state = (kg, kc, ks, None)
             print(f"tick_fused {_label(classifier, theta, hw)} {'raw' if raw else 'fv'}: 5 ticks "
                   f"equal to the plain tick" + (f" within {worst[classifier]:.3g}" if flt else ""))
     return worst
 
 
-def drive_server(dev, classifier: str, theta=None, hw_state=None, live_ticks=LIVE_TICKS,
-                 replay_ticks=REPLAY_TICKS):
-    """The main path: a user's StreamingKWSServer on the card (the
-    hardware frontend on ``hw_state``'s die when given). Returns the
-    server's outputs, the inputs and the launch counts of the run."""
+def _noise_traffic(live_ticks: int, replay_ticks: int):
+    """Noise hops with per-stream gains from -40 dB to -6 dB full scale;
+    85 % of the streams submit per tick, tick 7 is all-idle."""
     import numpy as np
 
-    from repro_torch.kernels import build
-    from repro_torch.serving.serve_loop import StreamingKWSServer
-
-    pipe, params = _setup(dev, classifier, theta, hw_state)
-    srv = StreamingKWSServer(pipe, params, max_streams=N_STREAMS, smoothing=SMOOTHING)
-    for sid in range(N_STREAMS):
-        srv.open_stream(sid)
     rng = np.random.default_rng(SEED + 4)
     gains = np.logspace(-2, -0.3, N_STREAMS).astype(np.float32)[:, None]
     live = [((rng.standard_normal((N_STREAMS, HOP)).astype(np.float32) * gains),
              rng.random(N_STREAMS) < (0.0 if t == 7 else 0.85)) for t in range(live_ticks)]
     replay = (rng.standard_normal((replay_ticks, N_STREAMS, HOP)).astype(np.float32) * gains,
               rng.random((replay_ticks, N_STREAMS)) < 0.85)
+    return live, replay
+
+
+def _cascade_hops(n_ticks: int, seed: int):
+    """(n_ticks, N_STREAMS, HOP) hops where the gate really gates: the
+    first half of the streams is noise at -60 dB full scale (silence), the
+    second half a tone (200 Hz - 6 kHz) plus noise, continuous across
+    hops, at -40 dB to -6 dB full scale."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    half = N_STREAMS // 2
+    hops = rng.standard_normal((n_ticks, N_STREAMS, HOP)).astype(np.float32) * 1e-3
+    t = np.arange(n_ticks * HOP).reshape(n_ticks, 1, HOP) / 16000.0
+    freq = rng.uniform(200, 6000, (1, N_STREAMS - half, 1))
+    gains = np.logspace(-2, -0.3, N_STREAMS - half)[None, :, None]
+    tone = 0.7 * np.sin(2 * np.pi * freq * t) + 0.3 * rng.standard_normal(
+        (n_ticks, N_STREAMS - half, HOP))
+    hops[:, half:] = (tone * gains).astype(np.float32)
+    return hops
+
+
+def _cascade_traffic(live_ticks: int, replay_ticks: int):
+    """`_cascade_hops` as live ticks (85 % submitting, tick 7 all-idle)
+    and a replay."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 8)
+    hops = _cascade_hops(live_ticks + replay_ticks, SEED + 9)
+    live = [(hops[t], rng.random(N_STREAMS) < (0.0 if t == 7 else 0.85))
+            for t in range(live_ticks)]
+    replay = (hops[live_ticks:], rng.random((replay_ticks, N_STREAMS)) < 0.85)
+    return live, replay
+
+
+def drive_server(dev, classifier: str, theta=None, hw_state=None, live_ticks=LIVE_TICKS,
+                 replay_ticks=REPLAY_TICKS, cascade=None, traffic=_noise_traffic):
+    """The main path: a user's StreamingKWSServer on the card (the
+    hardware frontend on ``hw_state``'s die when given, the stage-1 gate
+    ``cascade`` when given), fed by ``traffic(live_ticks, replay_ticks)``.
+    Returns the server's outputs, the inputs and the launch counts of the
+    run."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.serve_loop import StreamingKWSServer
+
+    pipe, params = _setup(dev, classifier, theta, hw_state, cascade)
+    srv = StreamingKWSServer(pipe, params, max_streams=N_STREAMS, smoothing=SMOOTHING)
+    for sid in range(N_STREAMS):
+        srv.open_stream(sid)
+    live, replay = traffic(live_ticks, replay_ticks)
     build.launches.clear()
     t0 = time.perf_counter()
     outs = [srv.step_batch(slab, mask) for slab, mask in live]
@@ -331,20 +388,25 @@ def drive_server(dev, classifier: str, theta=None, hw_state=None, live_ticks=LIV
 
 def check_server(dev, pipe, srv, live, replay, outs, replay_out):
     """Replay the same inputs through the plain tick loop on the card (with
-    K4's plain gather step for the ΔGRU backends)."""
+    K4's plain gather step for the ΔGRU backends): scores within the
+    tolerance, top, the GRU state, the carry, the cascade's detector state
+    and srv.sparsity equal."""
     import numpy as np
     import torch
 
     from repro_torch.core.frontend import tree_leaves
+    from repro_torch.core.gru_delta import effective_mac_fraction
     from repro_torch.kernels.tick_fused import tick_reference
     from repro_torch.kernels.tick_fused.gather import make_sparse_step
+    from repro_torch.serving.cascade import init_state
 
     n = N_STREAMS
     params = pipe.prepare_params(srv.params)
     step_fn = make_sparse_step(pipe)
     flt = pipe.config.classifier_key == "float"
+    det = None if pipe.config.cascade is None else init_state(n, dev)
     state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
-             torch.zeros((n, K), device=dev))
+             torch.zeros((n, K), device=dev), det)
     n_replay = len(replay[0])
     ticks = list(live) + [(replay[0][t], replay[1][t]) for t in range(n_replay)]
     want = list(outs) + [(replay_out[0][t], replay_out[1][t]) for t in range(n_replay)]
@@ -370,6 +432,15 @@ def check_server(dev, pipe, srv, live, replay, outs, replay_out):
     for key in state[1]:
         if not torch.equal(srv.state.carry[key], state[1][key]):
             raise AssertionError(f"server carry {key} differs from the plain loop")
+    for key in (state[3] or {}):
+        if not torch.equal(srv.state.det[key], state[3][key]):
+            raise AssertionError(f"server detector state {key} differs from the plain loop")
+    if pipe.classifier.is_delta:
+        plain = effective_mac_fraction(
+            [{k: st[k].cpu() for k in ("skipped", "total")} for st in state[0]],
+            pipe.config.gru).numpy()
+        if not np.array_equal(srv.sparsity, plain):
+            raise AssertionError("server sparsity differs from the plain loop")
     return worst
 
 
@@ -410,10 +481,17 @@ def phase_pipeline(dev, classifier: str):
 
 
 def tick_bound(n_active: int, raw: bool = True, fires=None, mac_fraction: float = 1.0,
-               weight_bytes: int = 24204, hardware: bool = False):
+               weight_bytes: int = 24204, hardware: bool = False, n_woken=None):
     """Least time for one tick of ``n_active`` streams (all submitting):
     each input byte read once, each output written once, and the
     operations the tick needs at the card's CUDA-core rate.
+
+    ``n_woken`` (a cascaded tick): the stage-1 gate adds, per submitting
+    stream, its 16 feature reads, ~40 operations (the linear detector's
+    multiply-adds and sigmoid; the energy score needs fewer) and its four
+    state leaves (13 bytes) read and written; the classifier's state,
+    operations and scores count only for the ``n_woken`` streams the gate
+    let through (the gated ones need nothing of it).
 
     A ΔGRU tick (``fires`` given, from `_delta_fires`) reads its whole
     state but writes only what this run's data changes: h and the
@@ -423,6 +501,7 @@ def tick_bound(n_active: int, raw: bool = True, fires=None, mac_fraction: float 
     (plus ~4 operations a column for the thresholds, memories and
     counters). ``hardware``: the hardware frontend's VTC and SRO
     operations, its extra carry and its per-channel calibration."""
+    woken = n_active if n_woken is None else n_woken
     carry = 2 * C * 4 if raw else 0
     # the hardware carry adds r (read and written) and j (read only)
     carry_extra = 3 * C * 4 if raw and hardware else 0
@@ -433,12 +512,14 @@ def tick_bound(n_active: int, raw: bool = True, fires=None, mac_fraction: float 
         mems, accs = 4 * (C + 3 * H), 4 * 4 * G  # x_ref + h_ref, acc_x + acc_h of both layers
         state_in = DELTA_STATE_BYTES
         state_out = DELTA_STATE_BYTES - mems - accs + column_frac * mems + acc_frac * accs
-    # input, mask, carry and scores in + out, classifier state in, out, top
-    per_stream = ((HOP * 4 if raw else C * 4) + 1 + 2 * (carry + K * 4)
-                  + carry_extra + state_in + state_out + 8)
+    # input, mask, carry and top; scores in + out and the classifier
+    # state in and out for the streams the classifier runs for
+    per_stream = (HOP * 4 if raw else C * 4) + 1 + 2 * carry + carry_extra + 8
+    per_woken = 2 * K * 4 + state_in + state_out
+    det_bytes = 2 * 13 if n_woken is not None else 0
     tables = weight_bytes + 2352 + 4096 * 4 + 2 * 32767 * 4 + 5 * C * 4 + 2 * C * 4
     tables += 3 * C * 4 if hardware else 0  # gain, beta, alpha
-    byts = n_active * per_stream + tables
+    byts = n_active * (per_stream + det_bytes) + woken * per_woken + tables
     iir = 2 * HOP * C * 11 if raw else 0  # per internal sample: 3 fma (2 each), 2 mul, 2 add, abs, acc
     if raw and hardware:  # + VTC (2 mul, add, fma), SRO (fma, mul, max)
         iir = 2 * HOP * C * (11 + 5 + 4)
@@ -447,7 +528,8 @@ def tick_bound(n_active: int, raw: bool = True, fires=None, mac_fraction: float 
     macs = mac_fraction * ELIGIBLE_MACS + H * K
     gates = 2 * H * 14
     tail = K * 6
-    ops = n_active * (iir + post + delta + 2 * macs + gates + tail)
+    gate_ops = 40 if n_woken is not None else 0
+    ops = n_active * (iir + post + gate_ops) + woken * (delta + 2 * macs + gates + tail)
     t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -539,7 +621,7 @@ def phase_times(dev, srv_qat, live, hw_state):
         for kind, slabs in kinds:
             raw = kind == "raw"
             state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
-                     torch.zeros((n, K), device=dev))
+                     torch.zeros((n, K), device=dev), None)
             tick = [0]
 
             def run():
@@ -804,6 +886,311 @@ def phase_features(dev, state):
     return codes, launches, errs, times, stats
 
 
+CASCADE_LIVE_TICKS = 24
+CASCADE_REPLAY_TICKS = 8
+INGRESS_TICKS = 64
+COALESCER_TICKS = 8
+DETECTOR_CLIPS = 16  # 0.5 s clips of tone and of silence for the linear detector
+DETECTOR_SAMPLES = 8000
+
+
+def _fit_die_detector(dev, hw_state):
+    """The "linear" detector for the hardware die: `fit_linear_detector`
+    run on the card on the die's FV_Norm frames of tone clips (speech
+    stand-ins) against -60 dB noise clips (silence)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
+    from repro_torch.serving.cascade import fit_linear_detector
+
+    pipe = KWSPipeline(KWSPipelineConfig(frontend="hardware"), state=hw_state)
+    tones = torch.as_tensor(_clips(DETECTOR_CLIPS, DETECTOR_SAMPLES), device=dev)
+    silence = torch.as_tensor(np.random.default_rng(SEED + 10).standard_normal(
+        (DETECTOR_CLIPS, DETECTOR_SAMPLES)).astype(np.float32) * 1e-3, device=dev)
+    tone_fv, _ = pipe.features(tones)
+    silence_fv, _ = pipe.features(silence)
+    t0 = time.perf_counter()
+    w, b = fit_linear_detector(tone_fv, silence_fv)
+    print(f"linear detector fitted on the card on {tuple(tone_fv.shape)} tone and "
+          f"{tuple(silence_fv.shape)} silence FV_Norm frames of the die in "
+          f"{time.perf_counter() - t0:.2f} s; b = {b:.4f}")
+    return w, b
+
+
+def cascade_runs(hw_state, linear):
+    """(label, classifier, θ, die or None, CascadeConfig) of the cascade
+    phase's servers."""
+    from repro_torch.serving.cascade import CascadeConfig
+
+    w, b = linear
+    return [
+        ("qat energy 0.15", "qat", None, None, CascadeConfig(wake_threshold=0.15)),
+        ("delta-int θ=0.15 energy 0.15", "delta-int", THETA, None,
+         CascadeConfig(wake_threshold=0.15)),
+        ("delta θ=0.15 energy 0.1 hangover 3 decay 0.9", "delta", THETA, None,
+         CascadeConfig(wake_threshold=0.1, hangover_frames=3, score_decay=0.9)),
+        ("qat hardware linear 0.5 hangover 3", "qat", None, hw_state,
+         CascadeConfig(detector="linear", wake_threshold=0.5, hangover_frames=3,
+                       linear_w=w, linear_b=b)),
+        ("qat always_on", "qat", None, None, CascadeConfig.always_on()),
+    ]
+
+
+def phase_cascade(dev, hw_state):
+    """The cascaded serving path at N_STREAMS on traffic where the gate
+    gates (half the streams silent): each server's live step_batch ticks
+    and run_batch against the plain tick loop, launches counted around
+    each run; the always-on server against the ungated one, bit for bit.
+    Returns (worst score difference, tick_fused launches, per-server mean
+    wake rates, the linear detector)."""
+    import numpy as np
+
+    linear = _fit_die_detector(dev, hw_state)
+    worst, launches, rates = 0.0, 0, {}
+    for label, classifier, theta, die, casc in cascade_runs(hw_state, linear):
+        pipe, srv, live, replay, outs, replay_out, counts, live_s = drive_server(
+            dev, classifier, theta, die, CASCADE_LIVE_TICKS, CASCADE_REPLAY_TICKS,
+            cascade=casc, traffic=_cascade_traffic)
+        want = CASCADE_LIVE_TICKS + CASCADE_REPLAY_TICKS
+        if counts != {"tick_fused": want}:
+            raise AssertionError(f"cascade server {label}: launches {counts}, want only "
+                                 f"tick_fused={want}")
+        launches += counts["tick_fused"]
+        err = check_server(dev, pipe, srv, live, replay, outs, replay_out)
+        worst = max(worst, err)
+        rates[label] = float(srv.wake_rate.mean())
+        if not casc.always_open and not 0.0 < rates[label] < 1.0:
+            raise AssertionError(f"cascade server {label}: the gate did not gate "
+                                 f"(mean wake rate {rates[label]})")
+        extra = (f", mean srv.sparsity {float(srv.sparsity.mean()):.4f}"
+                 if pipe.classifier.is_delta else "")
+        print(f"cascade server {label}: {CASCADE_LIVE_TICKS} step_batch + "
+              f"{CASCADE_REPLAY_TICKS} run_batch ticks at {N_STREAMS} streams, launches "
+              f"{counts}, equal to the plain tick loop (scores within {err:.3g}); mean "
+              f"srv.wake_rate {rates[label]:.4f}{extra}; live ticks took {live_s:.3f} s")
+        if casc.always_open:
+            _, plain, _, _, plain_outs, plain_replay, _, _ = drive_server(
+                dev, classifier, theta, die, CASCADE_LIVE_TICKS, CASCADE_REPLAY_TICKS,
+                traffic=_cascade_traffic)
+            for (a, ta), (b_, tb) in zip(outs + [replay_out], plain_outs + [plain_replay]):
+                if not (np.array_equal(a, b_) and np.array_equal(ta, tb)):
+                    raise AssertionError("always_on server differs from the ungated server")
+            for x, y in zip(srv.state.leaves(), plain.state.leaves()):
+                if not bool((x == y).all()):
+                    raise AssertionError("always_on server state differs from the ungated one")
+            print("cascade server qat always_on: equal to the ungated qat server, bit for bit")
+    return worst, launches, rates, linear
+
+
+def cascade_times(dev, hw_state, linear):
+    """The gated tick's kernel ms beside the ungated tick's on the cascade
+    traffic (all streams submitting), its plain version and its bound."""
+    import torch
+
+    from repro_torch.core.frontend import tree_clone
+    from repro_torch.kernels.tick_fused import pack_operands, tick_fused, tick_reference
+    from repro_torch.kernels.tick_fused.gather import make_sparse_step
+    from repro_torch.serving.cascade import init_state
+
+    n = N_STREAMS
+    hops = [torch.as_tensor(h, device=dev) for h in _cascade_hops(8, SEED + 11)]
+    full = torch.ones(n, dtype=torch.bool, device=dev)
+    out = {}
+    runs = cascade_runs(hw_state, linear)
+    for label, classifier, theta, die, casc in [runs[0], runs[3]]:
+        for key, cc in ((f"cascade {label}", casc), (f"ungated {label}", None)):
+            pipe, params = _setup(dev, classifier, theta, die, cc)
+            params = pipe.prepare_params(params)
+            ops = pack_operands(pipe, params, pipe.state, dev)
+            state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
+                     torch.zeros((n, K), device=dev), None if cc is None else init_state(n, dev))
+            tick = [0]
+
+            def run():
+                inp = hops[tick[0] % len(hops)]
+                tick[0] += 1
+                tick_fused(pipe, True, params, state, inp, full, pipe.state, SMOOTHING,
+                           operands=ops)
+
+            out[f"{key} ms"], _ = _cuda_ms(run, reps=200, hold=True)
+            if cc is None:
+                continue
+            woken0 = state[3]["woken"].clone()
+            for _ in range(8):
+                run()
+            n_woken = float((state[3]["woken"] - woken0).sum()) / 8
+            out[f"{key} wake_fraction"] = n_woken / n
+            out[f"{key} plain_ms"], _ = _cuda_ms(
+                lambda: tick_reference(pipe, True, params, tree_clone(state), hops[0], full,
+                                       pipe.state, SMOOTHING, step_fn=make_sparse_step(pipe)),
+                reps=2, warmup=1)
+            out[f"{key} bound_ms"], out[f"{key} bound_by"] = tick_bound(
+                n, True, hardware=die is not None, n_woken=n_woken)
+        print(f"tick_fused {label}: gated {out[f'cascade {label} ms']:.5f} ms against ungated "
+              f"{out[f'ungated {label} ms']:.5f} ms on the card (woken fraction "
+              f"{out[f'cascade {label} wake_fraction']:.4f}); plain "
+              f"{out[f'cascade {label} plain_ms']:.2f} ms, bound "
+              f"{out[f'cascade {label} bound_ms']:.5f} ms ({out[f'cascade {label} bound_by']})")
+    return out
+
+
+def phase_ingress(dev):
+    """The async ingress on the qat server at N_STREAMS: INGRESS_TICKS
+    ticks through step_batch, PipelinedIngress(depth=2, window=1) and
+    (depth=2, window=4), COALESCER_TICKS through TickCoalescer, each on a
+    fresh server and equal to the step_batch sequence bit for bit, with
+    its launches counted; ms per tick on the host clock; metrics on
+    against off. Returns the times and the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.serving.ingress import PipelinedIngress, TickCoalescer
+    from repro_torch.serving.serve_loop import StreamingKWSServer
+
+    pipe, params = _setup(dev, "qat")
+    rng = np.random.default_rng(SEED + 12)
+    gains = np.logspace(-2, -0.3, N_STREAMS).astype(np.float32)[:, None]
+    ticks = [((rng.standard_normal((N_STREAMS, HOP)) * gains).astype(np.float32),
+              rng.random(N_STREAMS) < 0.85) for _ in range(INGRESS_TICKS)]
+
+    def server(metrics=None):
+        srv = StreamingKWSServer(pipe, params, max_streams=N_STREAMS, smoothing=SMOOTHING,
+                                 metrics=metrics)
+        for sid in range(N_STREAMS):
+            srv.open_stream(sid)
+        srv.step_batch(np.zeros((N_STREAMS, HOP), np.float32), np.zeros(N_STREAMS, bool))
+        torch.cuda.synchronize()
+        return srv
+
+    def timed(fn):
+        build.launches.clear()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t0) * 1e3, dict(build.launches)
+
+    out, launches = {}, {}
+    ref_srv = server()
+    ref, ms, launches["step_batch"] = timed(lambda: [ref_srv.step_batch(*t) for t in ticks])
+    out["step_batch ms_per_tick"] = ms / INGRESS_TICKS
+    # the same ticks from pinned host memory (a caller that produces its
+    # audio there): the slab's copy to the card becomes asynchronous
+    pinned_ticks = [(torch.from_numpy(slab).pin_memory(), torch.from_numpy(mask).pin_memory())
+                    for slab, mask in ticks]
+    pin_srv = server()
+    got, ms, launches["step_batch pinned"] = timed(
+        lambda: [pin_srv.step_batch(*t) for t in pinned_ticks])
+    out["step_batch pinned ms_per_tick"] = ms / INGRESS_TICKS
+    for (gs, gt), (rs, rt) in zip(got, ref, strict=True):
+        if not (np.array_equal(gs, rs) and np.array_equal(gt, rt)):
+            raise AssertionError("step_batch from pinned memory differs from step_batch")
+
+    def pipelined(window, metrics=None):
+        srv = server(metrics)
+        ing = PipelinedIngress(srv, HOP, depth=2, window=window)
+
+        def run():
+            for slab, mask in ticks:
+                s, m = ing.stage()
+                s[:] = slab
+                m[:] = mask
+                ing.commit()
+            return ing.drain()
+
+        handles, ms, launches[f"window={window}"] = timed(run)
+        rows = [r for h in handles for r in (zip(*h.result()) if window > 1 else [h.result()])]
+        return rows, ms, srv
+
+    for window in (1, 4):
+        rows, ms, _ = pipelined(window)
+        out[f"pipelined window={window} ms_per_tick"] = ms / INGRESS_TICKS
+        for (gs, gt), (rs, rt) in zip(rows, ref, strict=True):
+            if not (np.array_equal(gs, rs) and np.array_equal(gt, rt)):
+                raise AssertionError(f"PipelinedIngress window={window} differs from step_batch")
+    srv = server()
+    co = TickCoalescer(srv)
+
+    def coalesce():
+        done = []  # add() hands back the ticks it retired
+        for slab, mask in ticks[:COALESCER_TICKS]:
+            for slot in np.flatnonzero(mask):
+                done += co.add(int(slot), slab[slot])
+            co.flush()
+        return done + co.drain()
+
+    handles, ms, launches["coalescer"] = timed(coalesce)
+    out["coalescer ms_per_tick"] = ms / COALESCER_TICKS
+    for h, (rs, rt) in zip(handles, ref[:COALESCER_TICKS], strict=True):
+        if not (np.array_equal(h.scores, rs) and np.array_equal(h.top, rt)):
+            raise AssertionError("TickCoalescer differs from step_batch")
+    # the caller's host copy of a slab into a pinned staging buffer and
+    # into pageable memory (what the pipelined path adds per tick)
+    pinned = torch.empty((N_STREAMS, HOP), pin_memory=True).numpy()
+    pageable = np.empty((N_STREAMS, HOP), np.float32)
+    for name, dst in (("pinned", pinned), ("pageable", pageable)):
+        t0 = time.perf_counter()
+        for slab, _ in ticks:
+            dst[:] = slab
+        out[f"slab_copy_{name} ms"] = (time.perf_counter() - t0) * 1e3 / INGRESS_TICKS
+    want = {"step_batch": INGRESS_TICKS, "step_batch pinned": INGRESS_TICKS,
+            "window=1": INGRESS_TICKS, "window=4": INGRESS_TICKS, "coalescer": COALESCER_TICKS}
+    for path, n in want.items():
+        if launches[path] != {"tick_fused": n}:
+            raise AssertionError(f"ingress {path}: launches {launches[path]}, want tick_fused={n}")
+    # metrics on against off, in turns: off, on, on, off, twice
+    runs = {}
+    for metrics in (None, True, True, None) * 2:
+        srv = server(metrics)
+        got, ms, _ = timed(lambda: [srv.step_batch(*t) for t in ticks])
+        for (gs, gt), (rs, rt) in zip(got, ref):
+            if not (np.array_equal(gs, rs) and np.array_equal(gt, rt)):
+                raise AssertionError(f"metrics={metrics} server differs from step_batch")
+        runs.setdefault(metrics, []).append(ms / INGRESS_TICKS)
+        if metrics:
+            snap = srv.metrics_snapshot()
+    hists = {h["name"]: h["percentiles"] for h in snap["histograms"]}
+    # where a pipelined tick's host time goes: the ingress's trace spans
+    # (stage -> commit is the caller's copy into the pinned slab) and the
+    # server's dispatch / fetch histograms, on an instrumented twin run
+    _, _, traced = pipelined(1, metrics=True)
+    tsnap = traced.metrics_snapshot()
+    for span, roll in tsnap["spans"].items():
+        out[f"pipelined span {span} p50"] = roll["p50_ms"]
+    for h in tsnap["histograms"]:
+        if h["name"] in ("kws_serve_tick_dispatch_ms", "kws_serve_tick_fetch_ms"):
+            out[f"pipelined {h['name']} p50"] = h["percentiles"]["p50"]
+    out["metrics_off runs"], out["metrics_on runs"] = runs[None], runs[True]
+    out["metrics_off ms_per_tick"] = float(np.median(runs[None]))
+    out["metrics_on ms_per_tick"] = float(np.median(runs[True]))
+    out["metrics overhead_pct"] = (out["metrics_on ms_per_tick"] / out["metrics_off ms_per_tick"]
+                                   - 1.0) * 100.0
+    for name in ("kws_serve_tick_dispatch_ms", "kws_serve_tick_fetch_ms"):
+        out[f"{name} p50"], out[f"{name} p99"] = hists[name]["p50"], hists[name]["p99"]
+    print(f"ingress at {N_STREAMS} streams (qat, raw audio, host clock, ms per tick): "
+          f"step_batch {out['step_batch ms_per_tick']:.4f} (slabs in pinned memory "
+          f"{out['step_batch pinned ms_per_tick']:.4f}), PipelinedIngress depth 2 window 1 "
+          f"{out['pipelined window=1 ms_per_tick']:.4f}, window 4 "
+          f"{out['pipelined window=4 ms_per_tick']:.4f}, TickCoalescer "
+          f"{out['coalescer ms_per_tick']:.4f}; every path equal to the step_batch sequence, "
+          f"launches {launches}; the host copy of a {N_STREAMS * HOP * 4 / 2**20:g} MiB slab "
+          f"into pinned memory "
+          f"{out['slab_copy_pinned ms']:.4f} ms, into pageable memory "
+          f"{out['slab_copy_pageable ms']:.4f} ms")
+    print(f"metrics on {out['metrics_on ms_per_tick']:.4f} against off "
+          f"{out['metrics_off ms_per_tick']:.4f} ms per tick, medians of 4 runs each in turns "
+          f"({out['metrics overhead_pct']:+.2f} %; on {out['metrics_on runs']}, off "
+          f"{out['metrics_off runs']}), outputs identical; dispatch p50 {out['kws_serve_tick_dispatch_ms p50']:.4f} / p99 "
+          f"{out['kws_serve_tick_dispatch_ms p99']:.4f} ms, fetch p50 "
+          f"{out['kws_serve_tick_fetch_ms p50']:.4f} / p99 "
+          f"{out['kws_serve_tick_fetch_ms p99']:.4f} ms")
+    print("PipelinedIngress window 1, instrumented, p50 ms: " + ", ".join(
+        f"{k[len('pipelined '):-len(' p50')]} {v:.4f}" for k, v in out.items()
+        if k.startswith("pipelined ") and k.endswith(" p50")))
+    return out, launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -866,9 +1253,13 @@ def main() -> int:
               f"within {err:.3g}); live ticks took {live_s:.3f} s{extra}")
         servers[key] = (srv, live)
     intgemm_launches = sum(phase_pipeline(dev, c) for c in ("integer", "delta-int"))
+    casc_err, casc_launches, _, linear = phase_cascade(dev, hw_state)
+    ingress_times, _ = phase_ingress(dev)
 
     times = phase_times(dev, *servers["qat"], hw_state)
     times.update(feat_times)
+    times.update(cascade_times(dev, hw_state, linear))
+    times.update(ingress_times)
     print(f"step_batch at {N_STREAMS} streams (qat, raw audio, host slab in, host "
           f"scores out): {times['step_batch_ms']:.4f} ms per tick")
 
@@ -912,6 +1303,8 @@ def main() -> int:
         tick_entry("tick_fused[hardware]", "qat hardware raw",
                    sum(n["tick_fused"] for label, n in launches.items() if "hardware" in label),
                    max(hw_tick_err.values())),
+        # the gated branch (detector, gate, decay) inside the same launch
+        tick_entry("tick_fused[cascade]", "cascade qat energy 0.15", casc_launches, casc_err),
         feature_entry("fex_fused", "fex_fused", feat_launches["software"]["fex_fused"],
                       feat_errs["fex_fused"]),
         # the K1 kernel's per-sample entry: the hardware frontends' Rec-BPF scan

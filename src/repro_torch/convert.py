@@ -1,8 +1,8 @@
 """Weights carried across from the reference, through numpy.
 
 The reference's float parameter pytree, `QuantizedClassifier` codes,
-norm stats, ΔGRU states and hardware-frontend states (a die drawn with
-``jax.random`` and its calibration) arrive as numpy arrays (for example through
+norm stats, ΔGRU states, cascade detector states and hardware-frontend
+states (a die drawn with ``jax.random`` and its calibration) arrive as numpy arrays (for example through
 ``jax.tree_util.tree_map(np.asarray, tree)``) and leave as the port's
 tensors on ``device``, in the same layouts: ``w_i`` (I, 3H), ``w_h``
 (H, 3H), ``fc.w`` (H, K). This module takes numpy only.
@@ -25,6 +25,7 @@ __all__ = [
     "quantized_from_numpy",
     "norm_stats_from_numpy",
     "delta_states_from_numpy",
+    "cascade_state_from_numpy",
     "frontend_state_from_numpy",
 ]
 
@@ -77,6 +78,24 @@ def delta_states_from_numpy(states, device) -> List[Dict[str, torch.Tensor]]:
         {k: torch.tensor(np.array(v), device=device) for k, v in layer.items()}
         for layer in states
     ]
+
+
+def cascade_state_from_numpy(det, device) -> Dict[str, torch.Tensor]:
+    """A cascade detector state (a dict of (N,) numpy arrays: bool
+    ``awake``, int32 ``hang`` / ``woken`` / ``ticks``) -> the same dict of
+    tensors, dtypes checked, so a server can start mid-stream from the
+    reference's state."""
+    want = {"awake": np.bool_, "hang": np.int32, "woken": np.int32,
+            "ticks": np.int32}
+    if set(det) != set(want):
+        raise ValueError(f"a detector state holds {sorted(want)}; got {sorted(det)}")
+    out = {}
+    for key, dtype in want.items():
+        a = np.array(det[key])
+        if a.dtype != dtype:
+            raise ValueError(f"det[{key!r}] must be {np.dtype(dtype)}; got {a.dtype}")
+        out[key] = torch.tensor(a, device=device)
+    return out
 
 
 def frontend_state_from_numpy(

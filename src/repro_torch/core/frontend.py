@@ -93,9 +93,12 @@ def masked_select(mask: torch.Tensor, new_tree: Any, old_tree: Any) -> Any:
 
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
-    """The tensors of a tree (dict, tuple, list or a bare tensor) in the
-    order `masked_select` walks it: a dense classifier state's per-layer
-    tensors or a ΔGRU state's per-layer dicts alike."""
+    """The tensors of a tree (dict, tuple, list or a bare tensor; None,
+    an absent subtree such as an ungated server's detector state, has
+    none) in the order `masked_select` walks it: a dense classifier
+    state's per-layer tensors or a ΔGRU state's per-layer dicts alike."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in tree_leaves(v)]
     if isinstance(tree, (tuple, list)):
@@ -104,7 +107,9 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
 
 
 def tree_clone(tree: Any) -> Any:
-    """A copy of a tree of tensors with every leaf cloned."""
+    """A copy of a tree of tensors with every leaf cloned (None stays)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_clone(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

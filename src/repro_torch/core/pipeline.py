@@ -6,8 +6,9 @@ backends: `KWSPipelineConfig.frontend` names a registered
 "hardware-pallas") and `KWSPipelineConfig.classifier` a registered
 `repro_torch.core.classifier.ClassifierBackend` ("float", "qat",
 "integer", "delta", "delta-int"; the ΔGRU thresholds come from
-`KWSPipelineConfig.delta`). The stage-1 cascade, which a later slice
-ports, raises at construction.
+`KWSPipelineConfig.delta`). `KWSPipelineConfig.cascade` binds the
+stage-1 wake gate (`repro_torch.serving.cascade.CascadeConfig`), which
+only the serving tick reads.
 
 Every feature entry point routes through the frontend:
 
@@ -53,6 +54,7 @@ from repro_torch.core.gru import GRUConfig, init_gru_classifier
 from repro_torch.core.gru_delta import DeltaConfig
 from repro_torch.core.tdfex import TDFExConfig
 from repro_torch.kernels.build import resolve_device
+from repro_torch.serving.cascade import CascadeConfig
 
 __all__ = ["KWSPipelineConfig", "KWSPipeline"]
 
@@ -72,9 +74,12 @@ class KWSPipelineConfig:
     classifier: Optional[str] = None
     # ΔGRU thresholds for the "delta" / "delta-int" backends (None: θ = 0).
     delta: Optional[DeltaConfig] = None
-    # The stage-1 wake cascade of the reference; its slice (ROADMAP
-    # queue 1) is not ported yet.
-    cascade: Any = None
+    # Stage-1 wake cascade for the serving tick
+    # (`repro_torch.serving.cascade.CascadeConfig`): a detector on the
+    # feature frame gates the classifier per stream. None -> no gate;
+    # `CascadeConfig.always_on()` equals None for every backend. Read
+    # only by the serving layer; batch `features` / `logits` ignore it.
+    cascade: Optional[CascadeConfig] = None
 
     def __post_init__(self):
         # the pipeline post-processes (and shapes hops) with `fex` while
@@ -83,11 +88,6 @@ class KWSPipelineConfig:
             raise ValueError(
                 "KWSPipelineConfig.fex and KWSPipelineConfig.tdfex.fex "
                 "disagree; pass tdfex=TDFExConfig(fex=your_fex, ...)"
-            )
-        if self.cascade is not None:
-            raise NotImplementedError(
-                "KWSPipelineConfig.cascade (stage-1 wake gate) is ported in "
-                "a later slice: ROADMAP queue 1, \"Cascade gate\""
             )
 
     @property

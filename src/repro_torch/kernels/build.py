@@ -76,12 +76,13 @@ _SIGNATURES = {
         "intgemm_error_string": ([_I], ctypes.c_char_p),
     },
     "tick_fused": {
-        # inp, mask, n, s1, s2, gru and hw (addresses of the host structs
-        # GruState and HwFrontend), scores, top, fv_out, w, b, wf, bf,
-        # theta, coeffs, mu, sigma, log_rom, sig_rom, tanh_rom, q_max,
-        # q_scale, inv_frame, smoothing, one_minus, raw, backend, stream
+        # inp, mask, n, s1, s2, gru, hw and casc (addresses of the host
+        # structs GruState, HwFrontend and Cascade), scores, top, fv_out, w,
+        # b, wf, bf, theta, coeffs, mu, sigma, log_rom, sig_rom, tanh_rom,
+        # q_max, q_scale, inv_frame, smoothing, one_minus, raw, backend,
+        # stream
         "tick_fused_launch": (
-            [_P, _P, _I] + [_P] * 7 + [_P] * 11 + [_F] * 5 + [_I, _I, _P],
+            [_P, _P, _I] + [_P] * 8 + [_P] * 11 + [_F] * 5 + [_I, _I, _P],
             _I,
         ),
         "tick_fused_error_string": ([_I], ctypes.c_char_p),

@@ -1,6 +1,6 @@
 // The whole 16 ms serving tick as one launch, for the float, qat, integer,
 // delta and delta-int classifiers, on raw audio hops (software or hardware
-// frontend) or FV_Norm frames (no cascade).
+// frontend) or FV_Norm frames, with or without the stage-1 cascade gate.
 //
 // Replaces src/repro/kernels/tick_fused/kernel.py:256 tick_fused_pallas
 // (pallas_call at :368) and, in its ΔGRU branch, the gather-compacted
@@ -48,6 +48,19 @@
 //     in the code domain, as intgemm clips) and forms the gate
 //     preactivation from the accumulator plus bias. Skipped / total column
 //     counters advance per submitting stream.
+//   * Cascade (the reference's gated branch, ref.py:89-112): after the
+//     frontend, one thread per stream scores the block's 16 FV_Norm values
+//     ("energy": relu summed left to right, times 1/16; "linear": a chain
+//     of fused multiply-adds from 0, + b, then XLA's CPU sigmoid with its
+//     Cephes exp, flushed below the smallest normal), advances the
+//     detector state {awake, hang, woken, ticks} of a submitting stream
+//     and sets the stream's wake flag (submitted and gated open). The
+//     classifier, K4's fired-column lists, the state write-back and the
+//     tail read the wake flag; the frontend carry and the detector read
+//     the submitted flag. A gated stream's classifier work is computed and
+//     discarded, as in the reference (modelled sparsity); its scores are
+//     multiplied by score_decay when that is not 1. Without a cascade the
+//     wake flag is the submitted flag.
 //   * Tail: one thread per stream: softmax, smoothing, the masked state
 //     advance and first-index argmax.
 // Streams that did not submit are skipped (they contribute no columns) and
@@ -108,11 +121,12 @@ static_assert(W_TOTAL % 16 == 0, "weights are staged as 16-byte vectors");
 
 // Shared memory: weights, biases, 3 x [SB][H] activations (input frame,
 // h1, h2; float bits for float / qat / delta, codes for integer /
-// delta-int), [SB][2][G] gate preactivations, [SB][K] logits, [SB] active
+// delta-int), [SB][2][G] gate preactivations, [SB][K] logits, [SB][C]
+// FV_Norm frames (the detector's input), [SB] submitted and [SB] wake
 // flags; the ΔGRU branch adds [SB][H] input and state deltas (codes), the
 // [2][H] fired-column lists and their [2] lengths.
 constexpr int SMEM_BASE = W_TOTAL + 4 * B_TOTAL + 4 * 3 * SB * H +
-                          4 * SB * 2 * G + 4 * SB * K + 4 * SB;
+                          4 * SB * 2 * G + 4 * SB * K + 4 * SB * C + 4 * 2 * SB;
 constexpr int SMEM_DELTA = 4 * 2 * SB * H + 4 * 2 * H + 4 * 2;
 
 // Per-layer classifier state. The dense backends use h only; the ΔGRU
@@ -146,6 +160,24 @@ struct HwFrontend {
   int on;
 };
 
+// The stage-1 cascade gate (on is 0 without one). The wrapper mirrors this
+// layout in ctypes.
+struct Cascade {
+  uint8_t* awake;   // [n] latch (bool), read and written
+  int32_t* hang;    // [n] hangover countdown
+  int32_t* woken;   // [n] ticks the gate woke the classifier
+  int32_t* ticks;   // [n] submitted ticks
+  float w[C];       // linear detector weights
+  float b;          // linear detector bias
+  float wake;       // thresholds, rounded to float32 by the wrapper
+  float release;
+  float decay;      // score_decay
+  int hangover;     // hangover_frames
+  int detector;     // 0 energy, 1 linear
+  int decay_on;     // score_decay != 1
+  int on;
+};
+
 struct TickArgs {
   const float* inp;
   const uint8_t* mask;
@@ -154,6 +186,7 @@ struct TickArgs {
   float* s2;
   GruState g;
   HwFrontend hw;
+  Cascade casc;
   float* scores;
   int64_t* top;
   float* fv_out;
@@ -325,6 +358,42 @@ __device__ __forceinline__ float sigmoid_f(float v) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v)));
 }
 
+// jax.nn.sigmoid as the reference's compiled CPU code computes it:
+// 1 / (1 + exp(-z)) with XLA's Cephes exp (its clamp, ln 2 split in two and
+// polynomial, fused multiply-adds where the compiled code has them), the
+// result flushed to zero below the smallest normal (XLA runs with FTZ).
+// The plain version is repro_torch/serving/cascade.py xla_sigmoid.
+__device__ __forceinline__ float xla_sigmoid(float z) {
+  float x = -z;
+  x = x >= -87.80000305175781f ? x : -87.80000305175781f;
+  x = x <= 88.80000305175781f ? x : 88.80000305175781f;
+  float fx = floorf(__fmaf_rn(x, 1.4426950216293335f, 0.5f));
+  fx = fminf(fmaxf(fx, -127.0f), 127.0f);
+  float r = __fmaf_rn(-0.693359375f, fx, x);
+  r = __fmaf_rn(0.00021219444170128554f, fx, r);
+  float y = __fmaf_rn(r, 0.00019875691214110702f, 0.001398199936375022f);
+  y = __fmaf_rn(y, r, 0.008333452045917511f);
+  y = __fmaf_rn(y, r, 0.04166579619050026f);
+  y = __fmaf_rn(y, r, 0.1666666567325592f);
+  y = __fmaf_rn(y, r, 0.5f);
+  y = __fadd_rn(__fmaf_rn(y, __fmul_rn(r, r), r), 1.0f);
+  const float pow2n = __int_as_float((static_cast<int>(fx) + 127) << 23);
+  const float s = __fdiv_rn(1.0f, __fmaf_rn(y, pow2n, 1.0f));
+  return fabsf(s) < 1.17549435e-38f ? 0.0f : s;
+}
+
+// The stage-1 wake score of one FV_Norm frame (repro_torch/serving/cascade.py
+// detector_scores, in the reference's compiled order).
+__device__ __forceinline__ float detector_score(const Cascade& cs, const float* fv) {
+  float acc = 0.0f;
+  if (cs.detector == 0) {
+    for (int c = 0; c < C; ++c) acc = __fadd_rn(acc, fmaxf(fv[c], 0.0f));
+    return __fmul_rn(acc, 0.0625f);  // jnp.mean's folded 1/C
+  }
+  for (int c = 0; c < C; ++c) acc = __fmaf_rn(fv[c], cs.w[c], acc);
+  return xla_sigmoid(__fadd_rn(acc, cs.b));
+}
+
 __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* w_s = reinterpret_cast<int8_t*>(smem);
@@ -332,8 +401,10 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   int32_t* act_s = b_s + B_TOTAL;          // [3][SB][H]
   int32_t* gate_s = act_s + 3 * SB * H;    // [SB][2][G]
   float* logit_s = reinterpret_cast<float*>(gate_s + SB * 2 * G);  // [SB][K]
-  int* active_s = reinterpret_cast<int*>(logit_s + SB * K);        // [SB]
-  int32_t* dx_s = active_s + SB;           // ΔGRU only: [SB][H]
+  float* fv_s = logit_s + SB * K;                                  // [SB][C]
+  int* active_s = reinterpret_cast<int*>(fv_s + SB * C);           // [SB] submitted
+  int* wake_s = active_s + SB;             // [SB] submitted and woken
+  int32_t* dx_s = wake_s + SB;             // ΔGRU only: [SB][H]
   int32_t* dh_s = dx_s + SB * H;           // [SB][H]
   int32_t* list_s = dh_s + SB * H;         // [2][H] input, state columns
   int* nlist_s = list_s + 2 * H;           // [2]
@@ -355,6 +426,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   if (tid < SB) {
     const int stream = base + tid;
     active_s[tid] = (stream < a.n && a.mask[stream]) ? 1 : 0;
+    wake_s[tid] = active_s[tid];
   }
   for (int i = tid; i < 2 * SB * H; i += THREADS) {
     const int layer = i / (SB * H);
@@ -405,6 +477,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
         fv = a.inp[sc];
       }
       if (a.fv_out != nullptr) a.fv_out[sc] = fv;
+      fv_s[s * C + c] = fv;
       if (codes) {
         act_s[s * H + c] = q68_code(fv);
       } else if (bk == BK_DELTA) {  // the ΔGRU snaps its input to the grid
@@ -417,7 +490,25 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   }
   __syncthreads();
 
-  // ---- classifier: two GRU layers ----
+  // ---- cascade: detector and gate, one thread per submitting stream ----
+  if (a.casc.on) {
+    if (tid < SB && active_s[tid]) {
+      const Cascade& cs = a.casc;
+      const int64_t stream = base + tid;
+      const float score = detector_score(cs, fv_s + tid * C);
+      const bool awake = score >= cs.wake || (cs.awake[stream] && !(score < cs.release));
+      const int hang_in = cs.hang[stream];
+      const bool gate = awake || hang_in > 0;
+      cs.awake[stream] = awake ? 1 : 0;
+      cs.hang[stream] = awake ? cs.hangover : max(hang_in - 1, 0);
+      cs.woken[stream] = wrap_add(cs.woken[stream], gate ? 1 : 0);
+      cs.ticks[stream] = wrap_add(cs.ticks[stream], 1);
+      wake_s[tid] = gate ? 1 : 0;
+    }
+    __syncthreads();
+  }
+
+  // ---- classifier: two GRU layers (woken streams) ----
   for (int layer = 0; layer < 2; ++layer) {
     const int in_dim = layer == 0 ? C : H;
     const int32_t* x_s = act_s + layer * SB * H;  // input frame, then new h1
@@ -441,7 +532,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
         const bool is_x = col < in_dim;
         const int i = is_x ? col : col - in_dim;
         int d = 0;
-        if (active_s[s]) {
+        if (wake_s[s]) {
           const int64_t off =
               static_cast<int64_t>(base + s) * (is_x ? in_dim : H) + i;
           void* ref_p = is_x ? a.g.x_ref[layer] : a.g.h_ref[layer];
@@ -485,7 +576,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
         if (lane == 0) nlist_s[warp] = count;
       } else if (tid >= 64 && tid < 64 + SB) {
         const int s = tid - 64;
-        if (active_s[s]) {
+        if (wake_s[s]) {
           int fired = 0;
           for (int i = 0; i < in_dim; ++i) fired += dx_s[s * H + i] != 0;
           for (int u = 0; u < H; ++u) fired += dh_s[s * H + u] != 0;
@@ -501,7 +592,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
       for (int item = tid; item < SB * G; item += THREADS) {
         const int s = item / G;
         const int j = item % G;
-        if (!active_s[s]) continue;
+        if (!wake_s[s]) continue;
         const int64_t off = static_cast<int64_t>(base + s) * G + j;
         int32_t* g = gate_s + s * 2 * G;
         if (codes) {
@@ -528,7 +619,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
       for (int item = tid; item < SB * G; item += THREADS) {
         const int s = item / G;
         const int j = item % G;
-        if (!active_s[s]) continue;
+        if (!wake_s[s]) continue;
         int32_t* g = gate_s + s * 2 * G;
         if (flt) {
           const float* xf = reinterpret_cast<const float*>(x_s + s * H);
@@ -545,7 +636,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     for (int item = tid; item < SB * H; item += THREADS) {
       const int s = item / H;
       const int u = item % H;
-      if (!active_s[s]) continue;
+      if (!wake_s[s]) continue;
       const int32_t* gi = gate_s + s * 2 * G;
       const int32_t* gh = gi + G;
       int32_t* hp = h_s + s * H + u;
@@ -577,7 +668,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   for (int item = tid; item < SB * K; item += THREADS) {
     const int s = item / K;
     const int k = item % K;
-    if (!active_s[s]) continue;
+    if (!wake_s[s]) continue;
     const int32_t* h2 = act_s + 2 * SB * H + s * H;
     if (flt) {
       logit_s[s * K + k] = accum_float(reinterpret_cast<const float*>(h2), H,
@@ -594,7 +685,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     const int layer = i / (SB * H);
     const int s = (i / H) % SB;
     const int u = i % H;
-    if (active_s[s]) {
+    if (wake_s[s]) {
       static_cast<int32_t*>(a.g.h[layer])[static_cast<int64_t>(base + s) * H + u] =
           act_s[(1 + layer) * SB * H + s * H + u];
     }
@@ -604,7 +695,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   if (tid < SB && base + tid < a.n) {
     const int stream = base + tid;
     float* sc = a.scores + static_cast<int64_t>(stream) * K;
-    if (active_s[tid]) {
+    if (wake_s[tid]) {
       const float* l = logit_s + tid * K;
       float m = l[0];
       for (int k = 1; k < K; ++k) m = fmaxf(m, l[k]);
@@ -616,6 +707,8 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
         sc[k] = __fadd_rn(__fmul_rn(a.smoothing, sc[k]),
                           __fmul_rn(a.one_minus, __fdiv_rn(e[k], sum)));
       }
+    } else if (active_s[tid] && a.casc.decay_on) {  // submitted but gated
+      for (int k = 0; k < K; ++k) sc[k] = __fmul_rn(a.casc.decay, sc[k]);
     }
     int best = 0;
     float best_v = sc[0];
@@ -633,7 +726,7 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
 
 extern "C" int tick_fused_launch(
     const void* inp, const void* mask, int n, void* s1, void* s2,
-    const void* gru, const void* hw, void* scores, void* top, void* fv_out, const void* w,
+    const void* gru, const void* hw, const void* casc, void* scores, void* top, void* fv_out, const void* w,
     const void* b, const void* wf, const void* bf, const void* theta,
     const void* coeffs, const void* mu, const void* sigma,
     const void* log_rom, const void* sig_rom, const void* tanh_rom,
@@ -650,6 +743,7 @@ extern "C" int tick_fused_launch(
   a.s2 = static_cast<float*>(s2);
   a.g = *static_cast<const GruState*>(gru);  // host structs, copied by value
   a.hw = *static_cast<const HwFrontend*>(hw);
+  a.casc = *static_cast<const Cascade*>(casc);
   a.scores = static_cast<float*>(scores);
   a.top = static_cast<int64_t*>(top);
   a.fv_out = static_cast<float*>(fv_out);

@@ -12,7 +12,9 @@ The kernel is built for the paper's model: 16 channels, 256-sample hops
 normalizer post-processing, any of the three frontends (software, and
 the hardware frontends' common streaming step with its 4-leaf carry
 {s1, s2, r, j}) and any of the five classifier backends (float, qat,
-integer, delta, delta-int). Any other geometry on a CUDA tensor raises
+integer, delta, delta-int), with or without the stage-1 cascade gate
+(its detector, hysteresis / hangover state machine and score decay run
+inside the same launch). Any other geometry on a CUDA tensor raises
 rather than running something else.
 """
 
@@ -29,6 +31,7 @@ from repro_torch.core.tdfex import fv_scale
 from repro_torch.core.gru_int import QuantizedClassifier
 from repro_torch.kernels import build
 from repro_torch.kernels.tick_fused.ref import smoothing_weights, tick_reference
+from repro_torch.serving.cascade import CascadeConfig
 from repro_torch.serving.quantize import quantize_classifier
 
 # The geometry csrc/tick_fused.cu is compiled for.
@@ -41,6 +44,10 @@ _BACKENDS = {"qat": 0, "integer": 1, "float": 2, "delta": 3, "delta-int": 4}
 # The per-layer leaves of a ΔGRU state, in the order of struct GruState.
 _DELTA_KEYS = ("h", "x_ref", "h_ref", "acc_x", "acc_h", "skipped", "total")
 _FRONTENDS = ("software", "hardware", "hardware-pallas")
+# The detector state leaves in the order of struct Cascade, with dtypes.
+_DET = (("awake", torch.bool), ("hang", torch.int32), ("woken", torch.int32),
+        ("ticks", torch.int32))
+_DETECTORS = {"energy": 0, "linear": 1}
 
 
 class GruStatePointers(ctypes.Structure):
@@ -62,6 +69,46 @@ class HwFrontendArgs(ctypes.Structure):
            ("f_free", "k_sro", "tdc_scale", "fv_scale", "hd2", "hd3")]
         + [("shared_hd", ctypes.c_int), ("on", ctypes.c_int)]
     )
+
+
+class CascadeArgs(ctypes.Structure):
+    """ctypes mirror of ``struct Cascade`` in csrc/tick_fused.cu: the
+    detector state pointers, the detector's weights and the gate's
+    constants (``on`` = 0 without a cascade). Passed to the launch by
+    address."""
+
+    _fields_ = (
+        [(key, ctypes.c_void_p) for key, _ in _DET]
+        + [("w", ctypes.c_float * 16)]
+        + [(key, ctypes.c_float) for key in ("b", "wake", "release", "decay")]
+        + [(key, ctypes.c_int) for key in ("hangover", "detector", "decay_on", "on")]
+    )
+
+
+def _cascade_args(casc: CascadeConfig, det, n: int, dev) -> CascadeArgs:
+    """Check the detector state against what the kernel writes and fill
+    the struct; thresholds, weights and decay rounded to float32 as the
+    reference's weakly typed scalars are."""
+    args = CascadeArgs()
+    if not isinstance(det, dict) or set(det) != {key for key, _ in _DET}:
+        raise ValueError(
+            f"tick_fused: det must be a dict of {tuple(k for k, _ in _DET)}"
+        )
+    for key, dtype in _DET:
+        _require(det[key], f"det[{key!r}]", (n,), dtype, dev)
+        setattr(args, key, det[key].data_ptr())
+    if casc.detector == "linear":
+        if len(casc.linear_w) != 16:
+            raise ValueError("the CUDA tick's linear detector takes 16 weights")
+        args.w[:] = list(casc.linear_w)
+    args.b = casc.linear_b
+    args.wake, args.release = casc.wake_threshold, casc.release
+    args.decay = casc.score_decay
+    args.hangover = casc.hangover_frames
+    args.detector = _DETECTORS[casc.detector]
+    args.decay_on = int(casc.score_decay != 1.0)
+    args.on = 1
+    return args
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,15 +302,17 @@ def tick_fused(
     operands: TickOperands = None,
     fv_out: torch.Tensor = None,
 ):
-    """One fused serving tick; ``state`` is the ``(gru, carry, scores)``
-    tuple of `tick_reference`. Returns ``(new_state, scores, top)``.
+    """One fused serving tick; ``state`` is the ``(gru, carry, scores,
+    det)`` tuple of `tick_reference`. Returns ``(new_state, scores, top)``.
 
     ``gru`` is a tuple of per-layer tensors, or of per-layer dicts of the
-    seven ΔGRU leaves for delta / delta-int. On the card the kernel
+    seven ΔGRU leaves for delta / delta-int; ``det`` is the cascade's
+    detector state (bool ``awake``, int32 ``hang`` / ``woken`` / ``ticks``,
+    each (N,)) for a cascaded pipeline, else None. On the card the kernel
     writes the new state INTO the given state tensors (the counterpart of
     the reference's buffer donation): treat ``state`` as consumed and use
-    the returned one. ``operands`` come
-    from `pack_operands` (built here when None). ``fv_out``, an (N, C)
+    the returned one. ``operands`` come from `pack_operands` (built here
+    when None). ``fv_out``, an (N, C)
     float32 CUDA tensor, receives the kernel's FV_Norm frame of every
     submitting stream (a diagnostic output of the kernel).
     """
@@ -290,7 +339,7 @@ def tick_fused(
             f"operands packed for {operands.backend!r}, pipeline serves "
             f"{pipeline.config.classifier_key!r}"
         )
-    gru, carry, scores = state
+    gru, carry, scores, det = state
     n = inp.shape[0]
     cfg = pipeline.config
     c, h, k = cfg.fex.num_channels, cfg.gru.hidden_dim, cfg.gru.num_classes
@@ -312,12 +361,19 @@ def tick_fused(
          hw.hd2, hw.hd3) = operands.hw_consts
         hw.shared_hd = int(operands.hw_consts[4] == operands.hw_consts[5])
         hw.on = 1
+    casc = CascadeArgs()
+    if (cfg.cascade is None) != (det is None):
+        raise ValueError(
+            "tick_fused: det must be given exactly when the pipeline has a cascade"
+        )
+    if cfg.cascade is not None:
+        casc = _cascade_args(cfg.cascade, det, n, dev)
     _require(scores, "scores", (n, k), torch.float32, dev)
     if fv_out is not None:
         _require(fv_out, "fv_out", (n, c), torch.float32, dev)
     top = torch.empty((n,), dtype=torch.int64, device=dev)
     if n == 0:
-        return (gru, carry, scores), scores, top
+        return (gru, carry, scores, det), scores, top
     s, one_minus = smoothing_weights(smoothing)
     op = operands
     lib = build.library("tick_fused")
@@ -325,7 +381,8 @@ def tick_fused(
         rc = lib.tick_fused_launch(
             inp.data_ptr(), mask.data_ptr(), n,
             carry["s1"].data_ptr(), carry["s2"].data_ptr(),
-            ctypes.addressof(ptrs), ctypes.addressof(hw), scores.data_ptr(),
+            ctypes.addressof(ptrs), ctypes.addressof(hw), ctypes.addressof(casc),
+            scores.data_ptr(),
             top.data_ptr(), None if fv_out is None else fv_out.data_ptr(),
             op.w.data_ptr(), op.b.data_ptr(), op.wf.data_ptr(), op.bf.data_ptr(),
             op.theta.data_ptr(), op.coeffs.data_ptr(),
@@ -337,4 +394,4 @@ def tick_fused(
         )
     build.check("tick_fused", rc)
     build.launches["tick_fused"] += 1
-    return (gru, carry, scores), scores, top
+    return (gru, carry, scores, det), scores, top

@@ -28,6 +28,7 @@ from repro_torch.core import gru_int as tgi
 from repro_torch.core.classifier import available_classifiers, get_classifier
 from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
 from repro_torch.kernels.intgemm import INT24_MAX, INT24_MIN, intgemm
+from repro_torch.serving.cascade import CascadeConfig
 from repro_torch.serving.quantize import quantize_classifier
 
 CFG = jgru.GRUConfig()
@@ -167,15 +168,18 @@ def test_plain_intgemm_matches_reference_and_oracle(m, k, n, kind):
 
 
 def test_registry_ports_qat_and_integer_only():
-    # every backend of the reference is ported now; only the cascade waits
+    # every backend of the reference is ported, and the cascade binds
     assert available_classifiers() == ("delta", "delta-int", "float", "integer", "qat")
     for name in available_classifiers():
         assert get_classifier(name).name == name
     with pytest.raises(KeyError, match="registered classifiers"):
         get_classifier("bogus")
     assert KWSPipeline(KWSPipelineConfig(gru=tgru.GRUConfig(quantized=False))).classifier.name == "float"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, \"Cascade gate\""):
-        KWSPipelineConfig(cascade=object())
+    # the cascade composes around a backend, it does not replace it
+    casc = CascadeConfig(wake_threshold=0.25)
+    gated = KWSPipeline(KWSPipelineConfig(classifier="integer", cascade=casc))
+    assert gated.config.cascade is casc and gated.classifier is get_classifier("integer")
+    assert KWSPipelineConfig().cascade is None
     for name in ("integer", "delta-int"):
         with pytest.raises(TypeError, match="QuantizedClassifier"):
             get_classifier(name).step({}, [], torch.zeros(1, 16), TCFG)

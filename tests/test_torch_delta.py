@@ -34,6 +34,7 @@ from repro_torch.core import gru_int as tgi
 from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
 from repro_torch.kernels.intgemm import intgemm_ref
 from repro_torch.kernels.tick_fused import gather, tick_reference
+from repro_torch.serving.cascade import CascadeConfig
 from repro_torch.serving.serve_loop import ServerState, StreamingKWSServer
 
 CFG = jgru.GRUConfig()
@@ -182,8 +183,10 @@ def test_backends_bind_the_pipeline_config():
     assert KWSPipeline(KWSPipelineConfig(classifier="delta-int")).classifier is not bound
     dense = KWSPipeline(KWSPipelineConfig(classifier="qat", delta=cfg)).classifier
     assert dense.with_config(KWSPipelineConfig(delta=cfg)) is dense
-    with pytest.raises(NotImplementedError, match="Cascade gate"):
-        KWSPipelineConfig(classifier="delta", cascade=object())
+    # a cascade binds beside the ΔGRU thresholds and leaves the backend bound
+    casc = CascadeConfig(wake_threshold=0.1)
+    gated = KWSPipeline(KWSPipelineConfig(classifier="delta", delta=cfg, cascade=casc))
+    assert gated.config.cascade is casc and gated.classifier.delta == cfg
 
 
 @pytest.mark.parametrize("classifier", ["float", "qat", "integer", "delta", "delta-int"])
@@ -268,7 +271,7 @@ def test_sparse_step_tick_equals_dense_tick(params, classifier):
     p = pipe.prepare_params(tp)
     n = 11
     state = (tuple(pipe.streaming_init(n, "cpu")), pipe.streaming_features_init(n, "cpu"),
-             torch.zeros((n, 12)))
+             torch.zeros((n, 12)), None)
     rng = np.random.default_rng(5)
     sparse_state = state
     for t in range(4):

@@ -107,7 +107,7 @@ def test_tick_kernel_equals_plain(dev, classifier, theta, raw, frontend, n):
     ops = pack_operands(pipe, params, pipe.state, dev)
     step_fn = make_sparse_step(pipe)
     state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
-             torch.zeros((n, 12), device=dev))
+             torch.zeros((n, 12), device=dev), None)
     g = torch.Generator(device=dev).manual_seed(2)
     gains = torch.logspace(-2, -0.3, n, device=dev)[:, None]
     flt = classifier == "float"
@@ -117,11 +117,12 @@ def test_tick_kernel_equals_plain(dev, classifier, theta, raw, frontend, n):
         else:
             inp = torch.round(torch.randn((n, 16), generator=g, device=dev) * 512) / 256
         mask = torch.rand(n, generator=g, device=dev) < frac
-        (pg, pc, ps), _, ptop = tick_reference(pipe, raw, params, tree_clone(state), inp, mask,
-                                               pipe.state, 0.7, step_fn=step_fn)
+        (pg, pc, ps, _), _, ptop = tick_reference(pipe, raw, params, tree_clone(state), inp,
+                                                  mask, pipe.state, 0.7, step_fn=step_fn)
         fv = torch.zeros((n, 16), device=dev)
         before = dict(build.launches)
-        (kg, kc, ks), _, ktop = tick_fused(pipe, raw, params, tree_clone(state), inp, mask, pipe.state, 0.7, operands=ops, fv_out=fv)
+        (kg, kc, ks, _), _, ktop = tick_fused(pipe, raw, params, tree_clone(state), inp, mask,
+                                              pipe.state, 0.7, operands=ops, fv_out=fv)
         assert build.launches["tick_fused"] == before.get("tick_fused", 0) + 1
         for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
             if flt:
@@ -141,7 +142,7 @@ def test_tick_kernel_equals_plain(dev, classifier, theta, raw, frontend, n):
         if raw:
             _, pfv = pipe.streaming_features_apply(tree_clone(state)[1], inp, pipe.state)
             assert torch.equal(fv[mask], pfv[mask])
-        state = (kg, kc, ks)
+        state = (kg, kc, ks, None)
     if theta == 64.0:  # nothing fired: every offered column was skipped
         for st in kg:
             assert torch.equal(st["skipped"], st["total"])
@@ -229,12 +230,12 @@ def test_tick_wrapper_checks_the_hardware_carry(dev):
     ops = pack_operands(pipe, params, pipe.state, dev)
     n = 8
     state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
-             torch.zeros((n, 12), device=dev))
+             torch.zeros((n, 12), device=dev), None)
     inp, mask = torch.zeros((n, 256), device=dev), torch.ones(n, dtype=torch.bool, device=dev)
-    short = (state[0], {k: state[1][k] for k in ("s1", "s2")}, state[2])
+    short = (state[0], {k: state[1][k] for k in ("s1", "s2")}, state[2], None)
     with pytest.raises(ValueError, match="carry must hold"):
         tick_fused(pipe, True, params, short, inp, mask, pipe.state, 0.7, operands=ops)
-    bad = (state[0], dict(state[1], r=state[1]["r"][:4]), state[2])
+    bad = (state[0], dict(state[1], r=state[1]["r"][:4]), state[2], None)
     with pytest.raises(ValueError, match="carry\\['r'\\]"):
         tick_fused(pipe, True, params, bad, inp, mask, pipe.state, 0.7, operands=ops)
     soft = _pipe(dev, "qat", None)
@@ -244,6 +245,202 @@ def test_tick_wrapper_checks_the_hardware_carry(dev):
 
 def _coeffs(dev):
     return FExConfig().filterbank().stacked(device=dev)
+
+
+# ---------------- the cascade branch of the tick ----------------
+
+CASCADE_BACKENDS = [("qat", None), ("integer", None), ("float", None),
+                    ("delta", 0.15), ("delta-int", 0.15)]
+
+
+def _cascade_cases():
+    cases = [(c, t, det, kind, True, "software") for c, t in CASCADE_BACKENDS
+             for det in ("energy", "linear") for kind in ("gated", "always_on")]
+    cases += [(c, t, det, "gated", False, "software") for c, t in CASCADE_BACKENDS
+              for det in ("energy", "linear")]
+    return cases + [("qat", None, "energy", "gated", True, "hardware"),
+                    ("delta-int", 0.15, "linear", "gated", True, "hardware")]
+
+
+def _inputs(dev, n, raw, t):
+    g = torch.Generator(device=dev).manual_seed(20 + t)
+    if raw:  # quiet and loud streams: -60 to -6 dB full scale
+        return torch.randn((n, 256), generator=g, device=dev) * torch.logspace(
+            -3, -0.3, n, device=dev)[:, None]
+    return torch.round(torch.randn((n, 16), generator=g, device=dev) * 512) / 256
+
+
+def _gate_config(pipe, detector, kind, inp, raw):
+    """A cascade that gates about half of the streams of ``inp``: the
+    threshold at the median score (energy), or the bias at minus the
+    median logit (linear, threshold 0.5); hangover 2, decay 0.9."""
+    from repro_torch.serving.cascade import CascadeConfig, detector_scores
+
+    fv = inp
+    if raw:
+        carry = pipe.streaming_features_init(inp.shape[0], inp.device)
+        _, fv = pipe.streaming_features_apply(carry, inp, pipe.state)
+    if detector == "energy":
+        thr = float(detector_scores(fv, CascadeConfig()).median())
+        extra = {}
+    else:
+        w = tuple(float(v) for v in torch.linspace(-0.6, 0.9, 16))
+        z = fv @ torch.tensor(w, device=fv.device)
+        thr, extra = 0.5, dict(linear_w=w, linear_b=-float(z.median()))
+    if kind == "always_on":
+        return CascadeConfig.always_on(detector=detector, **extra)
+    return CascadeConfig(detector=detector, wake_threshold=thr, release_threshold=0.8 * thr,
+                         hangover_frames=2, score_decay=0.9, **extra)
+
+
+@pytest.mark.parametrize("classifier,theta,detector,kind,raw,frontend", _cascade_cases(),
+                         ids=[f"{c}-{t}-{d}-{k}-{'raw' if r else 'fv'}-{f}"
+                              for c, t, d, k, r, f in _cascade_cases()])
+@pytest.mark.parametrize("n", [N, 37], ids=["full", "ragged"])
+def test_cascade_tick_kernel_equals_plain(dev, classifier, theta, detector, kind, raw,
+                                          frontend, n):
+    """The cascade branch against the plain tick: the detector state, the
+    GRU state (the ΔGRU memories and counters under the wake row mask),
+    the carry and top array-equal, scores within 1e-6 (float within
+    FLOAT_TOL); an always-open gate equals the ungated kernel."""
+    import dataclasses
+
+    from repro_torch.serving.cascade import init_state
+
+    base = _pipe(dev, classifier, theta, frontend)
+    casc = _gate_config(base, detector, kind, _inputs(dev, n, raw, 0), raw)
+    pipe = KWSPipeline(dataclasses.replace(base.config, cascade=casc), state=base.state)
+    params = pipe.prepare_params(pipe.init_params(torch.Generator().manual_seed(1), device=dev))
+    ops = pack_operands(pipe, params, pipe.state, dev)
+    step_fn = make_sparse_step(pipe)
+    flt = classifier == "float"
+    state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
+             torch.zeros((n, 12), device=dev), init_state(n, dev))
+    plain_state = (tree_clone(state[0]), tree_clone(state[1]), state[2].clone(), None)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for t, frac in enumerate([1.0, 0.8, 0.0, 0.9, 0.6]):
+        inp = _inputs(dev, n, raw, t)
+        mask = torch.rand(n, generator=g, device=dev) < frac
+        (pg, pc, ps, pd), _, ptop = tick_reference(pipe, raw, params, tree_clone(state), inp,
+                                                   mask, pipe.state, 0.7, step_fn=step_fn)
+        before = build.launches["tick_fused"]
+        (kg, kc, ks, kd), _, ktop = tick_fused(pipe, raw, params, tree_clone(state), inp, mask,
+                                               pipe.state, 0.7, operands=ops)
+        assert build.launches["tick_fused"] == before + 1
+        for key in pd:
+            assert torch.equal(kd[key], pd[key]), (t, key)
+        for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
+            if flt:
+                assert float((a - b).abs().max()) <= FLOAT_TOL, f"tick {t}"
+            else:
+                assert torch.equal(a, b), f"tick {t}"
+        for key in pc:
+            assert torch.equal(kc[key], pc[key]), key
+        assert float((ks - ps).abs().max()) <= (FLOAT_TOL if flt else 1e-6)
+        if not flt:
+            assert torch.equal(ktop, ptop)
+        if kind == "always_on":  # the ungated kernel, bit for bit
+            ungated = KWSPipeline(base.config, state=base.state)
+            (ug, uc, us, _), _, utop = tick_fused(
+                ungated, raw, params, plain_state, inp, mask, pipe.state, 0.7,
+                operands=pack_operands(ungated, params, pipe.state, dev))
+            plain_state = (ug, uc, us, None)
+            for a, b in zip(tree_leaves(ug), tree_leaves(kg)):
+                assert torch.equal(a, b)
+            assert torch.equal(us, ks) and torch.equal(utop, ktop)
+        state = (kg, kc, ks, kd)
+    woken, ticks = state[3]["woken"], state[3]["ticks"]
+    if kind == "always_on":
+        assert torch.equal(woken, ticks)
+    else:
+        assert bool((woken < ticks).any()) and bool((woken > 0).any())
+
+
+def test_cascade_wrapper_checks_the_detector_state(dev):
+    from repro_torch.serving.cascade import CascadeConfig, init_state
+
+    pipe = KWSPipeline(KWSPipelineConfig(cascade=CascadeConfig(wake_threshold=0.1)),
+                       norm_stats=_norm_stats(dev))
+    params = pipe.prepare_params(pipe.init_params(torch.Generator().manual_seed(1), device=dev))
+    ops = pack_operands(pipe, params, pipe.state, dev)
+    n = 8
+    base = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
+            torch.zeros((n, 12), device=dev))
+    inp, mask = torch.zeros((n, 256), device=dev), torch.ones(n, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="det must be given"):
+        tick_fused(pipe, True, params, base + (None,), inp, mask, pipe.state, 0.7, operands=ops)
+    bad = dict(init_state(n, dev), hang=torch.zeros(n, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match=r"det\['hang'\]"):
+        tick_fused(pipe, True, params, base + (bad,), inp, mask, pipe.state, 0.7, operands=ops)
+
+
+@pytest.mark.parametrize("classifier,theta", [("qat", None), ("delta", 0.15)])
+def test_cascaded_server_launches_one_tick_kernel_per_tick(dev, classifier, theta):
+    from repro_torch.serving.cascade import CascadeConfig
+
+    base = _pipe(dev, classifier, theta)
+    import dataclasses
+
+    pipe = KWSPipeline(dataclasses.replace(
+        base.config, cascade=CascadeConfig(wake_threshold=0.15, hangover_frames=1)),
+        state=base.state)
+    srv = StreamingKWSServer(pipe, pipe.init_params(torch.Generator().manual_seed(3)),
+                             max_streams=64)
+    for sid in range(40):
+        srv.open_stream(sid)
+    rng = np.random.default_rng(4)
+    gains = np.logspace(-3, -0.3, 64).astype(np.float32)[:, None]
+    build.launches.clear()
+    for _ in range(3):
+        srv.step_batch((rng.standard_normal((64, 256)) * gains).astype(np.float32),
+                       rng.random(64) < 0.8)
+    srv.run_batch((rng.standard_normal((4, 64, 256)) * gains).astype(np.float32),
+                  np.ones((4, 64), bool))
+    assert dict(build.launches) == {"tick_fused": 7}
+    wr = srv.wake_rate
+    assert wr.shape == (64,) and (wr <= 1).all() and (wr[:40] < 1).any()
+
+
+@pytest.mark.parametrize("window", [1, 3])
+def test_pinned_ingress_equals_the_step_batch_sequence(dev, window):
+    """PipelinedIngress on the card (pinned staging, async copies, events)
+    against step_batch on a twin server, bit for bit, handles fetched
+    late; the same for step_batch_async and a coalescer."""
+    from repro_torch.serving.ingress import PipelinedIngress, TickCoalescer
+
+    pipe = _pipe(dev, "qat", None)
+    params = pipe.init_params(torch.Generator().manual_seed(3))
+    a = StreamingKWSServer(pipe, params, max_streams=N)
+    b = StreamingKWSServer(pipe, params, max_streams=N)
+    for srv in (a, b):
+        for sid in range(N):
+            srv.open_stream(sid)
+    rng = np.random.default_rng(5)
+    ticks = [((rng.standard_normal((N, 256)) * 0.1).astype(np.float32), rng.random(N) < 0.85)
+             for _ in range(7)]
+    ing = PipelinedIngress(a, 256, depth=2, window=window)
+    assert ing._slab_t[0].is_pinned() and ing._mask_t[0].is_pinned()
+    for slab, mask in ticks:
+        s, m = ing.stage()
+        s[:] = slab
+        m[:] = mask
+        ing.commit()
+    handles = ing.drain()
+    late = [a.step_batch_async(*t) for t in ticks[:2]]
+    rows = [r for h in handles for r in (zip(*h.result()) if window > 1 else [h.result()])]
+    for (gs, gt), t in zip(rows + [h.result() for h in late], ticks + ticks[:2], strict=True):
+        rs, rt = b.step_batch(*t)
+        np.testing.assert_array_equal(gs, rs)
+        np.testing.assert_array_equal(gt, rt)
+    for x, y in zip(a.state.leaves(), b.state.leaves()):
+        assert torch.equal(x, y)
+    co = TickCoalescer(a)
+    frames = {sid: ticks[0][0][sid] for sid in range(N)}
+    for sid, f in frames.items():
+        co.add(sid, f)
+    (h,) = co.drain()
+    ref = b.step(frames)
+    np.testing.assert_array_equal(h.scores[0], ref[0]["probs"])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -1,0 +1,449 @@
+"""The port's async ingress (`step_batch_async`, `run_batch_async`,
+`TickHandle`, `PipelinedIngress`, `TickCoalescer`) on the CPU tier.
+
+Mirrors tests/test_serve_async.py without its resize and sharded cases
+(the port's fleet slice has not landed): the pipelined path must be a
+pure latency transformation, so every result is compared with
+`np.testing.assert_array_equal` against the synchronous `step_batch`
+sequence of a twin server, for every classifier backend and for cascaded
+servers; the synchronous sequence itself is held against the reference's
+``tick_impl="xla"`` server (state and `top` array-equal, scores within
+1e-6, the float backend's GRU state within 2e-6: R1, F1).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quant as jq
+from repro.core.fex import fit_norm_stats
+from repro.core.pipeline import KWSPipeline as JPipeline
+from repro.core.pipeline import KWSPipelineConfig as JConfig
+from repro.serving.cascade import CascadeConfig as JCascade
+from repro.serving.serve_loop import StreamingKWSServer as JServer
+from repro_torch import convert
+from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
+from repro_torch.serving.cascade import CascadeConfig
+from repro_torch.serving.ingress import CoalescedTick, PipelinedIngress, TickCoalescer, TickHandle
+from repro_torch.serving.serve_loop import StreamingKWSServer
+
+from _hypothesis_compat import given, settings, st
+
+MAX_STREAMS = 8
+CLASSIFIERS = ("float", "qat", "integer", "delta", "delta-int")
+SCORE_ATOL = 1e-6
+FLOAT_ATOL = 2e-6
+
+
+@pytest.fixture(scope="module")
+def setup():
+    rng = np.random.default_rng(0)
+    audio = jnp.asarray(rng.standard_normal((4, 8000)).astype(np.float32) * 0.05)
+    _, raw = JPipeline(JConfig(use_norm=False)).features(audio)
+    stats = fit_norm_stats(jq.log_compress_lut(raw, 12, 10))
+    params = JPipeline(JConfig()).init_params(jax.random.PRNGKey(0))
+    tstats = convert.norm_stats_from_numpy(np.asarray(stats.mu), np.asarray(stats.sigma), "cpu")
+    tparams = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, params), "cpu")
+    return stats, params, tstats, tparams
+
+
+def _pipes(setup, classifier, cascade=None):
+    stats, _, tstats, _ = setup
+    jcasc = None if cascade is None else JCascade(**cascade)
+    tcasc = None if cascade is None else CascadeConfig(**cascade)
+    return (JPipeline(JConfig(classifier=classifier, cascade=jcasc), norm_stats=stats),
+            KWSPipeline(KWSPipelineConfig(classifier=classifier, cascade=tcasc), norm_stats=tstats))
+
+
+def _server(pipe, params, **kw):
+    srv = StreamingKWSServer(pipe, params, max_streams=MAX_STREAMS, device="cpu", **kw)
+    for sid in range(MAX_STREAMS):
+        srv.open_stream(sid)
+    return srv
+
+
+@pytest.fixture(scope="module")
+def qat(setup):
+    """(pipeline, params) of the port's qat backend for the ingress
+    discipline tests; each test builds its servers."""
+    return _pipes(setup, "qat")[1], setup[3]
+
+
+def _ticks(pipe, n, kind="fv", seed=0, n_streams=MAX_STREAMS):
+    """n random (slab, mask) tick operands with partial masks."""
+    rng = np.random.default_rng(seed)
+    dim = pipe.chunk_samples if kind == "audio" else pipe.config.fex.num_channels
+    return [((rng.standard_normal((n_streams, dim)) * 0.05).astype(np.float32),
+             rng.random(n_streams) > 0.25) for _ in range(n)]
+
+
+def _assert_states_identical(a, b):
+    la, lb = a.state.leaves(), b.state.leaves()
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert torch.equal(x, y)
+
+
+def _assert_against_reference(jsrv, tsrv, flt):
+    for ja, tb in zip(jsrv.state.gru, tsrv.state.gru, strict=True):
+        for a, b in ([(ja[k], tb[k]) for k in ja] if isinstance(ja, dict) else [(ja, tb)]):
+            if flt:
+                np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=FLOAT_ATOL)
+            else:
+                np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    if jsrv.state.det is not None:
+        for key, leaf in jsrv.state.det.items():
+            np.testing.assert_array_equal(tsrv.state.det[key].numpy(), np.asarray(leaf))
+    np.testing.assert_allclose(tsrv.scores, jsrv.scores, rtol=0, atol=SCORE_ATOL)
+    np.testing.assert_array_equal(tsrv.wake_rate, jsrv.wake_rate)
+    np.testing.assert_array_equal(tsrv.sparsity, jsrv.sparsity)
+
+
+def _async_vs_sync(setup, classifier, ticks, cascade=None):
+    """Dispatch every tick async on one port server, fetch only after the
+    last; step the same ticks synchronously on a twin and on the
+    reference's server."""
+    jpipe, tpipe = _pipes(setup, classifier, cascade)
+    a, b = _server(tpipe, setup[3]), _server(tpipe, setup[3])
+    jsrv = JServer(jpipe, setup[1], max_streams=MAX_STREAMS, tick_impl="xla")
+    for sid in range(MAX_STREAMS):
+        jsrv.open_stream(sid)
+    handles = [a.step_batch_async(slab, mask) for slab, mask in ticks]
+    got = [h.result() for h in handles]
+    for (gs, gt), (slab, mask) in zip(got, ticks):
+        rs, rt = b.step_batch(slab, mask)
+        np.testing.assert_array_equal(gs, rs)
+        np.testing.assert_array_equal(gt, rt)
+        js, _ = jsrv.step_batch(slab, mask)
+        np.testing.assert_allclose(rs, np.asarray(js), rtol=0, atol=SCORE_ATOL)
+    _assert_states_identical(a, b)
+    _assert_against_reference(jsrv, b, classifier == "float")
+    return a, b
+
+
+@pytest.mark.parametrize("classifier", CLASSIFIERS)
+def test_async_bit_identical_all_backends(setup, classifier):
+    tpipe = _pipes(setup, classifier)[1]
+    ticks = _ticks(tpipe, 3, "fv", seed=1) + _ticks(tpipe, 2, "audio", seed=2)
+    _async_vs_sync(setup, classifier, ticks)
+
+
+@pytest.mark.parametrize("classifier", ("qat", "delta-int"))
+def test_run_batch_async_window_matches_sequential(setup, classifier):
+    tpipe = _pipes(setup, classifier)[1]
+    ticks = _ticks(tpipe, 5, "fv", seed=3)
+    a, b = _server(tpipe, setup[3]), _server(tpipe, setup[3])
+    h = a.run_batch_async(np.stack([s for s, _ in ticks]), np.stack([m for _, m in ticks]))
+    scores_seq, tops = h.result()
+    for t, (s, m) in enumerate(ticks):
+        rs, rt = b.step_batch(s, m)
+        np.testing.assert_array_equal(scores_seq[t], rs)
+        np.testing.assert_array_equal(tops[t], rt)
+    _assert_states_identical(a, b)
+
+
+@pytest.mark.parametrize("wake_threshold", [0.0, 0.15])
+def test_async_bit_identical_cascaded(setup, wake_threshold):
+    tpipe = _pipes(setup, "qat")[1]
+    ticks = _ticks(tpipe, 4, "audio", seed=5)
+    # quiet and loud streams, so a real threshold gates some of them
+    gains = np.logspace(-3, 0, MAX_STREAMS).astype(np.float32)[:, None]
+    ticks = [(slab * gains * 20, mask) for slab, mask in ticks]
+    a, _ = _async_vs_sync(setup, "qat", ticks,
+                          cascade=dict(wake_threshold=wake_threshold, hangover_frames=1))
+    woken = a.state.det["woken"].numpy()
+    if wake_threshold == 0.0:
+        np.testing.assert_array_equal(woken, a.state.det["ticks"].numpy())
+    else:
+        assert (woken < a.state.det["ticks"].numpy()).any()
+
+
+def test_handle_survives_later_ticks_and_slot_resets(qat):
+    pipe, params = qat
+    srv, ref_srv = _server(pipe, params), _server(pipe, params)
+    ticks = _ticks(pipe, 5, "fv", seed=11)
+    ref0 = ref_srv.step_batch(*ticks[0])
+    h0 = srv.step_batch_async(*ticks[0])
+    srv.step_batch_async(*ticks[1])  # rewrite the state h0's outputs came from
+    srv.step_batch_async(*ticks[2])
+    got0 = h0.result()
+    np.testing.assert_array_equal(got0[0], ref0[0])
+    np.testing.assert_array_equal(got0[1], ref0[1])
+    h3 = srv.step_batch_async(*ticks[3])
+    srv.close_stream(0)
+    srv.open_stream(100)  # the slot reset zeroes slot 0 in place
+    srv.step_batch_async(*ticks[4])
+    got3a = h3.result()
+    got3b = h3.result()  # idempotent: the cached host arrays
+    assert got3a is got3b
+    assert h3.ready() and h3.done_at is not None
+    assert got3a[0].flags["OWNDATA"] and got3a[1].flags["OWNDATA"]
+    for t in ticks[1:4]:
+        ref_srv.step_batch(*t)
+    np.testing.assert_array_equal(got3a[0], ref_srv.scores)
+
+
+def test_step_batch_is_async_fetched_immediately(qat):
+    pipe, params = qat
+    srv = _server(pipe, params)
+    scores, top = srv.step_batch(*_ticks(pipe, 1, "fv", seed=12)[0])
+    assert scores.flags["OWNDATA"] and top.flags["OWNDATA"]
+    assert scores.shape == (MAX_STREAMS, 12) and top.shape == (MAX_STREAMS,)
+
+
+def test_ingress_bit_identity_and_fifo_order(qat):
+    pipe, params = qat
+    srv, ref_srv = _server(pipe, params), _server(pipe, params)
+    ticks = _ticks(pipe, 7, "fv", seed=13)
+    ing = PipelinedIngress(srv, 16, depth=2)
+    for i, (s, m) in enumerate(ticks):
+        slab, mask = ing.stage()
+        assert not mask.any()  # stage() hands the mask back cleared
+        slab[:] = s
+        mask[:] = m
+        ing.commit(meta=i)
+        assert ing.in_flight <= 2
+    handles = ing.drain()
+    assert [h.meta for h in handles] == list(range(7))
+    assert ing.in_flight == 0
+    for h, (s, m) in zip(handles, ticks):
+        rs, rt = ref_srv.step_batch(s, m)
+        np.testing.assert_array_equal(h.scores, rs)
+        np.testing.assert_array_equal(h.top, rt)
+    _assert_states_identical(srv, ref_srv)
+
+
+def test_ingress_windowed_bit_identity_with_partial_flush(qat):
+    pipe, params = qat
+    srv, ref_srv = _server(pipe, params), _server(pipe, params)
+    ticks = _ticks(pipe, 8, "fv", seed=14)
+    ing = PipelinedIngress(srv, 16, depth=2, window=3)
+    returned = []
+    for i, (s, m) in enumerate(ticks):
+        slab, mask = ing.stage()
+        slab[:] = s
+        mask[:] = m
+        returned.append(ing.commit(meta=i))
+    assert [r is not None for r in returned] == [False, False, True, False, False, True,
+                                                 False, False]
+    assert ing.pending_ticks == 2
+    handles = ing.drain()
+    assert ing.pending_ticks == 0
+    assert [m for h in handles for m in h.meta] == list(range(8))
+    t = 0
+    for h in handles:
+        scores_seq, tops = h.result()
+        assert scores_seq.shape[0] == len(h.meta)
+        for k in range(scores_seq.shape[0]):
+            rs, rt = ref_srv.step_batch(*ticks[t])
+            np.testing.assert_array_equal(scores_seq[k], rs)
+            np.testing.assert_array_equal(tops[k], rt)
+            t += 1
+    assert t == 8
+    _assert_states_identical(srv, ref_srv)
+
+
+def test_ingress_protocol_errors(qat):
+    pipe, params = qat
+    srv = _server(pipe, params)
+    with pytest.raises(ValueError, match="depth"):
+        PipelinedIngress(srv, 16, depth=0)
+    with pytest.raises(ValueError, match="window"):
+        PipelinedIngress(srv, 16, window=0)
+    with pytest.raises(ValueError, match="trailing dim"):
+        PipelinedIngress(srv, 17)
+    ing = PipelinedIngress(srv, 16)
+    with pytest.raises(RuntimeError, match="commit"):
+        ing.commit()
+    ing.stage()
+    with pytest.raises(RuntimeError, match="stage"):
+        ing.stage()
+    with pytest.raises(RuntimeError, match="flush"):
+        ing.flush()
+    ing.commit()
+    assert ing.drain()
+    assert ing.in_flight == 0
+
+
+class _Clock:
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+def _coalescer(srv, **kw):
+    clock = _Clock()
+    return TickCoalescer(srv, clock=clock, **kw), clock
+
+
+def _reopen(srv, n_open):
+    for sid in list(srv.active):
+        srv.close_stream(sid)
+    for sid in range(n_open):
+        srv.open_stream(sid)
+
+
+def test_coalescer_flushes_when_every_open_stream_submitted(qat):
+    pipe, params = qat
+    srv, ref_srv = _server(pipe, params), _server(pipe, params)
+    _reopen(srv, 3)
+    _reopen(ref_srv, 3)
+    co, _ = _coalescer(srv)
+    rng = np.random.default_rng(15)
+    frames = {sid: rng.standard_normal(16).astype(np.float32) for sid in range(3)}
+    co.add(0, frames[0])
+    co.add(1, frames[1])
+    assert co.pending_streams == 2
+    co.add(2, frames[2])  # tick full -> flush
+    assert co.pending_streams == 0
+    (h,) = co.drain()
+    assert isinstance(h.meta, CoalescedTick)
+    assert h.meta.sids == {sid: srv.active[sid] for sid in range(3)}
+    assert h.meta.flushed_at is not None
+    ref = ref_srv.step(frames)
+    for sid, slot in h.meta.sids.items():
+        np.testing.assert_array_equal(h.scores[slot], ref[sid]["probs"])
+
+
+def test_coalescer_deadline_flush_via_injected_clock(qat):
+    pipe, params = qat
+    srv = _server(pipe, params)
+    _reopen(srv, 2)
+    co, clock = _coalescer(srv, window_ms=16.0)
+    co.add(0, np.ones(16, np.float32))
+    assert co.poll() == []
+    assert co.pending_streams == 1
+    clock.t += 0.0159
+    assert co.poll() == []  # 15.9 ms: still inside the window
+    clock.t += 0.0002
+    co.poll()  # 16.1 ms: flushes
+    assert co.pending_streams == 0
+    handles = co.drain()
+    assert len(handles) == 1
+    assert handles[0].meta.flushed_at - handles[0].meta.staged_at >= 0.016
+
+
+def test_coalescer_second_frame_flushes_previous_window(qat):
+    pipe, params = qat
+    srv, ref_srv = _server(pipe, params), _server(pipe, params)
+    _reopen(srv, 2)
+    _reopen(ref_srv, 1)
+    co, _ = _coalescer(srv)
+    f1, f2 = np.ones(16, np.float32), np.full(16, 2.0, np.float32)
+    co.add(0, f1)
+    co.add(0, f2)  # same stream again: f1's window flushes first
+    assert co.pending_streams == 1
+    co.flush()
+    handles = co.drain()
+    assert len(handles) == 2
+    assert list(handles[0].meta.sids) == [0] and list(handles[1].meta.sids) == [0]
+    slot = handles[0].meta.sids[0]
+    np.testing.assert_array_equal(handles[0].scores[slot], ref_srv.step({0: f1})[0]["probs"])
+    np.testing.assert_array_equal(handles[1].scores[slot], ref_srv.step({0: f2})[0]["probs"])
+
+
+def test_coalescer_validation(qat):
+    pipe, params = qat
+    srv = _server(pipe, params)
+    _reopen(srv, 2)
+    with pytest.raises(ValueError, match="window_ms"):
+        TickCoalescer(srv, window_ms=0)
+    co, _ = _coalescer(srv)
+    with pytest.raises(ValueError, match="stream 99 not open"):
+        co.add(99, np.ones(16, np.float32))
+    with pytest.raises(ValueError, match="trailing dim"):
+        co.add(0, np.ones(17, np.float32))
+    co.add(0, np.ones(16, np.float32))
+    with pytest.raises(ValueError, match="same kind"):
+        co.add(1, np.ones(pipe.chunk_samples, np.float32))
+    assert co.pending_streams == 1  # the bad adds staged nothing
+    co.drain()
+
+
+@pytest.fixture(scope="module")
+def oracle_servers(qat):
+    """(async 8-slot server, 1-slot synchronous reference) on shared qat
+    weights, reused across the schedules."""
+    pipe, params = qat
+    return (StreamingKWSServer(pipe, params, max_streams=MAX_STREAMS, device="cpu"),
+            StreamingKWSServer(pipe, params, max_streams=1, device="cpu"))
+
+
+def _lifecycle_schedule(servers, seed, events):
+    """Open / close / submit schedules driven entirely through
+    `step_batch_async`, handles held in flight across open / close events
+    and fetched at the end: each open stream's final scores equal a
+    1-slot synchronous replay of its own frames."""
+    srv, reference = servers
+    for sid in list(srv.active):
+        srv.close_stream(sid)
+    rng = np.random.default_rng(seed)
+    next_sid = 0
+    frames_of = {}
+    handles = []
+
+    def do_open():
+        nonlocal next_sid
+        srv.open_stream(next_sid)
+        frames_of[next_sid] = []
+        next_sid += 1
+
+    do_open()
+    for want_open, want_close, submit_bits in events:
+        if want_close and len(srv.active) > 1:
+            victim = min(srv.active)
+            srv.close_stream(victim)
+            del frames_of[victim]
+        if want_open and len(srv.active) < srv.max_streams:
+            do_open()
+        slab = np.zeros((srv.max_streams, 16), np.float32)
+        mask = np.zeros((srv.max_streams,), bool)
+        for i, sid in enumerate(sorted(srv.active)):
+            if submit_bits >> (i % 8) & 1:
+                f = rng.standard_normal(16).astype(np.float32)
+                slab[srv.active[sid]] = f
+                mask[srv.active[sid]] = True
+                frames_of[sid].append(f)
+        handles.append(srv.step_batch_async(slab.copy(), mask.copy()))
+    for h in handles:
+        h.result()
+    for sid in sorted(srv.active):
+        reference.open_stream(sid)
+        expected = np.zeros(12, np.float32)
+        for f in frames_of[sid]:
+            expected = reference.step({sid: f})[sid]["probs"]
+        np.testing.assert_array_equal(srv.scores[srv.active[sid]], expected)
+        reference.close_stream(sid)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_async_seeded_schedule_matches_lifecycle_oracle(oracle_servers, seed):
+    """Seeded schedules of the random-schedule case below, which needs
+    hypothesis."""
+    rng = np.random.default_rng(100 + seed)
+    events = [(bool(rng.random() < 0.6), bool(rng.random() < 0.3), int(rng.integers(256)))
+              for _ in range(6)]
+    _lifecycle_schedule(oracle_servers, seed, events)
+
+
+@settings(max_examples=10, deadline=None)
+@given(
+    seed=st.integers(min_value=0, max_value=2**31 - 1),
+    events=st.lists(st.tuples(st.booleans(), st.booleans(),
+                              st.integers(min_value=0, max_value=255)),
+                    min_size=2, max_size=6),
+)
+def test_async_random_schedule_matches_lifecycle_oracle(oracle_servers, seed, events):
+    _lifecycle_schedule(oracle_servers, seed, events)
+
+
+def test_tick_handle_plain_arrays():
+    h = TickHandle(np.arange(6.0).reshape(2, 3), np.array([1, 2]), meta="m")
+    assert h.ready()
+    s, t = h.result()
+    assert s.flags["OWNDATA"] and t.flags["OWNDATA"]
+    assert h.meta == "m" and h.done_at is not None
