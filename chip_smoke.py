@@ -53,14 +53,23 @@ plain PyTorch version on the card:
      step_batch, PipelinedIngress(depth=2, window=1) and (window=4), 8
      through TickCoalescer, each equal to the step_batch sequence, with
      its launches and ms per tick (host clock); metrics on against off;
- 11. times on CUDA events after warm-up: ms per step_batch tick and each
+ 11. K6 through `kernels.gru_sequence`: the paper's classifier at full
+     width in float (layer 1 16 -> 48 feeding layer 2 48 -> 48) over 4096
+     clips of 62 frames, float32 and one bf16 pass of layer 1, one launch
+     a layer, each held against the plain version on the card; cuDNN's
+     `torch.nn.GRU` on the same weights as the library yardstick;
+ 12. K7 through `kernels.wkv6` at rwkv6-7b's head layout and train_4k
+     length (8, 4096, 64, 64) in float32, one launch, against the plain
+     sequential form (relative to max |y|), strong decay at a small size,
+     and the chunked training form at B = 1 timed as information;
+ 13. times on CUDA events after warm-up: ms per step_batch tick and each
      kernel's time beside its plain version's, its bound and a library
      yardstick where one exists (the ΔGRU tick at θ = 0 and 0.15 on raw
      audio and on the reference's sparsity traffic, the hardware tick,
      the gated tick beside the ungated one, K1, the scan entry and K5 at
-     the batch path's shapes); one JSON line per kernel, then all kernels
-     in one JSON line;
- 12. the result line ``{"ok": true, "device": {...}}``.
+     the batch path's shapes, K6 beside cuDNN, K7); one JSON line per
+     kernel, then all kernels in one JSON line;
+ 14. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
@@ -99,9 +108,9 @@ SERVER_RUNS = (("qat", None), ("integer", None), ("float", None),
                ("delta", THETA), ("delta-int", THETA))
 # ... and of the hardware-frontend server runs
 HW_SERVER_RUNS = (("qat", None), ("delta", THETA))
-# stream hold before a timed burst: 1 ms of enqueue time per call at the
-# H100's ~2 GHz clock, far above any wrapper's Python
-HOLD_CYCLES_PER_CALL = 2_000_000
+# stream hold before a timed burst: cycles a millisecond at the H100's
+# ~2 GHz clock
+HOLD_CYCLES_PER_MS = 2_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA cores, float32 (int32 counted alike)
 C, H, G, K, HOP = 16, 48, 144, 12, 256
@@ -114,18 +123,24 @@ ELIGIBLE_MACS = G * (C + H) + G * (H + H)  # what a ΔGRU can skip
 def _cuda_ms(fn, reps: int, warmup: int = 3, hold: bool = False):
     """(device ms per call of ``fn`` on CUDA events, host µs per call to
     enqueue it). With ``hold`` the stream first sleeps long enough for
-    the host to enqueue every call, so the events time the kernels back
-    to back and not the host's enqueue rate (a kernel shorter than its
-    wrapper's Python would otherwise be timed at the wrapper's speed)."""
+    the host to enqueue every call (at least 1 ms a call, and four times
+    the slowest warm-up call's enqueue after the first), so the events
+    time the kernels back to back and not the host's enqueue rate (a
+    kernel shorter than its wrapper's Python would otherwise be timed at
+    the wrapper's speed)."""
     import torch
 
+    warm_s = []
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        warm_s.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
+    hold_ms = max(1.0, 4e3 * max(warm_s[1:] or warm_s or [0.0]))
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     if hold:
-        torch.cuda._sleep(int(HOLD_CYCLES_PER_CALL * reps))
+        torch.cuda._sleep(int(HOLD_CYCLES_PER_MS * hold_ms * reps))
     start.record()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -134,8 +149,9 @@ def _cuda_ms(fn, reps: int, warmup: int = 3, hold: bool = False):
     stop.record()
     stop.synchronize()
     enqueue_us = enqueue_s / reps * 1e6
-    if hold and enqueue_us > 500.0:  # the hold lasts ~1 ms a call
-        raise AssertionError(f"enqueue took {enqueue_us:.0f} µs a call; the hold is too short")
+    if hold and enqueue_us > 500.0 * hold_ms:
+        raise AssertionError(f"enqueue took {enqueue_us:.0f} µs a call; the hold of "
+                             f"{hold_ms:.2f} ms a call is too short")
     return start.elapsed_time(stop) / reps, enqueue_us
 
 
@@ -727,6 +743,185 @@ def tdc_bound(b: int, t: int, c: int, spf: int, os: int):
     return _bound(b * t * c * 4 + 2 * c * 4 + b * (t // spf) * c * 4, b * t * c * (4 + 4 * os))
 
 
+GRU_STREAMS = 4096  # K6: the paper's classifier over 1 s clips
+GRU_FRAMES = 62
+WKV_SHAPE = (8, 4096, 64, 64)  # K7: rwkv6-7b's heads at its train_4k length
+WKV_CHUNK = 128  # rwkv6-7b's SSMConfig chunk
+BF16_TOL = 3e-2  # bf16 output against float32 (the reference's own bound)
+# K7 against its plain version, max |Δ| / max |y|: the kernel sums the keys
+# in its own order with fused multiply-adds and expf; measured 1.6e-7 at
+# (8, 4096, 64, 64) on an H100
+WKV_REL_TOL = 2e-6
+# the chunked form against the sequential one (both plain), relative: the
+# chunk's cumsums and exps of clipped differences round otherwise
+WKV_CHUNKED_REL_TOL = 1e-4
+# cuDNN's GRU against the plain version: another implementation's sums and
+# activations, held only to show the yardstick computes the same function
+LIBRARY_TOL = 1e-4
+
+
+def gru_seq_bound(b: int, t: int, layers):
+    """K6 over the given (I, H) layers: x read and h written once a step,
+    the weights and h0 once; 2 (I + H) 3H flops a row and step."""
+    byts = sum(b * t * (i + h) * 4 + ((i + h) * 3 * h + 6 * h) * 4 + b * h * 4 for i, h in layers)
+    return _bound(byts, sum(2 * b * t * (i + h) * 3 * h for i, h in layers))
+
+
+def wkv6_bound(b: int, t: int, h: int, p: int):
+    """K7: r, k, v, logw read and y written once, u once; per (b, h, t)
+    5 P² flops (r · S 2 P²; the decay, k v^T and their sum P² each) and
+    6 P (exp of logw; the bonus r · (u ⊙ k v^T) = (Σ_p r_p u_p k_p) v)."""
+    return _bound(5 * b * t * h * p * 4 + h * p * 4, (5 * p * p + 6 * p) * b * t * h)
+
+
+def phase_gru_seq(dev):
+    """K6 on the paper's classifier at full width: a float GRU classifier
+    from `init_gru_classifier` (torch.Generator seed SEED), layer 1
+    (16 -> 48) feeding layer 2 (48 -> 48) through `gru_sequence` over
+    GRU_STREAMS clips of GRU_FRAMES FV-like frames, then one bf16 pass of
+    layer 1; each output against the plain version on the card, cuDNN's
+    GRU on the same weights as the library yardstick."""
+    import torch
+
+    from repro_torch.core.gru import GRUConfig, init_gru_classifier
+    from repro_torch.kernels import build, gru_sequence, gru_sequence_plain
+
+    params = init_gru_classifier(GRUConfig(quantized=False), torch.Generator().manual_seed(SEED),
+                                 device=dev)
+    layers = [tuple(layer[k] for k in ("w_i", "w_h", "b_i", "b_h")) for layer in params["gru"]]
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    fv = torch.randn((GRU_STREAMS, GRU_FRAMES, C), generator=g, device=dev)
+    fv16 = fv.to(torch.bfloat16)
+    build.launches.clear()
+    h1 = gru_sequence(fv, *layers[0])
+    h2 = gru_sequence(h1, *layers[1])
+    h1_16 = gru_sequence(fv16, *layers[0])
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    if launches != {"gru_seq": 3}:
+        raise AssertionError(f"gru_sequence path: launches {launches}, want gru_seq=3")
+    for name, out, dtype in (("layer 1", h1, torch.float32), ("layer 2", h2, torch.float32),
+                             ("layer 1 bf16", h1_16, torch.bfloat16)):
+        if out.shape != (GRU_STREAMS, GRU_FRAMES, H) or out.dtype != dtype:
+            raise AssertionError(f"gru_sequence {name}: {tuple(out.shape)} {out.dtype}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"gru_sequence {name}: not finite")
+    zeros = torch.zeros((GRU_STREAMS, H), device=dev)
+
+    def plain(x, layer):
+        return gru_sequence_plain(x.transpose(0, 1), *layer, zeros).transpose(0, 1)
+
+    out = {}
+    out["gru_sequence plain_ms"], p1 = _once_ms(lambda: plain(fv, layers[0]))
+    plain2_ms, p2 = _once_ms(lambda: plain(h1, layers[1]))  # layer 2 on the kernel's layer 1
+    out["gru_sequence plain_ms"] += plain2_ms
+    p1_16 = plain(fv16, layers[0])
+    err = max(float((h1 - p1).abs().max()), float((h2 - p2).abs().max()))
+    err16 = float((h1_16.float() - p1_16.float()).abs().max())
+    if err > FLOAT_TOL or err16 > BF16_TOL:
+        raise AssertionError(f"gru_sequence differs from its plain version by {err:.3g} (float32, "
+                             f"limit {FLOAT_TOL}) / {err16:.3g} (bf16, limit {BF16_TOL})")
+    chain = float((h2 - plain(p1, layers[1])).abs().max())
+
+    grus = []
+    for (w, u, bi, bh), i in zip(layers, (C, H)):
+        m = torch.nn.GRU(i, H, batch_first=True).to(dev)
+        with torch.no_grad():
+            m.weight_ih_l0.copy_(w.T)
+            m.weight_hh_l0.copy_(u.T)
+            m.bias_ih_l0.copy_(bi)
+            m.bias_hh_l0.copy_(bh)
+        m.flatten_parameters()
+        grus.append(m)
+
+    def library():
+        with torch.no_grad():
+            return grus[1](grus[0](fv)[0])[0]
+
+    with torch.no_grad():
+        lib_err = max(float((grus[0](fv)[0] - p1).abs().max()),
+                      float((grus[1](h1)[0] - p2).abs().max()))
+    if lib_err > LIBRARY_TOL:
+        raise AssertionError(f"cuDNN's GRU differs from the plain version by {lib_err:.3g}")
+    out["gru_sequence ms"], _ = _cuda_ms(
+        lambda: gru_sequence(gru_sequence(fv, *layers[0]), *layers[1]), reps=20, hold=True)
+    out["gru_sequence layer 1 ms"], _ = _cuda_ms(lambda: gru_sequence(fv, *layers[0]),
+                                                 reps=20, hold=True)
+    out["gru_sequence bf16 layer 1 ms"], _ = _cuda_ms(lambda: gru_sequence(fv16, *layers[0]),
+                                                      reps=20, hold=True)
+    out["gru_sequence library_ms"], _ = _cuda_ms(library, reps=20, hold=True)
+    out["gru_sequence bound_ms"], out["gru_sequence bound_by"] = gru_seq_bound(
+        GRU_STREAMS, GRU_FRAMES, ((C, H), (H, H)))
+    out["gru_sequence bf16 err"] = err16
+    print(f"gru_sequence ({GRU_STREAMS}, {GRU_FRAMES}, {C}) -> 48 -> 48: launches {launches}; "
+          f"within {err:.3g} of the plain version per layer (float32, limit {FLOAT_TOL}), "
+          f"{err16:.3g} in bf16 (limit {BF16_TOL}); the two kernels chained differ from the "
+          f"plain chain by {chain:.3g}; cuDNN's GRU on the same weights within {lib_err:.3g}")
+    print(f"gru_sequence: {out['gru_sequence ms']:.5f} ms for both layers on the card (layer 1 "
+          f"{out['gru_sequence layer 1 ms']:.5f} ms, in bf16 {out['gru_sequence bf16 layer 1 ms']:.5f} "
+          f"ms), plain {out['gru_sequence plain_ms']:.1f} "
+          f"ms, cuDNN {out['gru_sequence library_ms']:.5f} ms, bound "
+          f"{out['gru_sequence bound_ms']:.5f} ms ({out['gru_sequence bound_by']})")
+    return err, launches["gru_seq"], out
+
+
+def phase_wkv6(dev):
+    """K7 at rwkv6-7b's head layout and train_4k length (WKV_SHAPE,
+    float32), drawn as the reference's test draws it, against the plain
+    sequential form on the card; strong decay (logw = -50) at a small
+    size; the chunked training form at B = 1 timed as information."""
+    import torch
+
+    from repro_torch.kernels import build, wkv6, wkv6_plain
+    from repro_torch.models.rwkv6 import wkv6_chunked
+
+    b, t, h, p = WKV_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    r, k, v = rn(b, t, h, p), rn(b, t, h, p), rn(b, t, h, p)
+    lw = -torch.exp(rn(b, t, h, p) - 1.0)
+    u = rn(h, p) * 0.3
+    build.launches.clear()
+    y = wkv6(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    if launches != {"wkv6": 1}:
+        raise AssertionError(f"wkv6 path: launches {launches}, want wkv6=1")
+    if y.shape != (b, t, h, p) or y.dtype != torch.float32 or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"wkv6: {tuple(y.shape)} {y.dtype} or not finite")
+    out = {}
+    out["wkv6 plain_ms"], want = _once_ms(lambda: wkv6_plain(r, k, v, lw, u))
+    err = float((y - want).abs().max())
+    rel = err / float(want.abs().max())
+    if rel > WKV_REL_TOL:
+        raise AssertionError(f"wkv6 differs from its plain version by {rel:.3g} of max |y| "
+                             f"(limit {WKV_REL_TOL})")
+    sr, sk, sv = rn(2, 64, 4, p), rn(2, 64, 4, p), rn(2, 64, 4, p)
+    slw, su = torch.full((2, 64, 4, p), -50.0, device=dev), rn(4, p) * 0.3
+    sy, swant = wkv6(sr, sk, sv, slw, su), wkv6_plain(sr, sk, sv, slw, su)
+    strong = float((sy - swant).abs().max() / swant.abs().max())
+    if strong > WKV_REL_TOL:
+        raise AssertionError(f"wkv6 under strong decay differs by {strong:.3g} (limit {WKV_REL_TOL})")
+    out["wkv6 chunked B=1 ms"], (yc, _) = _once_ms(
+        lambda: wkv6_chunked(r[:1], k[:1], v[:1], lw[:1], u, WKV_CHUNK))
+    chunked = float((yc - want[:1]).abs().max() / want[:1].abs().max())
+    if chunked > WKV_CHUNKED_REL_TOL:
+        raise AssertionError(f"wkv6_chunked differs from the sequential form by {chunked:.3g}")
+    del yc, want
+    out["wkv6 ms"], _ = _cuda_ms(lambda: wkv6(r, k, v, lw, u), reps=10, hold=True)
+    out["wkv6 bound_ms"], out["wkv6 bound_by"] = wkv6_bound(b, t, h, p)
+    out["wkv6 rel err"] = rel
+    print(f"wkv6 {WKV_SHAPE}: launches {launches}; within {rel:.3g} of max |y| of the plain "
+          f"version (limit {WKV_REL_TOL}; {err:.3g} absolute), {strong:.3g} under strong decay at "
+          f"(2, 64, 4, {p}); the chunked form (chunk {WKV_CHUNK}) at B = 1 within {chunked:.3g} "
+          f"of the sequential one")
+    print(f"wkv6: {out['wkv6 ms']:.5f} ms on the card, plain {out['wkv6 plain_ms']:.1f} ms, "
+          f"chunked at B = 1 {out['wkv6 chunked B=1 ms']:.1f} ms, bound "
+          f"{out['wkv6 bound_ms']:.5f} ms ({out['wkv6 bound_by']}); no single PyTorch call "
+          f"computes WKV6")
+    return err, launches["wkv6"], out
+
+
 def phase_calibration(dev):
     """A die drawn from torch.Generator seed SEED on the card and
     calibrated there, as a user builds it (`init_frontend_state`); the
@@ -875,14 +1070,15 @@ def phase_features(dev, state):
               f"{times[f'{name} plain_ms']:.1f} ms, bound {times[f'{name} bound_ms']:.5f} ms "
               f"({times[f'{name} bound_by']})")
     stats = fit_norm_stats_from_counts(torch.as_tensor(codes["hardware-pallas"], device=dev), tdcfg)
-    # the reference's eager fit reads 512 at code 63 where the port's ROM
-    # reads 511 (ROADMAP queue 3, P1): its mu would be higher by the share
-    # of code-63 entries of a channel
-    share63 = (codes["hardware-pallas"] == 63).mean(axis=(0, 1))
-    times["code63_share_max"] = float(share63.max())
-    print(f"norm stats fitted from the hardware-pallas codes; code 63 makes up at most "
-          f"{share63.max():.3g} of a channel's entries (the reference's eager fit: mu higher "
-          f"by that much)")
+    cpu_stats = fit_norm_stats_from_counts(torch.as_tensor(codes["hardware-pallas"]), tdcfg)
+    # the FV_Log values are the same table on both; only the order of the
+    # mean's and the std's float32 sums differs
+    fit_diff = max(float((stats.mu.cpu() / cpu_stats.mu - 1).abs().max()),
+                   float((stats.sigma.cpu() / cpu_stats.sigma - 1).abs().max()))
+    if fit_diff > 1e-5:
+        raise AssertionError(f"norm stats fitted on the card differ from the CPU's by {fit_diff:.3g}")
+    print(f"norm stats fitted from the hardware-pallas codes on the card, within {fit_diff:.3g} "
+          f"(relative) of the CPU's fit (limit 1e-5)")
     return codes, launches, errs, times, stats
 
 
@@ -1255,11 +1451,15 @@ def main() -> int:
     intgemm_launches = sum(phase_pipeline(dev, c) for c in ("integer", "delta-int"))
     casc_err, casc_launches, _, linear = phase_cascade(dev, hw_state)
     ingress_times, _ = phase_ingress(dev)
+    gru_err, gru_launches, gru_times = phase_gru_seq(dev)
+    wkv_err, wkv_launches, wkv_times = phase_wkv6(dev)
 
     times = phase_times(dev, *servers["qat"], hw_state)
     times.update(feat_times)
     times.update(cascade_times(dev, hw_state, linear))
     times.update(ingress_times)
+    times.update(gru_times)
+    times.update(wkv_times)
     print(f"step_batch at {N_STREAMS} streams (qat, raw audio, host slab in, host "
           f"scores out): {times['step_batch_ms']:.4f} ms per tick")
 
@@ -1322,6 +1522,24 @@ def main() -> int:
             "ms": times["intgemm_ms"], "plain_ms": times["intgemm_plain_ms"],
             "bound_ms": times["intgemm_bound_ms"], "bound_by": times["intgemm_bound_by"],
             "library_ms": times["intgemm_library_ms"],
+        },
+        {
+            "name": "gru_sequence", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gru_seq.cu",
+            "replaces": "src/repro/kernels/gru/kernel.py:73",
+            "launches": gru_launches, "max_abs_err": gru_err,
+            "ms": times["gru_sequence ms"], "plain_ms": times["gru_sequence plain_ms"],
+            "bound_ms": times["gru_sequence bound_ms"], "bound_by": times["gru_sequence bound_by"],
+            "library_ms": times["gru_sequence library_ms"],  # cuDNN torch.nn.GRU, both layers
+        },
+        {
+            "name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6/kernel.py:62",
+            "launches": wkv_launches, "max_abs_err": wkv_err,
+            "ms": times["wkv6 ms"], "plain_ms": times["wkv6 plain_ms"],
+            "bound_ms": times["wkv6 bound_ms"], "bound_by": times["wkv6 bound_by"],
+            "library_ms": None,  # no single PyTorch call computes the WKV6 recurrence
         },
     ]
     for k in kernels:

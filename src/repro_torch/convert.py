@@ -10,7 +10,7 @@ tensors on ``device``, in the same layouts: ``w_i`` (I, 3H), ``w_h``
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,12 +22,16 @@ from repro_torch.core.tdfex import TDFExState
 
 __all__ = [
     "params_from_numpy",
+    "gru_layer_from_numpy",
     "quantized_from_numpy",
     "norm_stats_from_numpy",
     "delta_states_from_numpy",
     "cascade_state_from_numpy",
     "frontend_state_from_numpy",
 ]
+
+
+_GRU_KEYS = ("w_i", "w_h", "b_i", "b_h")
 
 
 def _t(a, device, dtype) -> torch.Tensor:
@@ -39,10 +43,17 @@ def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
     float arrays -> the same dict of float32 tensors."""
     f = lambda a: _t(a, device, torch.float32)  # noqa: E731
     return {
-        "gru": [{k: f(layer[k]) for k in ("w_i", "w_h", "b_i", "b_h")}
+        "gru": [dict(zip(_GRU_KEYS, gru_layer_from_numpy(layer, device)))
                 for layer in tree["gru"]],
         "fc": {"w": f(tree["fc"]["w"]), "b": f(tree["fc"]["b"])},
     }
+
+
+def gru_layer_from_numpy(layer: Dict[str, Any], device) -> Tuple[torch.Tensor, ...]:
+    """One GRU layer of the reference, ``{w_i, w_h, b_i, b_h}`` as numpy
+    float arrays -> the four operands of `kernels.gru_sequence`, float32:
+    (w (I, 3H), u (H, 3H), b_i (3H,), b_h (3H,))."""
+    return tuple(_t(layer[k], device, torch.float32) for k in _GRU_KEYS)
 
 
 def quantized_from_numpy(q: Any, device) -> QuantizedClassifier:

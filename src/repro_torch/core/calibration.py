@@ -147,9 +147,9 @@ def fit_norm_stats_from_counts(
 ) -> FExNormStats:
     """mu/sigma of FV_Log over recorded training-set features (B, F, C).
 
-    FV_Log comes from the port's log ROM, the one the serving tick reads
-    (511 at code 63, as the reference's compiled tick). The reference
-    fits eagerly and reads 512 there (ROADMAP queue 3, P1)."""
-    fv_log = quant.log_compress_lut(fv_raw, cfg.fex.quant_bits, cfg.fex.log_bits)
+    FV_Log comes from the closed-form log (`quant.log_compress_eager`), as
+    the reference's eager fit computes it: 512 at code 63, where the ROM
+    the serving tick reads gives 511 (ROADMAP queue 3, P1)."""
+    fv_log = quant.log_compress_eager(fv_raw, cfg.fex.quant_bits, cfg.fex.log_bits)
     flat = fv_log.reshape(-1, fv_log.shape[-1])
     return FExNormStats(mu=flat.mean(dim=0), sigma=flat.std(dim=0, correction=0) + eps)

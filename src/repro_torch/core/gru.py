@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -39,6 +39,7 @@ __all__ = [
     "GRUConfig",
     "init_gru_classifier",
     "gru_cell",
+    "gru_layer",
     "fc_logits",
     "gru_classifier_forward",
     "gru_classifier_step",
@@ -148,6 +149,23 @@ def gru_cell(
     return aq((1.0 - z) * n + z * h)
 
 
+def gru_layer(
+    layer: Params, xs: torch.Tensor, config: GRUConfig, h0=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xs (B, T, I) -> (hs (B, T, H), h_T (B, H)): `gru_cell` over the
+    sequence from ``h0`` (zeros in xs's dtype by default)."""
+    h = h0
+    if h is None:
+        h = torch.zeros((xs.shape[0], config.hidden_dim), dtype=xs.dtype, device=xs.device)
+    hs = []
+    for t in range(xs.shape[1]):
+        h = gru_cell(layer, h, xs[:, t], config)
+        hs.append(h)
+    if not hs:
+        return xs.new_zeros((xs.shape[0], 0, config.hidden_dim)), h
+    return torch.stack(hs, dim=1), h
+
+
 def fc_logits(params: Params, x: torch.Tensor, config: GRUConfig) -> torch.Tensor:
     """The dense FC head on the last axis: (..., H) -> (..., K)."""
     if not config.quantized:
@@ -163,14 +181,7 @@ def gru_classifier_forward(
     """fv (B, T, C) -> logits (B, T, num_classes), per frame."""
     xs = fv
     for layer in params["gru"]:
-        h = torch.zeros(
-            (xs.shape[0], config.hidden_dim), dtype=xs.dtype, device=xs.device
-        )
-        hs = []
-        for t in range(xs.shape[1]):
-            h = gru_cell(layer, h, xs[:, t], config)
-            hs.append(h)
-        xs = torch.stack(hs, dim=1)
+        xs, _ = gru_layer(layer, xs, config)
     return fc_logits(params, xs, config)
 
 

@@ -38,6 +38,7 @@ __all__ = [
     "quantizer_scale",
     "log_rom",
     "log_compress_lut",
+    "log_compress_eager",
     "round_shift_even",
     "clip_act_codes",
     "sigmoid_rom",
@@ -182,6 +183,27 @@ def log_compress_lut(
     rom = log_rom(codes.device, in_bits, out_bits)
     idx = torch.clamp(codes, 0.0, 2.0**in_bits - 1.0).to(torch.int64)
     return rom[idx]
+
+
+@functools.lru_cache(maxsize=None)
+def _log_eager_host(in_bits: int, out_bits: int) -> torch.Tensor:
+    v = torch.arange(2**in_bits, dtype=torch.float32)
+    return torch.round((2.0**out_bits - 1.0) * torch.log2(1.0 + v) / float(in_bits))
+
+
+def log_compress_eager(
+    codes: torch.Tensor, in_bits: int = 12, out_bits: int = 10
+) -> torch.Tensor:
+    """FV_Raw float codes -> FV_Log float codes by the closed form
+    ``round((2^out_bits - 1) * log2(1 + v) / in_bits)``, rounded half to
+    even, as the reference's eager `log_compress_lut` evaluates it (its
+    value, without the straight-through round). Evaluated once on the host
+    for every code and looked up, so no device ``log2`` decides a value.
+    It differs from `log_rom` only at code 63, the tie: 512 here, 511 in
+    the ROM the tick reads."""
+    table = _on_device(_log_eager_host, codes.device, in_bits, out_bits)
+    idx = torch.clamp(codes, 0.0, 2.0**in_bits - 1.0).to(torch.int64)
+    return table[idx]
 
 
 # --------------------------------------------------------------------------

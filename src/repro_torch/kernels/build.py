@@ -46,9 +46,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = {
     "fex_fused": "fex_fused.cu",
+    "gru_seq": "gru_seq.cu",
     "intgemm": "intgemm.cu",
     "tdc": "tdc.cu",
     "tick_fused": "tick_fused.cu",
+    "wkv6": "wkv6.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -64,6 +66,16 @@ _SIGNATURES = {
         # x, coeffs, s1, s2, y, b, t, c, stream
         "biquad_stream_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
         "fex_fused_error_string": ([_I], ctypes.c_char_p),
+    },
+    "gru_seq": {
+        # x, x_bf16, w, u, b_i, b_h, h0, out, b, t, i, h, smem bytes, stream
+        "gru_seq_launch": ([_P, _I] + [_P] * 6 + [_I] * 5 + [_P], _I),
+        "gru_seq_error_string": ([_I], ctypes.c_char_p),
+    },
+    "wkv6": {
+        # r, k, v, logw, u, y, bf16, b, t, h, p, stream
+        "wkv6_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
+        "wkv6_error_string": ([_I], ctypes.c_char_p),
     },
     "tdc": {
         # u, f0, k, out, b, t, c, samples_per_frame, os, scale, stream

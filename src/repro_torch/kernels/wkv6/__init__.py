@@ -1,0 +1,4 @@
+from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.kernels.wkv6.ref import wkv6_plain
+
+__all__ = ["wkv6", "wkv6_plain"]

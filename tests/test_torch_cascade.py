@@ -190,14 +190,37 @@ def test_wake_rate_unity_without_traffic():
     np.testing.assert_array_equal(tc.wake_rate(tc.init_state(3)).numpy(), np.ones(3, np.float32))
 
 
-def test_fit_linear_detector_within_tolerance_of_the_reference():
-    rng = np.random.default_rng(0)
+# The port's fit (torch.autograd) against the reference's jit(grad): over
+# seeds 0-4 at 100 and 200 steps (test_fit_linear_detector_over_seeds) the
+# weights differed by at most 4.2e-7 and the bias by at most 4.8e-8
+# (ROADMAP queue 3, F3); the limits are under 10x those.
+FIT_W_ATOL = 4e-6
+FIT_B_ATOL = 4e-7
+
+
+def _detector_frames(seed):
+    rng = np.random.default_rng(seed)
     speech = rng.normal(0.8, 0.4, (300, 16)).astype(np.float32)
     silence = rng.normal(-0.8, 0.4, (300, 16)).astype(np.float32)
+    return speech, silence
+
+
+@pytest.mark.parametrize("steps", [100, 200])
+@pytest.mark.parametrize("seed", range(5))
+def test_fit_linear_detector_over_seeds(seed, steps):
+    speech, silence = _detector_frames(seed)
+    jw, jb = jc.fit_linear_detector(speech, silence, steps=steps)
+    tw, tb = tc.fit_linear_detector(speech, silence, steps=steps)
+    np.testing.assert_allclose(tw, jw, rtol=0, atol=FIT_W_ATOL)
+    assert tb == pytest.approx(jb, abs=FIT_B_ATOL)
+
+
+def test_fit_linear_detector_within_tolerance_of_the_reference():
+    speech, silence = _detector_frames(0)
     jw, jb = jc.fit_linear_detector(speech, silence, steps=100)
     tw, tb = tc.fit_linear_detector(speech, silence, steps=100)
-    np.testing.assert_allclose(tw, jw, rtol=0, atol=1e-4)
-    assert tb == pytest.approx(jb, abs=1e-4)
+    np.testing.assert_allclose(tw, jw, rtol=0, atol=FIT_W_ATOL)
+    assert tb == pytest.approx(jb, abs=FIT_B_ATOL)
     cc = tc.CascadeConfig(detector="linear", linear_w=tw, linear_b=tb)
     assert tc.detector_scores(torch.from_numpy(speech), cc).mean() > 0.9
     assert tc.detector_scores(torch.from_numpy(silence), cc).mean() < 0.1

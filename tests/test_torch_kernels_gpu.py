@@ -16,6 +16,7 @@ from repro_torch.core.gru_delta import DeltaConfig
 from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
 from repro_torch.core.tdfex import TDFExConfig, TDFExState, draw_chip
 from repro_torch.kernels import build
+from repro_torch.kernels import gru_sequence, gru_sequence_plain, wkv6, wkv6_plain
 from repro_torch.kernels.fex_fused import biquad_stream, biquad_stream_ref, fex_fused, fex_fused_ref
 from repro_torch.kernels.intgemm import intgemm, intgemm_ref
 from repro_torch.kernels.tdc import tdc_counts, tdc_counts_plain
@@ -34,6 +35,13 @@ BACKENDS = [("qat", None), ("integer", None), ("float", None),
 # the float backend against its plain version: the kernel sums and
 # evaluates sigmoid / tanh in its own order (states and scores)
 FLOAT_TOL = 1e-5
+# bfloat16 output of K6 against its float32 plain version (the reference's
+# own bound for its kernel's bf16 output)
+BF16_TOL = 3e-2
+# K7 against its plain version, max |Δ| / max |y|: the kernel sums the keys
+# in its own order with fused multiply-adds and expf; measured 1.6e-7 at
+# (8, 4096, 64, 64) on an H100
+WKV_REL_TOL = 2e-6
 
 
 @pytest.fixture(scope="module")
@@ -508,3 +516,107 @@ def test_features_run_their_kernels_and_equal_the_cpu(dev, frontend):
     cpu = KWSPipeline(pipe.config, state=cpu_state).record_features(audio, batch_size=4,
                                                                     device="cpu")
     np.testing.assert_array_equal(got, cpu)
+
+
+# ---------------- K6: gru_sequence ----------------
+
+def _gru_operands(dev, b, t, i, h, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    return (rn(b, t, i), rn(i, 3 * h) * 0.2, rn(h, 3 * h) * 0.2, rn(3 * h) * 0.1,
+            rn(3 * h) * 0.1, rn(b, h))
+
+
+# the paper's two layers at the main path's 4096 streams, a ragged last
+# tile, the reference's non-square sweep shapes, T = 1
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,i,h", [(N, 62, 16, 48), (N, 62, 48, 48), (37, 62, 16, 48),
+                                     (9, 7, 32, 64), (2, 62, 16, 48), (5, 1, 8, 16)])
+def test_gru_seq_kernel_equals_plain(dev, dtype, b, t, i, h):
+    xs, w, u, bi, bh, h0 = _gru_operands(dev, b, t, i, h, seed=b + t + i + h)
+    xs = xs.to(dtype)
+    before = build.launches["gru_seq"]
+    got = gru_sequence(xs, w, u, bi, bh, h0)
+    torch.cuda.synchronize()
+    assert build.launches["gru_seq"] == before + 1
+    assert got.shape == (b, t, h) and got.dtype == dtype
+    want = gru_sequence_plain(xs.transpose(0, 1), w, u, bi, bh, h0).transpose(0, 1)
+    tol = FLOAT_TOL if dtype == torch.float32 else BF16_TOL
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    # h0 defaults to zeros
+    got0 = gru_sequence(xs, w, u, bi, bh)
+    want0 = gru_sequence_plain(xs.transpose(0, 1), w, u, bi, bh, torch.zeros_like(h0))
+    assert float((got0.float() - want0.transpose(0, 1).float()).abs().max()) <= tol
+
+
+def test_gru_seq_wrapper_rejects_dtypes_and_oversized_layers(dev):
+    xs, w, u, bi, bh, h0 = _gru_operands(dev, 4, 3, 16, 48, seed=1)
+    with pytest.raises(TypeError, match="float32 or bfloat16 xs"):
+        gru_sequence(xs.half(), w, u, bi, bh, h0)
+    with pytest.raises(TypeError, match="float32 or bfloat16 w"):
+        gru_sequence(xs, w.double(), u, bi, bh, h0)
+    with pytest.raises(ValueError, match="do not chain"):
+        gru_sequence(xs, w[:8], u, bi, bh, h0)
+    with pytest.raises(ValueError, match="on cpu"):
+        gru_sequence(xs, w, u.cpu(), bi, bh, h0)
+    big = _gru_operands(dev, 4, 3, 128, 128, seed=2)
+    before = build.launches["gru_seq"]
+    with pytest.raises(ValueError, match="shared memory"):
+        gru_sequence(*big)
+    assert build.launches["gru_seq"] == before
+
+
+# ---------------- K7: wkv6 ----------------
+
+def _wkv_operands(dev, b, t, h, p, seed, strong=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    r, k, v = rn(b, t, h, p), rn(b, t, h, p), rn(b, t, h, p)
+    lw = torch.full((b, t, h, p), -50.0, device=dev) if strong else -torch.exp(rn(b, t, h, p) - 1)
+    return r, k, v, lw, rn(h, p) * 0.3
+
+
+def _wkv_rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+# rwkv6-7b's head layout (H = 64, P = 64) at a short T, the reference's
+# shapes (P = 4, 8, 16), an odd P, T = 1, and strong decay
+@pytest.mark.parametrize("b,t,h,p,strong", [(8, 256, 64, 64, False), (1, 8, 1, 4, False),
+                                            (3, 24, 2, 8, False), (2, 16, 4, 16, False),
+                                            (2, 40, 3, 33, False), (5, 1, 2, 64, False),
+                                            (2, 12, 1, 4, True), (2, 64, 4, 64, True)])
+def test_wkv6_kernel_equals_plain(dev, b, t, h, p, strong):
+    r, k, v, lw, u = _wkv_operands(dev, b, t, h, p, seed=b * t + h + p, strong=strong)
+    before = build.launches["wkv6"]
+    got = wkv6(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    assert build.launches["wkv6"] == before + 1
+    assert got.shape == (b, t, h, p) and got.dtype == torch.float32
+    assert _wkv_rel(got, wkv6_plain(r, k, v, lw, u)) <= WKV_REL_TOL
+
+
+def test_wkv6_kernel_bf16_against_the_float32_plain_version(dev):
+    r, k, v, lw, u = _wkv_operands(dev, 2, 64, 4, 64, seed=5)
+    bf = [a.to(torch.bfloat16) for a in (r, k, v, lw)]
+    got = wkv6(*bf, u)
+    assert got.dtype == torch.bfloat16
+    want = wkv6_plain(*(a.float() for a in bf), u)
+    assert _wkv_rel(got, want) <= BF16_TOL
+
+
+def test_wkv6_wrapper_rejects_dtypes_and_head_sizes(dev):
+    r, k, v, lw, u = _wkv_operands(dev, 1, 4, 2, 8, seed=1)
+    with pytest.raises(TypeError, match="float32 or bfloat16 r"):
+        wkv6(r.half(), k.half(), v.half(), lw.half(), u)
+    with pytest.raises(TypeError, match="logw is"):
+        wkv6(r, k, v, lw.double(), u)
+    with pytest.raises(ValueError, match="is not"):
+        wkv6(r, k[:, :2], v, lw, u)
+    with pytest.raises(ValueError, match="on cpu"):
+        wkv6(r, k, v, lw, u.cpu())
+    big = _wkv_operands(dev, 1, 4, 1, 65, seed=2)
+    before = build.launches["wkv6"]
+    with pytest.raises(ValueError, match="above the kernel's 64"):
+        wkv6(*big)
+    assert build.launches["wkv6"] == before

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.core import calibration as jcal
+from repro.core import quant as jq
 from repro.core import tdfex as jtd
 from repro.core.filters import design_filterbank as j_design_filterbank
 from repro.kernels.fex_fused.kernel import fex_fused_pallas
@@ -27,6 +28,7 @@ from repro.kernels.fex_fused.ref import fex_fused_ref as j_fex_fused_ref
 from repro.kernels.tdc import tdc_counts as j_tdc_counts
 from repro.kernels.tdc import tdc_counts_ref as j_tdc_counts_ref
 from repro_torch.core import calibration as tcal
+from repro_torch.core import quant as tq
 from repro_torch.core import tdfex as ttd
 from repro_torch.core.fex import biquad_filterbank_streaming
 from repro_torch.core.filters import design_filterbank
@@ -273,19 +275,32 @@ def test_calibration_matches_reference_bench():
 
 
 def test_fit_norm_stats_from_counts():
-    """Against the reference on codes without 63; at code 63 the port's
-    ROM gives 511 (the compiled tick's value) where the reference's
-    eager fit gives 512 (ROADMAP queue 3, P1)."""
+    """Against the reference on every code, 63 included: both fits read
+    FV_Log by the eager closed form, 512 at code 63 (ROADMAP queue 3,
+    F2)."""
     rng = np.random.default_rng(8)
     codes = np.floor(rng.random((4, 9, 16)) * 4096).astype(np.float32)
-    codes[codes == 63] = 64
+    codes[0, :, 3] = 63.0
     want = jcal.fit_norm_stats_from_counts(jnp.asarray(codes), JCFG)
     got = tcal.fit_norm_stats_from_counts(torch.from_numpy(codes), TCFG)
     np.testing.assert_allclose(got.mu.numpy(), np.asarray(want.mu), rtol=1e-6)
     np.testing.assert_allclose(got.sigma.numpy(), np.asarray(want.sigma), rtol=1e-5)
     at63 = np.full((1, 2, 16), 63.0, np.float32)
-    assert float(tcal.fit_norm_stats_from_counts(torch.from_numpy(at63), TCFG).mu[0]) == 511.0
+    assert float(tcal.fit_norm_stats_from_counts(torch.from_numpy(at63), TCFG).mu[0]) == 512.0
     assert float(jcal.fit_norm_stats_from_counts(jnp.asarray(at63), JCFG).mu[0]) == 512.0
+
+
+def test_eager_log_equals_the_references_eager_lut_on_every_code():
+    """The fit's closed-form log against the reference's eager
+    `log_compress_lut` on all 4096 codes; the tick's ROM keeps 511 at
+    the tie, code 63 (P1), and equals the eager form everywhere else."""
+    v = np.arange(4096, dtype=np.float32)
+    want = np.asarray(jq.log_compress_lut(jnp.asarray(v), 12, 10))
+    got = tq.log_compress_eager(torch.from_numpy(v), 12, 10).numpy()
+    np.testing.assert_array_equal(got, want)
+    rom = tq.log_rom("cpu", 12, 10).numpy()
+    assert rom[63] == 511.0 and got[63] == 512.0
+    np.testing.assert_array_equal(np.delete(rom, 63), np.delete(want, 63))
 
 
 # ---------------- keyed noise, by its statistics (W4) ----------------
