@@ -64,11 +64,15 @@ plain PyTorch version on the card:
      and the chunked training form at B = 1 timed as information;
  13. times on CUDA events after warm-up: ms per step_batch tick and each
      kernel's time beside its plain version's, its bound and a library
-     yardstick where one exists (the ΔGRU tick at θ = 0 and 0.15 on raw
-     audio and on the reference's sparsity traffic, the hardware tick,
-     the gated tick beside the ungated one, K1, the scan entry and K5 at
-     the batch path's shapes, K6 beside cuDNN, K7); one JSON line per
-     kernel, then all kernels in one JSON line;
+     yardstick where one exists (the qat, integer and ΔGRU ticks on raw
+     audio and on the reference's sparsity traffic as FV input, the ΔGRU
+     at θ = 0 and 0.15, the hardware tick, the gated tick beside the
+     ungated one, intgemm beside torch.matmul and as one 16-row block, K1,
+     the scan entry and K5 at the batch path's shapes, K6 beside cuDNN,
+     K7); the dense tick's phase split (qat and integer: the raw tick, the
+     FV tick and the FV tick behind a gate that opens for nobody give the
+     frontend's and the classifier's shares); one JSON line per kernel,
+     then all kernels in one JSON line;
  14. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
@@ -592,50 +596,43 @@ def _fv_traffic(n: int):
             for _ in range(8)]
 
 
-def phase_times(dev, srv_qat, live, hw_state):
-    """Kernel, plain and library times on CUDA events at the main path's
-    shapes (the hardware tick on ``hw_state``'s die), and host-clock ms
-    per step_batch tick."""
+# the tick runs timed on CUDA events: (classifier, θ, hardware, inputs);
+# qat and integer run on FV input too (beside raw: the frontend's share)
+TICK_RUNS = (("qat", None, False, ("raw", "fv")), ("integer", None, False, ("raw", "fv")),
+             ("float", None, False, ("raw",)), ("delta", 0.0, False, ("raw", "fv")),
+             ("delta", THETA, False, ("raw", "fv")), ("delta-int", 0.0, False, ("raw", "fv")),
+             ("delta-int", THETA, False, ("raw", "fv")), ("qat", None, True, ("raw",)),
+             ("delta", THETA, True, ("raw",)))
+# a cascade whose gate opens for nobody: the FV tick without its classifier
+SHUT_GATE_THRESHOLD = 1e9
+
+
+def tick_times(dev, hw_state, runs=TICK_RUNS, plain: bool = True):
+    """The tick kernel's ms on CUDA events at N_STREAMS, all streams
+    submitting, for each of ``runs`` (the hardware runs on ``hw_state``'s
+    die): raw audio hops, and the reference's sparsity traffic as FV
+    input; with ``plain`` also the plain tick's ms and the bound."""
     import torch
 
     from repro_torch.core.frontend import tree_clone
     from repro_torch.core.gru_delta import effective_mac_fraction
-    from repro_torch.kernels.intgemm import intgemm, intgemm_ref
     from repro_torch.kernels.tick_fused import pack_operands, tick_fused, tick_reference
     from repro_torch.kernels.tick_fused.gather import make_sparse_step
 
     n = N_STREAMS
     out = {}
-    # step_batch: the user's tick, host slab in, host scores out
-    slab, _ = live[0]
-    mask = torch.ones(n, dtype=torch.bool).numpy()
-    for _ in range(3):
-        srv_qat.step_batch(slab, mask)
-    torch.cuda.synchronize()
-    reps = 20
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        srv_qat.step_batch(slab, mask)
-    out["step_batch_ms"] = (time.perf_counter() - t0) / reps * 1e3
-    # the tick kernel, every backend, all streams submitting: raw audio,
-    # and for the ΔGRU also the cycled FV traffic
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    audio = [_audio(g, (n, HOP), dev) for _ in range(8)]
-    fv_slabs = [x.to(dev) for x in _fv_traffic(n)]
+    slabs_of = {"raw": [_audio(g, (n, HOP), dev) for _ in range(8)],
+                "fv": [x.to(dev) for x in _fv_traffic(n)]}
     full = torch.ones(n, dtype=torch.bool, device=dev)
-    for classifier, theta, hw in (("qat", None, False), ("integer", None, False),
-                                  ("float", None, False), ("delta", 0.0, False),
-                                  ("delta", THETA, False), ("delta-int", 0.0, False),
-                                  ("delta-int", THETA, False), ("qat", None, True),
-                                  ("delta", THETA, True)):
+    for classifier, theta, hw, kinds in runs:
         pipe, params = _setup(dev, classifier, theta, hw_state if hw else None)
         params = pipe.prepare_params(params)
         ops = pack_operands(pipe, params, pipe.state, dev)
         step_fn = make_sparse_step(pipe)
         delta = pipe.classifier.is_delta
-        kinds = (("raw", audio), ("fv", fv_slabs)) if delta and not hw else (("raw", audio),)
-        for kind, slabs in kinds:
-            raw = kind == "raw"
+        for kind in kinds:
+            raw, slabs = kind == "raw", slabs_of[kind]
             state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
                      torch.zeros((n, K), device=dev), None)
             tick = [0]
@@ -648,6 +645,9 @@ def phase_times(dev, srv_qat, live, hw_state):
 
             key = f"{_label(classifier, theta, hw)} {kind}"
             out[f"{key} ms"], out[f"{key} enqueue_us"] = _cuda_ms(run, reps=200, hold=True)
+            if not plain:
+                print(f"tick_fused {key}: {out[f'{key} ms']:.5f} ms on the card")
+                continue
             frac, fires, extra = 1.0, None, ""
             if delta:
                 frac = float(effective_mac_fraction(list(state[0]), pipe.config.gru).mean())
@@ -666,15 +666,107 @@ def phase_times(dev, srv_qat, live, hw_state):
                   f"({out[f'{key} enqueue_us']:.1f} µs host enqueue a call), plain "
                   f"{out[f'{key} plain_ms']:.2f} ms, bound {out[f'{key} bound_ms']:.5f} ms "
                   f"({out[f'{key} bound_by']}){extra}")
-    # intgemm at the largest gate shape of the integer tick
+    return out
+
+
+def phase_split(dev, times):
+    """The dense tick's time split by modes the kernel already has: the
+    qat and integer FV ticks (``times``, from `tick_times`) beside their
+    raw ticks give the frontend's share; the FV tick behind a cascade whose
+    gate opens for nobody (the detector and the tail run, the classifier
+    of every block idles) beside the ungated FV tick gives the
+    classifier's share. Prints one line a backend; returns the times."""
+    import torch
+
+    from repro_torch.kernels.tick_fused import pack_operands, tick_fused
+    from repro_torch.serving.cascade import CascadeConfig, init_state
+
+    n = N_STREAMS
+    slabs = [x.to(dev) for x in _fv_traffic(n)]
+    full = torch.ones(n, dtype=torch.bool, device=dev)
+    out = {}
+    for classifier in ("qat", "integer"):
+        pipe, params = _setup(dev, classifier, cascade=CascadeConfig(
+            wake_threshold=SHUT_GATE_THRESHOLD))
+        params = pipe.prepare_params(params)
+        ops = pack_operands(pipe, params, pipe.state, dev)
+        state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
+                 torch.zeros((n, K), device=dev), init_state(n, dev))
+        tick = [0]
+
+        def run():
+            tick_fused(pipe, False, params, state, slabs[tick[0] % len(slabs)], full,
+                       pipe.state, SMOOTHING, operands=ops)
+            tick[0] += 1
+
+        key = f"{classifier} fv shut"
+        out[f"{key} ms"], _ = _cuda_ms(run, reps=200, hold=True)
+        torch.cuda.synchronize()
+        if int(state[3]["woken"].sum()) != 0:
+            raise AssertionError(f"{key}: the shut gate woke a stream")
+        raw_ms, fv_ms = times[f"{classifier} raw ms"], times[f"{classifier} fv ms"]
+        out[f"{classifier} split frontend_ms"] = raw_ms - fv_ms
+        out[f"{classifier} split classifier_ms"] = fv_ms - out[f"{key} ms"]
+        out[f"{classifier} split rest_ms"] = out[f"{key} ms"]
+        print(f"phase split {classifier}: raw tick {raw_ms:.5f} ms, FV tick {fv_ms:.5f} ms, "
+              f"FV tick with the gate shut {out[f'{key} ms']:.5f} ms: frontend "
+              f"{raw_ms - fv_ms:.5f} ms, classifier {fv_ms - out[f'{key} ms']:.5f} ms, "
+              f"the rest (launch, staging, detector, tail) {out[f'{key} ms']:.5f} ms")
+    return out
+
+
+def intgemm_times(dev):
+    """intgemm at the largest gate shape of the integer tick, beside its
+    plain version and torch.matmul on float64 copies (the library
+    yardstick: CUDA has no integer matmul)."""
+    import torch
+
+    from repro_torch.kernels.intgemm import intgemm, intgemm_ref
+
+    n = N_STREAMS
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
     x = torch.randint(-8192, 8192, (n, H), generator=g, device=dev, dtype=torch.int32)
     w = torch.randint(-128, 128, (H, G), generator=g, device=dev, dtype=torch.int8)
     x64, w64 = x.to(torch.float64), w.to(torch.float64)
+    out = {}
     out["intgemm_ms"], out["intgemm_enqueue_us"] = _cuda_ms(lambda: intgemm(x, w), reps=200,
                                                             hold=True)
     out["intgemm_plain_ms"], _ = _cuda_ms(lambda: intgemm_ref(x, w), reps=20, hold=True)
     out["intgemm_library_ms"], _ = _cuda_ms(lambda: torch.matmul(x64, w64), reps=200, hold=True)
     out["intgemm_bound_ms"], out["intgemm_bound_by"] = intgemm_bound(n, H, G)
+    # one 16-row block: the launch and one block's staging and tile, the
+    # floor under the full call
+    x16 = x[:16].contiguous()
+    out["intgemm one_block_ms"], _ = _cuda_ms(lambda: intgemm(x16, w), reps=200, hold=True)
+    print(f"intgemm ({n}, {H}) x ({H}, {G}): {out['intgemm_ms']:.6f} ms on the card, "
+          f"torch.matmul (float64) {out['intgemm_library_ms']:.6f} ms, plain "
+          f"{out['intgemm_plain_ms']:.4f} ms, bound {out['intgemm_bound_ms']:.6f} ms "
+          f"({out['intgemm_bound_by']}); one 16-row block {out['intgemm one_block_ms']:.6f} ms")
+    return out
+
+
+def phase_times(dev, srv_qat, live, hw_state):
+    """Kernel, plain and library times on CUDA events at the main path's
+    shapes (the hardware tick on ``hw_state``'s die), the dense tick's
+    phase split, and host-clock ms per step_batch tick."""
+    import torch
+
+    n = N_STREAMS
+    out = {}
+    # step_batch: the user's tick, host slab in, host scores out
+    slab, _ = live[0]
+    mask = torch.ones(n, dtype=torch.bool).numpy()
+    for _ in range(3):
+        srv_qat.step_batch(slab, mask)
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        srv_qat.step_batch(slab, mask)
+    out["step_batch_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    out.update(tick_times(dev, hw_state))
+    out.update(phase_split(dev, out))
+    out.update(intgemm_times(dev))
     return out
 
 

@@ -29,13 +29,27 @@
 //     the FV_Raw code, and the log ROM, normalizer and Q6.8 follow as for
 //     the software frontend. The carry r is written back, j is read only.
 //   * Classifier: the int8 weight codes (23.6 kB) and int32 bias codes sit
-//     in shared memory; threads stride over (stream, gate column) for the
-//     gate accumulators, then over (stream, unit) for the gates, which are
-//     Q6.8 ROM lookups with round-half-even rescales, layer by layer, and
-//     over (stream, class) for the FC head. The float backend reads its
-//     float32 weights (96.8 kB) through the read-only cache instead, so a
-//     block keeps ~53 kB of shared memory and four blocks fit on an SM; its
-//     gates are expf / tanhf.
+//     in shared memory. The dense gate accumulators (qat, integer, float)
+//     and the FC head of every backend run on register tiles: a thread owns
+//     4 streams x 4 columns of one product (x . W_i or h . W_h; 288 tiles a
+//     layer over 256 threads, the state product first so that the 32
+//     tiles of the second round are the input's); the FC head, 1/16 of
+//     the MACs, runs 48 tiles of 1 stream x 4 classes, which keeps its
+//     critical path short (the ΔGRU ticks run it too). Per k a gate tile
+//     loads the 4 columns' weights as one 32-bit word (one 16-byte vector
+//     for float) and the 4 streams' activations once, from 16-byte vectors
+//     of 4 consecutive k: 0.125 shared-memory loads a MAC (one thread an
+//     accumulator would issue 2, and for qat an I2F and a multiply a
+//     term); qat turns 4 codes into code * 2^-7 once per k for all 4
+//     streams, with an integer op and an exact subtraction (w_lsb). What
+//     is left bounds the phase: the FMA / IMAD issue (16 a k-step a
+//     thread; IMAD runs at half the FMA rate), about 1/5 of the
+//     instructions of one thread an accumulator. Then threads
+//     stride over (stream, unit) for the gates, which are Q6.8 ROM lookups
+//     with round-half-even rescales, layer by layer. The float backend
+//     reads its float32 weights (96.8 kB) through the read-only cache
+//     instead, so a block keeps ~53 kB of shared memory and four blocks fit
+//     on an SM; its gates are expf / tanhf.
 //   * ΔGRU (K4): per layer, threads over (stream, column) form the
 //     thresholded deltas of the input and the state against their
 //     reference memories (|Δ| > θ on the Q6.8 grid) and advance the
@@ -73,9 +87,15 @@
 // f_free + k_sro*|y|, r + scale*sum); everything else is compiled with
 // -fmad=false so it rounds as the plain version does. QAT and
 // delta accumulate in float32 on the exact code * 2^-7 weights; integer and
-// delta-int run the shared int24 dot of intgemm.cuh. On the fixed-point
-// grids these sums are exact, so their order does not matter; the float
-// backend's is, and it agrees with the plain version within a tolerance.
+// delta-int in exact int32 (intgemm.cuh's tile, and K4's sparse terms),
+// clipped once to int24. Every dense accumulator sums in ascending k from 0
+// (the tiles change which thread sums, not the order). A qat product of a
+// Q6.8-grid activation and a weight is exact, so there the tile fuses the
+// multiply-add (__fmaf_rn rounds as __fadd_rn(acc, __fmul_rn(x, w)));
+// layer 1's input product, whose FV_Norm input may lie off the grid on an
+// FV tick, and the float backend, whose products are not exact, multiply
+// then add. On the fixed-point grids these sums are exact; the float
+// backend's is not, and it agrees with the plain version within a tolerance.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,7 +117,6 @@ constexpr int LUT_MIN = 2 * ACT_MIN;
 constexpr int LUT_SIZE = 2 * (ACT_MAX - ACT_MIN) + 1;
 constexpr int LOG_SIZE = 4096;
 constexpr float Q68_LSB = 0.00390625f;         // 2^-8
-constexpr float W_LSB = 0.0078125f;            // 2^-7
 constexpr float ACC_LSB = 3.0517578125e-05f;   // 2^-15
 
 // The classifier backends, as the wrapper numbers them.
@@ -295,36 +314,136 @@ __device__ __forceinline__ float hardware_frame(const float* hop, const Biquad& 
   return total;
 }
 
-// One gate / logit accumulator as a Q6.8 code: x (in_dim) . w[:, col] + b,
-// x as codes (integer) or as float bits on the Q6.8 grid (qat).
-__device__ __forceinline__ int accum(const int32_t* x, int in_dim,
-                                     const int8_t* w, int ldw,
-                                     const int32_t* b, int col,
-                                     bool codes) {
-  if (codes) {
-    return clip_act(
-        round_shift_even(intgemm_dot(x, w, in_dim, ldw, col) + b[col], 7));
-  }
-  const float* xf = reinterpret_cast<const float*>(x);
-  float acc = 0.0f;
-  for (int k = 0; k < in_dim; ++k) {
-    const float wk = __fmul_rn(static_cast<float>(w[k * ldw + col]), W_LSB);
-    acc = __fadd_rn(acc, __fmul_rn(xf[k], wk));
-  }
-  acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(b[col]), ACC_LSB));
-  return q68_code(acc);
+// The dense classifier phase runs on register tiles of NS streams x 4
+// columns of one product x . W (+ b): x stream-major in shared memory (row
+// stride H, from the tile's first stream), W's tile columns from w (row
+// stride ldw). Per 4 k a thread loads the NS streams' 4 activations as NS
+// 16-byte vectors and the 4 rows of 4 weights as four 32-bit words (int8
+// codes) or 16-byte vectors (float32): at NS = 4, 0.125 loads a term.
+// Every accumulator sums its terms in ascending k from 0, as before the
+// tiling.
+constexpr int TILES_PER_PRODUCT = (SB / 4) * (G / 4);
+constexpr int FC_TILES = SB * (K / 4);
+static_assert(SB % 4 == 0 && G % 4 == 0 && K % 4 == 0 && C % 4 == 0 && H % 4 == 0,
+              "4 x 4 tiles and 4-deep k steps");
+
+__device__ __forceinline__ float float4_lane(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// The float backend's accumulator: x . w[:, col] + b in float32, weights
-// read through the read-only cache.
-__device__ __forceinline__ float accum_float(const float* x, int in_dim,
-                                             const float* w, int ldw,
-                                             const float* b, int col) {
-  float acc = 0.0f;
-  for (int k = 0; k < in_dim; ++k) {
-    acc = __fadd_rn(acc, __fmul_rn(x[k], __ldg(&w[k * ldw + col])));
+// Byte I of a word of int8 codes as the float32 code * 2^-7, exact, in two
+// instructions in place of an I2F and a multiply: the code + 128 (the word
+// is XORed with 0x80808080 first) becomes the low mantissa byte of
+// 0x47800000 = 2^16, whose last mantissa bit weighs 2^-7, so the float is
+// 65537 + code * 2^-7, and subtracting 65537 is exact (Sterbenz).
+template <int I>
+__device__ __forceinline__ float w_lsb(uint32_t biased) {
+  return __fsub_rn(__uint_as_float(__byte_perm(biased, 0x47800000u, 0x7640 + I)), 65537.0f);
+}
+
+// qat: float32 sums of Q6.8 activations times code * 2^-7 weights. A
+// product of a Q6.8-grid activation (14-bit code) and a weight is exact in
+// float32 (at most 2^20 units of 2^-15), so a fused multiply-add rounds as
+// multiply-then-add does; FUSED is false where x may lie off the grid
+// (layer 1's input: the caller's FV_Norm on an FV tick).
+template <int NS, bool FUSED>
+__device__ __forceinline__ void tile_qat(const int32_t* x, int depth, const int8_t* w,
+                                         int ldw, float acc[NS][4]) {
+  for (int k0 = 0; k0 < depth; k0 += 4) {
+    float4 xv[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) xv[s] = *reinterpret_cast<const float4*>(x + s * H + k0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t biased =
+          *reinterpret_cast<const uint32_t*>(w + (k0 + kk) * ldw) ^ 0x80808080u;
+      const float wk[4] = {w_lsb<0>(biased), w_lsb<1>(biased), w_lsb<2>(biased),
+                           w_lsb<3>(biased)};
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float xs = float4_lane(xv[s], kk);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[s][c] = FUSED ? __fmaf_rn(xs, wk[c], acc[s][c])
+                            : __fadd_rn(acc[s][c], __fmul_rn(xs, wk[c]));
+        }
+      }
+    }
   }
-  return __fadd_rn(acc, __ldg(&b[col]));
+}
+
+// float: multiply, then add (the products are not exact); float32 weights
+// read through the read-only cache.
+template <int NS>
+__device__ __forceinline__ void tile_float(const int32_t* x, int depth, const float* w,
+                                           int ldw, float acc[NS][4]) {
+  for (int k0 = 0; k0 < depth; k0 += 4) {
+    float4 xv[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) xv[s] = *reinterpret_cast<const float4*>(x + s * H + k0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 wv = __ldg(reinterpret_cast<const float4*>(w + (k0 + kk) * ldw));
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float xs = float4_lane(xv[s], kk);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[s][c] = __fadd_rn(acc[s][c], __fmul_rn(xs, float4_lane(wv, c)));
+        }
+      }
+    }
+  }
+}
+
+// One NS-stream x 4-column tile of x (depth) . W + b, finished as a gate
+// preactivation: Q6.8 codes (qat and delta on float sums, integer and
+// delta-int on int32 sums) or float32 bits (float). w_off / b_off: the
+// tile's first column in the packed weights / biases, W's row stride ldw.
+template <int NS>
+__device__ __forceinline__ void dense_tile(const TickArgs& a, int bk, const int32_t* x,
+                                           int depth, const int8_t* w_s, const int32_t* b_s,
+                                           int w_off, int b_off, int ldw, bool fused,
+                                           int32_t out[NS][4]) {
+  if (bk == BK_FLOAT) {
+    float acc[NS][4] = {};
+    tile_float<NS>(x, depth, a.wf + w_off, ldw, acc);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(a.bf + b_off));
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        out[s][c] = __float_as_int(__fadd_rn(acc[s][c], float4_lane(b, c)));
+      }
+    }
+  } else if (bk == BK_INTEGER || bk == BK_DELTA_INT) {
+    int32_t acc[NS][4] = {};
+    intgemm_tile<NS>(x, H, w_s + w_off, ldw, depth, acc);
+    const int4 b = *reinterpret_cast<const int4*>(b_s + b_off);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        out[s][c] = clip_act(round_shift_even(intgemm_clip(acc[s][c]) + int4_lane(b, c), 7));
+      }
+    }
+  } else {
+    float acc[NS][4] = {};
+    if (fused) {
+      tile_qat<NS, true>(x, depth, w_s + w_off, ldw, acc);
+    } else {
+      tile_qat<NS, false>(x, depth, w_s + w_off, ldw, acc);
+    }
+    const int4 b = *reinterpret_cast<const int4*>(b_s + b_off);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        out[s][c] = q68_code(
+            __fadd_rn(acc[s][c], __fmul_rn(static_cast<float>(int4_lane(b, c)), ACC_LSB)));
+      }
+    }
+  }
 }
 
 // K4's rank-1 terms for one (stream, gate column): sum over the listed
@@ -616,19 +735,24 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
         }
       }
     } else {
-      for (int item = tid; item < SB * G; item += THREADS) {
-        const int s = item / G;
-        const int j = item % G;
-        if (!wake_s[s]) continue;
-        int32_t* g = gate_s + s * 2 * G;
-        if (flt) {
-          const float* xf = reinterpret_cast<const float*>(x_s + s * H);
-          const float* hf = reinterpret_cast<const float*>(h_s + s * H);
-          g[j] = __float_as_int(accum_float(xf, in_dim, a.wf + w_i_off, G, a.bf + b_i_off, j));
-          g[G + j] = __float_as_int(accum_float(hf, H, a.wf + w_h_off, G, a.bf + b_h_off, j));
-        } else {
-          g[j] = accum(x_s + s * H, in_dim, wi, G, bi, j, codes);
-          g[G + j] = accum(h_s + s * H, H, wh, G, bh, j, codes);
+      // 2 products x 4 stream tiles x 36 column tiles over 256 threads: the
+      // state product first (in layer 1 the deeper one), so the 32 tiles of
+      // the second round are input tiles; a tile with no woken stream idles
+      for (int t = tid; t < 2 * TILES_PER_PRODUCT; t += THREADS) {
+        const bool hp = t < TILES_PER_PRODUCT;
+        const int rem = hp ? t : t - TILES_PER_PRODUCT;
+        const int s0 = 4 * (rem / (G / 4));
+        const int c0 = 4 * (rem % (G / 4));
+        if (!(wake_s[s0] | wake_s[s0 + 1] | wake_s[s0 + 2] | wake_s[s0 + 3])) continue;
+        int32_t out[4][4];
+        dense_tile<4>(a, bk, (hp ? h_s : x_s) + s0 * H, hp ? H : in_dim, w_s, b_s,
+                   (hp ? w_h_off : w_i_off) + c0, (hp ? b_h_off : b_i_off) + c0, G,
+                   hp || layer > 0, out);
+        int32_t* g = gate_s + s0 * 2 * G + (hp ? G : 0) + c0;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          *reinterpret_cast<int4*>(g + s * 2 * G) =
+              make_int4(out[s][0], out[s][1], out[s][2], out[s][3]);
         }
       }
     }
@@ -664,19 +788,21 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     __syncthreads();
   }
 
-  // ---- FC head ----
-  for (int item = tid; item < SB * K; item += THREADS) {
-    const int s = item / K;
-    const int k = item % K;
+  // ---- FC head: 16 streams x 3 class tiles of 1 x 4 (48 threads; the
+  // head is 1/16 of the MACs, so its critical path, not its loads, counts) ----
+  for (int t = tid; t < FC_TILES; t += THREADS) {
+    const int s = t / (K / 4);
+    const int c0 = 4 * (t % (K / 4));
     if (!wake_s[s]) continue;
-    const int32_t* h2 = act_s + 2 * SB * H + s * H;
-    if (flt) {
-      logit_s[s * K + k] = accum_float(reinterpret_cast<const float*>(h2), H,
-                                       a.wf + W_FC, K, a.bf + B_FC, k);
-    } else {
-      const int code = accum(h2, H, w_s + W_FC, K, b_s + B_FC, k, codes);
-      logit_s[s * K + k] = __fmul_rn(static_cast<float>(code), Q68_LSB);
+    int32_t out[1][4];
+    dense_tile<1>(a, bk, act_s + 2 * SB * H + s * H, H, w_s, b_s, W_FC + c0, B_FC + c0, K,
+                  true, out);
+    float l[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      l[c] = flt ? __int_as_float(out[0][c]) : __fmul_rn(static_cast<float>(out[0][c]), Q68_LSB);
     }
+    *reinterpret_cast<float4*>(logit_s + s * K + c0) = make_float4(l[0], l[1], l[2], l[3]);
   }
   __syncthreads();
 

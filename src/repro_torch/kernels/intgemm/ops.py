@@ -13,9 +13,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.intgemm.ref import intgemm_ref
 
-# Shared memory a block may use on Hopper (the whole (K, N) weight
-# matrix is staged there).
-_MAX_SMEM = 232448
+# The largest (K, N) weight matrix the entry point takes: the bytes of
+# shared memory a Hopper block may use, the limit of the first kernel
+# (which staged the whole matrix); the tiled kernel stages chunks and
+# keeps the contract.
+_MAX_W_BYTES = 232448
 
 
 def intgemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -41,10 +43,10 @@ def intgemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("intgemm takes contiguous tensors")
     m, k = x.shape
     n = w.shape[1]
-    if k * n > _MAX_SMEM:
+    if k * n > _MAX_W_BYTES:
         raise ValueError(
-            f"a ({k}, {n}) int8 weight matrix exceeds the {_MAX_SMEM} bytes "
-            "of shared memory the kernel stages it in"
+            f"a ({k}, {n}) int8 weight matrix exceeds the {_MAX_W_BYTES} bytes "
+            "intgemm takes"
         )
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if out.numel() == 0:

@@ -29,9 +29,9 @@ Cephes exp polynomial (fused multiply-adds as the compiled code has
 them, results below the smallest normal flushed to zero). The CUDA tick
 (``kernels/csrc/tick_fused.cu``) computes the same operations.
 
-This module imports torch and `repro_torch.core.fex` only (no serving
-or pipeline module), so `repro_torch.core.pipeline` can host the config
-without a cycle.
+This module imports torch, `repro_torch.core.fex` and
+`repro_torch.kernels.build` only (no serving or pipeline module), so
+`repro_torch.core.pipeline` can host the config without a cycle.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fex import fma_f32
+from repro_torch.kernels.build import resolve_device
 
 __all__ = [
     "CascadeConfig",
@@ -220,8 +221,10 @@ def init_state(batch: int, device=None) -> Dict[str, torch.Tensor]:
     hang   — remaining hangover ticks after the latch dropped (int32).
     woken  — ticks the gate let the classifier advance (int32).
     ticks  — submitted ticks seen (int32, wraps like the ΔGRU counters).
+
+    ``device=None`` means the card, as for every entry point of the port.
     """
-    dev = torch.device("cpu" if device is None else device)
+    dev = resolve_device(device)
     z = lambda dtype: torch.zeros((batch,), dtype=dtype, device=dev)  # noqa: E731
     return {
         "awake": z(torch.bool),

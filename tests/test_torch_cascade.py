@@ -153,7 +153,7 @@ def test_detector_scores_nonnegative():
 
 def _gate_run(kw, scores):
     jcfg, tcfg = _both(**kw)
-    js, ts = jc.init_state(scores.shape[1]), tc.init_state(scores.shape[1])
+    js, ts = jc.init_state(scores.shape[1]), tc.init_state(scores.shape[1], "cpu")
     gates = []
     for row in scores:
         js, jg = jc.gate_step(js, jnp.asarray(row), jcfg)
@@ -187,7 +187,17 @@ def test_gate_step_random_trajectories(kw):
 
 
 def test_wake_rate_unity_without_traffic():
-    np.testing.assert_array_equal(tc.wake_rate(tc.init_state(3)).numpy(), np.ones(3, np.float32))
+    np.testing.assert_array_equal(tc.wake_rate(tc.init_state(3, "cpu")).numpy(), np.ones(3, np.float32))
+
+
+def test_init_state_defaults_to_the_card():
+    """No device means the card, as at every entry point of the port: it
+    raises where there is none rather than running on the CPU."""
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for t in tc.init_state(3).values())
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tc.init_state(3)
 
 
 # The port's fit (torch.autograd) against the reference's jit(grad): over

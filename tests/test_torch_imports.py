@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports JAX or the JAX package `repro`."""
+"""The port stands alone: no module of `repro_torch`, and neither
+`chip_smoke.py` nor `chip_ab.py`, imports JAX or the JAX package
+`repro`."""
 
 import pathlib
 import re
@@ -25,7 +26,7 @@ def _port_modules():
 
 
 def test_importing_the_port_loads_no_jax():
-    names = list(_port_modules()) + ["chip_smoke"]
+    names = list(_port_modules()) + ["chip_smoke", "chip_ab"]
     assert "repro_torch.serving.serve_loop" in names
     code = (
         "import importlib, sys\n"
@@ -45,7 +46,7 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py", "chip_ab.py"],
 )
 def test_source_has_no_jax_or_repro_import(path):
     assert not FORBIDDEN.findall((ROOT / path).read_text()), path

@@ -60,24 +60,40 @@ def _norm_stats(dev):
     return FExNormStats(mu=mu.to(dev), sigma=sigma.to(dev))
 
 
+# the 4 x 4 register tiles and the 16-row blocks at their ragged edges:
+# rows, depth (zero-padded to 4 k) and columns not multiples of the tile,
+# with and without the vector loads and stores
+INTGEMM_EDGES = [(m, k, n, "random") for m in (1, 15, 17, 4095) for k in (1, 7, 16, 48)
+                 for n in (1, 5, 12, 144)]
+
+
 @pytest.mark.parametrize(
     "m,k,n,kind",
     [
         (N, 16, 144, "random"), (N, 48, 144, "random"), (N, 48, 12, "random"),
         (77, 48, 144, "saturate"), (1, 1, 1, "random"), (33, 7, 5, "random"),
-    ],
+        (37, 48, 144, "saturate-mixed"),
+    ] + INTGEMM_EDGES,
 )
 def test_intgemm_kernel_equals_plain(dev, m, k, n, kind):
+    """Bit-equal to the plain version; "saturate" sums leave the int24
+    range at both ends (x = 8191 / -8192 against w = 127, and x = +-8191
+    against w = +-127 by column) and clip once, to +-2^23."""
     g = torch.Generator(device=dev).manual_seed(m + k + n)
     x = torch.randint(-8192, 8192, (m, k), generator=g, device=dev, dtype=torch.int32)
     w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
     if kind == "saturate":
         x = torch.where(torch.arange(m, device=dev)[:, None] % 2 == 0, 8191, -8192).expand(m, k).contiguous().to(torch.int32)
         w = torch.full((k, n), 127, device=dev, dtype=torch.int8)
+    if kind == "saturate-mixed":
+        x = torch.where(torch.arange(m, device=dev)[:, None] % 2 == 0, 8191, -8191).expand(m, k).contiguous().to(torch.int32)
+        w = torch.where(torch.arange(n, device=dev) % 2 == 0, 127, -127).expand(k, n).contiguous().to(torch.int8)
     before = build.launches["intgemm"]
     got = intgemm(x, w)
     assert build.launches["intgemm"] == before + 1
     assert torch.equal(got, intgemm_ref(x, w))
+    if kind.startswith("saturate"):
+        assert int(got.max()) == 2**23 - 1 and int(got.min()) == -(2**23)
 
 
 def _hw_state(dev, seed=0):
@@ -105,11 +121,14 @@ def _tick_cases():
 
 @pytest.mark.parametrize("classifier,theta,raw,frontend", _tick_cases(),
                          ids=[f"{c}-{t}-{'raw' if r else 'fv'}-{f}" for c, t, r, f in _tick_cases()])
-@pytest.mark.parametrize("n", [N, 37], ids=["full", "ragged"])
+@pytest.mark.parametrize("n", [N, 37, 1, 15, 17], ids=["full", "ragged", "1", "15", "17"])
 def test_tick_kernel_equals_plain(dev, classifier, theta, raw, frontend, n):
     """Against the plain tick; for the ΔGRU backends its sparse step (K4's
     plain version) at both extremes of the fired-column list; with the
-    hardware frontend on a mismatched die, its carry {s1, s2, r, j}."""
+    hardware frontend on a mismatched die, its carry {s1, s2, r, j}. The
+    stream counts cut the 4-stream tiles of the classifier phase and the
+    16-stream blocks raggedly; the last tick's mask leaves every stream
+    tile half submitting."""
     pipe = _pipe(dev, classifier, theta, frontend)
     params = pipe.prepare_params(pipe.init_params(torch.Generator().manual_seed(1), device=dev))
     ops = pack_operands(pipe, params, pipe.state, dev)
@@ -119,12 +138,13 @@ def test_tick_kernel_equals_plain(dev, classifier, theta, raw, frontend, n):
     g = torch.Generator(device=dev).manual_seed(2)
     gains = torch.logspace(-2, -0.3, n, device=dev)[:, None]
     flt = classifier == "float"
-    for t, frac in enumerate([1.0, 0.7, 0.0, 0.5]):
+    for t, frac in enumerate([1.0, 0.7, 0.0, 0.5, None]):
         if raw:
             inp = torch.randn((n, 256), generator=g, device=dev) * gains
         else:
             inp = torch.round(torch.randn((n, 16), generator=g, device=dev) * 512) / 256
-        mask = torch.rand(n, generator=g, device=dev) < frac
+        mask = torch.rand(n, generator=g, device=dev) < frac if frac is not None else (
+            torch.arange(n, device=dev) % 4 < 2)
         (pg, pc, ps, _), _, ptop = tick_reference(pipe, raw, params, tree_clone(state), inp,
                                                   mask, pipe.state, 0.7, step_fn=step_fn)
         fv = torch.zeros((n, 16), device=dev)
@@ -154,6 +174,114 @@ def test_tick_kernel_equals_plain(dev, classifier, theta, raw, frontend, n):
     if theta == 64.0:  # nothing fired: every offered column was skipped
         for st in kg:
             assert torch.equal(st["skipped"], st["total"])
+
+
+def _tick_once(pipe, params, n, dev, inp, mask):
+    """One FV tick of the kernel and of the plain tick from fresh state:
+    (kernel state, plain state, kernel scores, plain scores)."""
+    ops = pack_operands(pipe, params, pipe.state, dev)
+    state = (tuple(pipe.streaming_init(n, dev)), pipe.streaming_features_init(n, dev),
+             torch.zeros((n, 12), device=dev), None)
+    (pg, _, ps, _), _, _ = tick_reference(pipe, False, params, tree_clone(state), inp, mask,
+                                          pipe.state, 0.7)
+    (kg, _, ks, _), _, _ = tick_fused(pipe, False, params, tree_clone(state), inp, mask,
+                                      pipe.state, 0.7, operands=ops)
+    return kg, pg, ks, ps
+
+
+def test_integer_tick_with_saturating_gate_accumulators(dev):
+    """Layer 1's input product at its extremes: FV codes of +-8189 against
+    weight codes of +-127 take 16-term sums to +-1.66e7, past the int24
+    accumulator, and biases of -+255 pull them back, so the gate codes
+    tell a sum clipped once to int24 before the bias (intgemm's rule,
+    the plain tick's) from an unclipped one."""
+    pipe = _pipe(dev, "integer", None)
+    params = pipe.init_params(torch.Generator().manual_seed(1), device=dev)
+    even = torch.arange(144, device=dev) % 2 == 0
+    params["gru"][0]["w_i"] = torch.where(even, 127.0, -127.0).expand(16, 144) / 128
+    params["gru"][0]["b_i"] = torch.where(even, -255.0, 255.0)
+    q = pipe.prepare_params(params)
+    n = 37
+    rows = torch.arange(n, device=dev)[:, None] % 3 - 1  # -1, 0, +1
+    inp = (rows * 8189 / 256).float().expand(n, 16).contiguous()
+    codes = torch.round(inp * 256).to(torch.int64).cpu()
+    raw_acc = codes @ q.gru[0]["w_i"].to(torch.int64).cpu()
+    assert bool((raw_acc.abs() > 2**23).any())  # the accumulators do saturate
+    kg, pg, ks, ps = _tick_once(pipe, q, n, dev, inp, torch.ones(n, dtype=torch.bool, device=dev))
+    for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
+        assert torch.equal(a, b)
+    assert float((ks - ps).abs().max()) <= 1e-6
+
+
+def _ordered_matmul(x, w, fused):
+    """x @ w summed over k in ascending order from 0, each term rounded as
+    multiply-then-add (fused=False) or as one fused multiply-add."""
+    from repro_torch.core.fex import fma_f32
+
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    for k in range(w.shape[0]):
+        term_x, term_w = x[:, k:k + 1].expand_as(acc), w[k].expand_as(acc)
+        acc = fma_f32(term_x, term_w, acc) if fused else acc + term_x * term_w
+    return acc
+
+
+def _off_grid_fv(w_i, b_i, n):
+    """FV_Norm frames off the Q6.8 grid that split the two roundings of
+    layer 1's input product: stream s is (x0, x1, 0, ...) with x0 on the
+    grid and x1 a float32 for which acc = x0 w0 + x1 w1 (+ b) rounds to
+    another Q6.8 code under a fused multiply-add than under
+    multiply-then-add, in an n-gate column (tanh's steep part). Searched
+    over x0 and the float32 values of x1 next to a code boundary."""
+    from repro_torch.core.fex import fma_f32
+
+    fv = torch.zeros((n, 16), dtype=torch.float32)
+    x0 = torch.arange(1, 33, dtype=torch.float32)[:, None] * 0.125
+    x0 = torch.cat([x0, -x0])  # on the grid, |x0| <= 4
+    steps = 1 + torch.arange(-2000, 2001, dtype=torch.float32) * 2.0**-24
+    found = 0
+    for s in range(n):
+        j = 96 + (7 * s) % 48
+        w0, w1, b = w_i[0, j], w_i[1, j], b_i[j]
+        if float(w0) == 0.0 or float(w1) == 0.0:
+            continue
+        acc1 = x0 * w0  # exact: both on their grids
+        boundary = (torch.round((acc1 + b) * 256) + 1.5) / 256
+        cand = ((boundary - b - acc1) / w1) * steps
+        two = ((acc1 + cand * w1) + b) * 256
+        one = (fma_f32(cand, w1.expand_as(cand), acc1.expand_as(cand)) + b) * 256
+        split = torch.nonzero(torch.round(two) != torch.round(one))
+        if len(split):
+            i, c = split[0].tolist()
+            fv[s, 0], fv[s, 1] = x0[i, 0], cand[i, c]
+            found += 1
+    assert found >= n // 2
+    return fv
+
+
+def test_qat_fv_tick_off_grid_input_multiplies_then_adds(dev, monkeypatch):
+    """Layer 1's input on an FV tick is the caller's float FV_Norm, off the
+    Q6.8 grid: its products are inexact, so the kernel multiplies, then
+    adds there (the other qat products are exact and fused). The plain
+    tick's matmuls run in that stated order (cuBLAS fixes none); the
+    inputs are built so that a fused multiply-add gives another state."""
+    from repro_torch.core import gru as gru_mod
+
+    pipe = _pipe(dev, "qat", None)
+    params = pipe.prepare_params(pipe.init_params(torch.Generator().manual_seed(1), device=dev))
+    ops = pack_operands(pipe, params, pipe.state, dev)
+    w_i = ops.w[: 16 * 144].view(16, 144).float().cpu() / 128
+    b_i = ops.b[:144].float().cpu() * 2.0**-15
+    n = 64
+    inp = _off_grid_fv(w_i, b_i, n).to(dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    plain = {}
+    for fused in (True, False):
+        monkeypatch.setattr(gru_mod, "_matmul", lambda x, w, f=fused: _ordered_matmul(x, w, f))
+        kg, plain[fused], ks, ps = _tick_once(pipe, params, n, dev, inp, mask)
+    assert not all(torch.equal(a, b) for a, b in zip(plain[False], plain[True]))
+    for a, b in zip(tree_leaves(kg), tree_leaves(plain[False])):
+        assert torch.equal(a, b)
+    assert float((ks - ps).abs().max()) <= 1e-6
 
 
 SERVERS = [(c, t, "software") for c, t in BACKENDS[:5]] + [
