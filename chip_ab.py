@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times intgemm (K2) and the dense tick's branches (K3) of two source
-trees in one call on one card, in turns: first, second, second, first.
+"""Times intgemm (K2), the dense tick's branches (K3), the TDC (K5) and
+WKV6 (K7) of two source trees in one call on one card, in turns: first,
+second, second, first.
 
     python3 chip_ab.py FIRST_ROOT [SECOND_ROOT]
 
@@ -10,10 +11,19 @@ one), for example the parent commit unpacked with ``git archive`` into
 ``repro_torch`` (its kernels built by nvcc into that root's build
 directory) and runs this checkout's `chip_smoke` timing functions on it:
 intgemm beside torch.matmul, the software tick of every dense backend and
-of the ΔGRU backends at θ = 0.15 on raw audio and FV input, and the qat
-and integer FV ticks with the gate shut (`chip_smoke.phase_split`).
-Prints the card's name and power limit, one JSON line a turn, then each
-key's times, first root against second. Needs a CUDA device.
+of the ΔGRU backends at θ = 0.15 on raw audio and FV input, the qat
+and integer FV ticks with the gate shut (`chip_smoke.phase_split`), K5
+at (64, 31 744, 16) (`chip_smoke.tdc_times`: also with every chunk
+floored by floorf, and as one block alone) and K7 at (8, 4096, 64, 64)
+(`chip_smoke.wkv6_times`). Prints the card's name and power limit, one
+JSON line a turn, then each key's times, first root against second.
+
+Before the turns it measures K5's dependent chain on this checkout's
+compiler flags: a probe kernel (one warp) runs the carry's tick, with
+floorf and with the 2^23 add, and reports cycles a tick (clock64) and the
+SM clock (clock64 over %globaltimer, and nvidia-smi's clocks.sm just
+after); the probe's and the built tdc library's SASS go to ``chain/`` in
+the kernels' build directory. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ def turn(src: str) -> None:
     if not build.__file__.startswith(src):
         raise SystemExit(f"chip_ab: imported {build.__file__}, not the tree under {src}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.SOURCES = {k: build.SOURCES[k] for k in ("intgemm", "tick_fused")}
+    build.SOURCES = {k: build.SOURCES[k] for k in ("intgemm", "tick_fused", "tdc", "wkv6")}
     for name, report in build.build_all().items():
         print(f"  {name}: {report.strip()}", file=sys.stderr)
     dev = torch.device("cuda")
@@ -50,12 +60,109 @@ def turn(src: str) -> None:
     runs = [r for r in chip_smoke.TICK_RUNS if not r[2] and r[1] != 0.0]
     times.update(chip_smoke.tick_times(dev, None, runs, plain=False))
     times.update(chip_smoke.phase_split(dev, times))
+    times.update(chip_smoke.tdc_times(dev))
+    times.update(chip_smoke.wkv6_times(dev))
     print(json.dumps({"src": src, "times": times}))
+
+
+# one warp runs n ZOH ticks of csrc/tdc.cu's carry (its tick from
+# tdc_tick.cuh, built with the same flags), timed by clock64 and %globaltimer
+CHAIN_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tdc_tick.cuh"
+
+template <bool MAGIC>
+__global__ void chain(const float* d, int n, float* out, long long* cycles,
+                      unsigned long long* ns) {
+  const float dd = d[threadIdx.x];
+  float r = 0.0f, acc = 0.0f;
+  unsigned long long g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+  const long long c0 = clock64();
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) tick<MAGIC>(dd, r, acc);
+  const long long c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+  out[threadIdx.x] = acc + r;
+  if (threadIdx.x == 0) {
+    cycles[0] = c1 - c0;
+    ns[0] = g1 - g0;
+  }
+}
+
+extern "C" int chain_probe(const float* d, int n, int magic, float* out, long long* cycles,
+                           unsigned long long* ns) {
+  if (magic) {
+    chain<true><<<1, 32>>>(d, n, out, cycles, ns);
+  } else {
+    chain<false><<<1, 32>>>(d, n, out, cycles, ns);
+  }
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def chain() -> None:
+    """K5's chain on the card: cycles a tick by floor, the SM clock, SASS."""
+    import ctypes
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab: no CUDA device")
+    out_dir = build.BUILD_DIR / "chain"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib_path = out_dir / "chain_probe.cu", out_dir / "libchain_probe.so"
+    src.write_text(CHAIN_PROBE)
+    nvcc = build._nvcc()
+    proc = subprocess.run([nvcc, *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o", str(lib_path),
+                           str(src)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_ab: the chain probe did not build:\n{proc.stderr}")
+    print(" ".join(ln.strip() for ln in (proc.stdout + proc.stderr).splitlines() if "ptxas" in ln))
+    lib = ctypes.CDLL(str(lib_path))
+    lib.chain_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+    dev = torch.device("cuda")
+    d = (torch.rand(32, device=dev) * 30.0).contiguous()  # the paper's d is ~1-30
+    res = torch.zeros(32, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    ns = torch.zeros(1, dtype=torch.int64, device=dev)
+    n = 1 << 22
+    result = {}
+    for name, magic in (("floorf", 0), ("magic-add", 1), ("floorf again", 0)):
+        for _ in range(2):  # the second run is the one kept
+            rc = lib.chain_probe(d.data_ptr(), n, magic, res.data_ptr(), cycles.data_ptr(),
+                                 ns.data_ptr())
+            if rc != 0:
+                raise SystemExit(f"chip_ab: the chain probe failed (cudaError {rc})")
+        cyc, nsec = int(cycles.item()), int(ns.item())
+        result[name] = {"cycles_per_tick": cyc / n, "sm_ghz": cyc / nsec}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    print(json.dumps({"chain": result, "nvidia-smi clocks.sm, clocks.max.sm, power.limit": smi}))
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    build.SOURCES = {"tdc": build.SOURCES["tdc"]}
+    build.build_all()
+    for name, path in (("chain_probe", lib_path), ("tdc", build._lib_path("tdc"))):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                              text=True, timeout=300).stdout
+        (out_dir / f"{name}.sass").write_text(sass)
+        print(f"{name}: {len(sass.splitlines())} lines of SASS in {out_dir / (name + '.sass')}")
 
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--turn":
         turn(sys.argv[2])
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--chain":
+        chain()
         return 0
     if len(sys.argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
@@ -64,6 +171,12 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0])
+    probe = subprocess.run([sys.executable, __file__, "--chain"], capture_output=True, text=True,
+                           timeout=900)
+    sys.stderr.write(probe.stderr[-4000:])
+    print(probe.stdout.strip())
+    if probe.returncode != 0:
+        raise SystemExit(f"chip_ab: the chain probe exited {probe.returncode}")
     results = {0: [], 1: []}
     for i in (0, 1, 1, 0):
         proc = subprocess.run([sys.executable, __file__, "--turn", str(roots[i] / "src")],

@@ -60,15 +60,16 @@ plain PyTorch version on the card:
      `torch.nn.GRU` on the same weights as the library yardstick;
  12. K7 through `kernels.wkv6` at rwkv6-7b's head layout and train_4k
      length (8, 4096, 64, 64) in float32, one launch, against the plain
-     sequential form (relative to max |y|), strong decay at a small size,
-     and the chunked training form at B = 1 timed as information;
+     sequential form (relative to max |y|), strong decay and bf16 at small
+     sizes, and the chunked training form at B = 1 timed as information;
  13. times on CUDA events after warm-up: ms per step_batch tick and each
      kernel's time beside its plain version's, its bound and a library
      yardstick where one exists (the qat, integer and ΔGRU ticks on raw
      audio and on the reference's sparsity traffic as FV input, the ΔGRU
      at θ = 0 and 0.15, the hardware tick, the gated tick beside the
      ungated one, intgemm beside torch.matmul and as one 16-row block, K1,
-     the scan entry and K5 at the batch path's shapes, K6 beside cuDNN,
+     the scan entry and K5 at the batch path's shapes (K5 also with
+     every chunk floored by floorf and as one block alone), K6 beside cuDNN,
      K7); the dense tick's phase split (qat and integer: the raw tick, the
      FV tick and the FV tick behind a gate that opens for nobody give the
      frontend's and the classifier's shares); one JSON line per kernel,
@@ -835,6 +836,59 @@ def tdc_bound(b: int, t: int, c: int, spf: int, os: int):
     return _bound(b * t * c * 4 + 2 * c * 4 + b * (t // spf) * c * 4, b * t * c * (4 + 4 * os))
 
 
+TDC_SHAPE = (FEATURE_BATCH, 31744, C)  # K5 on a batch of 1 s clips, whole frames
+
+
+def tdc_times(dev, u=None, cfg=None, chip=None):
+    """K5's ms on ``u`` (default: |N(0, 0.2²)| at TDC_SHAPE, the paper's
+    TDFExConfig); on the same input with one sample in every 128 raised to
+    2.2e5, so that every chunk's d reaches 2^22 and the carry floors by
+    floorf (the time does not depend on the values otherwise); and for the
+    first two clips alone (one block: its carry warp's chain with nothing
+    beside it)."""
+    import torch
+
+    from repro_torch.core.tdfex import TDFExConfig
+    from repro_torch.kernels.tdc import ops
+
+    if u is None:
+        g = torch.Generator(device=dev).manual_seed(SEED + 18)
+        u = torch.randn(TDC_SHAPE, generator=g, device=dev).abs() * 0.2
+    cfg = cfg or TDFExConfig()
+    out = {}
+    out["tdc ms"], _ = _cuda_ms(lambda: ops.tdc_counts(u, cfg, chip), reps=20, hold=True)
+    big = u.clone()
+    big[:, ::128] = 2.2e5
+    out["tdc floorf ms"], _ = _cuda_ms(lambda: ops.tdc_counts(big, cfg, chip), reps=20, hold=True)
+    del big
+    two = u[:2].contiguous()
+    out["tdc one block ms"], _ = _cuda_ms(lambda: ops.tdc_counts(two, cfg, chip), reps=10,
+                                          hold=True)
+    return out
+
+
+def _wkv_inputs(dev, shape, seed, strong=False):
+    """r, k, v ~ N(0, 1), logw = -exp(N(0, 1) - 1) (or -50: strong decay),
+    u ~ N(0, 0.3²), as the reference's kernel test draws them."""
+    import torch
+
+    b, t, h, p = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    r, k, v = rn(b, t, h, p), rn(b, t, h, p), rn(b, t, h, p)
+    lw = torch.full(shape, -50.0, device=dev) if strong else -torch.exp(rn(b, t, h, p) - 1.0)
+    return r, k, v, lw, rn(h, p) * 0.3
+
+
+def wkv6_times(dev):
+    """K7's ms at WKV_SHAPE in float32 (the inputs of `phase_wkv6`)."""
+    from repro_torch.kernels import wkv6
+
+    args = _wkv_inputs(dev, WKV_SHAPE, SEED + 17)
+    ms, _ = _cuda_ms(lambda: wkv6(*args), reps=10, hold=True)
+    return {"wkv6 ms": ms}
+
+
 GRU_STREAMS = 4096  # K6: the paper's classifier over 1 s clips
 GRU_FRAMES = 62
 WKV_SHAPE = (8, 4096, 64, 64)  # K7: rwkv6-7b's heads at its train_4k length
@@ -960,19 +1014,16 @@ def phase_gru_seq(dev):
 def phase_wkv6(dev):
     """K7 at rwkv6-7b's head layout and train_4k length (WKV_SHAPE,
     float32), drawn as the reference's test draws it, against the plain
-    sequential form on the card; strong decay (logw = -50) at a small
-    size; the chunked training form at B = 1 timed as information."""
+    sequential form on the card; strong decay (logw = -50) and bf16 at
+    small sizes; the chunked training form at B = 1 timed as
+    information."""
     import torch
 
     from repro_torch.kernels import build, wkv6, wkv6_plain
     from repro_torch.models.rwkv6 import wkv6_chunked
 
     b, t, h, p = WKV_SHAPE
-    g = torch.Generator(device=dev).manual_seed(SEED + 17)
-    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
-    r, k, v = rn(b, t, h, p), rn(b, t, h, p), rn(b, t, h, p)
-    lw = -torch.exp(rn(b, t, h, p) - 1.0)
-    u = rn(h, p) * 0.3
+    r, k, v, lw, u = _wkv_inputs(dev, WKV_SHAPE, SEED + 17)
     build.launches.clear()
     y = wkv6(r, k, v, lw, u)
     torch.cuda.synchronize()
@@ -988,25 +1039,31 @@ def phase_wkv6(dev):
     if rel > WKV_REL_TOL:
         raise AssertionError(f"wkv6 differs from its plain version by {rel:.3g} of max |y| "
                              f"(limit {WKV_REL_TOL})")
-    sr, sk, sv = rn(2, 64, 4, p), rn(2, 64, 4, p), rn(2, 64, 4, p)
-    slw, su = torch.full((2, 64, 4, p), -50.0, device=dev), rn(4, p) * 0.3
-    sy, swant = wkv6(sr, sk, sv, slw, su), wkv6_plain(sr, sk, sv, slw, su)
-    strong = float((sy - swant).abs().max() / swant.abs().max())
+    small = _wkv_inputs(dev, (2, 64, 4, p), SEED + 18, strong=True)
+    swant = wkv6_plain(*small)
+    strong = float((wkv6(*small) - swant).abs().max() / swant.abs().max())
     if strong > WKV_REL_TOL:
         raise AssertionError(f"wkv6 under strong decay differs by {strong:.3g} (limit {WKV_REL_TOL})")
+    bf = [a[:2, :512].to(torch.bfloat16) for a in (r, k, v, lw)]
+    bwant = wkv6_plain(*(a.float() for a in bf), u)
+    y16 = wkv6(*bf, u)
+    err16 = float((y16.float() - bwant).abs().max() / bwant.abs().max())
+    if y16.dtype != torch.bfloat16 or err16 > BF16_TOL:
+        raise AssertionError(f"wkv6 in bf16 differs by {err16:.3g} of max |y| (limit {BF16_TOL})")
     out["wkv6 chunked B=1 ms"], (yc, _) = _once_ms(
         lambda: wkv6_chunked(r[:1], k[:1], v[:1], lw[:1], u, WKV_CHUNK))
     chunked = float((yc - want[:1]).abs().max() / want[:1].abs().max())
     if chunked > WKV_CHUNKED_REL_TOL:
         raise AssertionError(f"wkv6_chunked differs from the sequential form by {chunked:.3g}")
-    del yc, want
-    out["wkv6 ms"], _ = _cuda_ms(lambda: wkv6(r, k, v, lw, u), reps=10, hold=True)
+    del yc, want, r, k, v, lw, y
+    out.update(wkv6_times(dev))
     out["wkv6 bound_ms"], out["wkv6 bound_by"] = wkv6_bound(b, t, h, p)
     out["wkv6 rel err"] = rel
     print(f"wkv6 {WKV_SHAPE}: launches {launches}; within {rel:.3g} of max |y| of the plain "
           f"version (limit {WKV_REL_TOL}; {err:.3g} absolute), {strong:.3g} under strong decay at "
-          f"(2, 64, 4, {p}); the chunked form (chunk {WKV_CHUNK}) at B = 1 within {chunked:.3g} "
-          f"of the sequential one")
+          f"(2, 64, 4, {p}); bf16 at (2, 512, {h}, {p}) within {err16:.3g} (limit {BF16_TOL}); "
+          f"the chunked form (chunk {WKV_CHUNK}) at B = 1 within {chunked:.3g} of the "
+          f"sequential one")
     print(f"wkv6: {out['wkv6 ms']:.5f} ms on the card, plain {out['wkv6 plain_ms']:.1f} ms, "
           f"chunked at B = 1 {out['wkv6 chunked B=1 ms']:.1f} ms, bound "
           f"{out['wkv6 bound_ms']:.5f} ms ({out['wkv6 bound_by']}); no single PyTorch call "
@@ -1065,6 +1122,7 @@ def phase_features(dev, state):
         fex_fused,
         fex_fused_ref,
     )
+    from repro_torch.kernels.tdc import ops as tdc_ops
     from repro_torch.kernels.tdc import tdc_counts, tdc_counts_plain, tdc_counts_ref
     from repro_torch.kernels.tdc.ops import tdc_scale
 
@@ -1127,7 +1185,7 @@ def phase_features(dev, state):
     spf, os_ = tdcfg.decimation // tdcfg.tdc_oversample, tdcfg.tdc_oversample
     gain = 1.0 + state.chip.gain_mismatch
     f0, k = tdcfg.f_free_hz * gain, tdcfg.k_sro_hz * gain
-    t_use = (rect.shape[1] // spf) * spf
+    b_t, t_use = rect.shape[0], (rect.shape[1] // spf) * spf
     counts = tdc_counts(rect, tdcfg, state.chip)
     times["tdc plain_ms"], plain = _once_ms(
         lambda: tdc_counts_plain(rect[:, :t_use], f0, k, spf, os_, tdc_scale(tdcfg)))
@@ -1147,12 +1205,13 @@ def phase_features(dev, state):
         raise AssertionError(f"tdc: (1, 1, 1) differs from plain, or {off} counts off the oracle")
     errs["tdc"] = 0.0
     print(f"fex_fused {tuple(x.shape)}, biquad_stream {tuple(duty.shape)} and tdc "
-          f"{tuple(rect.shape)}: bit-equal to their plain versions; tdc at most {off:.0f} count "
-          f"off the float64 oracle (also at b = frames = c = 1)")
+          f"{tuple(rect.shape)}: bit-equal to their plain versions; "
+          f"tdc at most {off:.0f} count off the float64 oracle (also at b = frames = c = 1); "
+          f"tdc geometry {tdc_ops.tdc_geometry(b_t, t_use, C, spf, os_, clip_samples=rect.shape[1])}")
     # kernel times at the same shapes
     times["fex_fused ms"], _ = _cuda_ms(lambda: fex_fused(x, nominal, 512), reps=20, hold=True)
     times["scan ms"], _ = _cuda_ms(lambda: biquad_stream(duty, state.coeffs), reps=20, hold=True)
-    times["tdc ms"], _ = _cuda_ms(lambda: tdc_counts(rect, tdcfg, state.chip), reps=20, hold=True)
+    times.update(tdc_times(dev, rect, tdcfg, state.chip))
     b, t = x.shape
     times["fex_fused bound_ms"], times["fex_fused bound_by"] = fex_fused_bound(b, t, C, 512)
     times["scan bound_ms"], times["scan bound_by"] = scan_bound(b, t, C)
@@ -1161,6 +1220,8 @@ def phase_features(dev, state):
         print(f"{name}: {times[f'{name} ms']:.5f} ms on the card, plain "
               f"{times[f'{name} plain_ms']:.1f} ms, bound {times[f'{name} bound_ms']:.5f} ms "
               f"({times[f'{name} bound_by']})")
+    print(f"tdc with every chunk floored by floorf {times['tdc floorf ms']:.5f} ms; one block "
+          f"(2 clips) alone {times['tdc one block ms']:.5f} ms")
     stats = fit_norm_stats_from_counts(torch.as_tensor(codes["hardware-pallas"], device=dev), tdcfg)
     cpu_stats = fit_norm_stats_from_counts(torch.as_tensor(codes["hardware-pallas"]), tdcfg)
     # the FV_Log values are the same table on both; only the order of the

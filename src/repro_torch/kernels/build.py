@@ -78,8 +78,9 @@ _SIGNATURES = {
         "wkv6_error_string": ([_I], ctypes.c_char_p),
     },
     "tdc": {
-        # u, f0, k, out, b, t, c, samples_per_frame, os, scale, stream
-        "tdc_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+        # u, f0, k, out, b, t (counted), samples a clip, c,
+        # samples_per_frame, os, scale, clips a block, bulk, fast, stream
+        "tdc_launch": ([_P] * 4 + [_I] * 6 + [_F] + [_I] * 3 + [_P], _I),
         "tdc_error_string": ([_I], ctypes.c_char_p),
     },
     "intgemm": {
@@ -184,7 +185,7 @@ def build_all() -> Dict[str, str]:
                     continue
                 os.replace(tmp, out)
                 _ptxas[name] = "\n".join(
-                    ln for ln in log.splitlines() if "ptxas" in ln
+                    ln for ln in log.splitlines() if "ptxas" in ln or "spill" in ln
                 )
             if failed:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -29,26 +29,30 @@ def tdc_counts_plain(
     """(B, T, C) -> (B, T // samples_per_frame, C) float32 counts.
 
     Per sample ``delta = scale * max(f0 + k*u, 0)``; per ZOH tick (``os``
-    a sample) ``r += delta; incr = floor(r); r -= incr``, counted per
-    frame. The carry r runs on across frames. The counts are integers
-    below 2^24, so their frame sum is exact in any order.
+    a sample) ``r += delta; incr = floor(r); r -= incr; acc += incr``,
+    ``acc`` written and zeroed per frame. The carry r runs on across
+    frames. The frame sum is taken tick by tick, as the reference's body
+    does: a frame's count past 2^24 rounds, and then only that order
+    agrees with it.
     """
     b, t, c = u.shape
     n_frames = t // samples_per_frame
     delta = torch.clamp_min(fma_f32(k_eff, u, f0_eff), 0.0) * scale
     r = torch.zeros((b, c), dtype=torch.float32, device=u.device)
-    incrs = []
-    for i in range(n_frames * samples_per_frame):
-        d = delta[:, i]
-        for _ in range(os):
-            r = r + d
-            incr = torch.floor(r)
-            r = r - incr
-            incrs.append(incr)
-    if not incrs:
+    counts = []
+    for f in range(n_frames):
+        acc = torch.zeros_like(r)
+        for i in range(f * samples_per_frame, (f + 1) * samples_per_frame):
+            d = delta[:, i]
+            for _ in range(os):
+                r = r + d
+                incr = torch.floor(r)
+                r = r - incr
+                acc = acc + incr
+        counts.append(acc)
+    if not counts:
         return torch.zeros((b, 0, c), dtype=torch.float32, device=u.device)
-    ticks = torch.stack(incrs, dim=1)
-    return ticks.reshape(b, n_frames, samples_per_frame * os, c).sum(dim=2)
+    return torch.stack(counts, dim=1)
 
 
 def tdc_counts_ref(

@@ -16,8 +16,8 @@ from repro_torch.kernels.wkv6.ref import wkv6_plain
 
 __all__ = ["wkv6", "MAX_HEAD_DIM"]
 
-#: The largest head size P the kernel takes (a thread keeps a column of
-#: the P x P state in registers).
+#: The largest head size P the kernel takes (it is built at P = 64: a
+#: block's 128 threads keep the 64 x 64 state as 4 x 8 register tiles).
 MAX_HEAD_DIM = 64
 
 

@@ -627,6 +627,92 @@ def test_tdc_kernel_equals_plain(dev, b, frames, c, mismatch):
     assert got.shape == (b, frames, c) and torch.equal(got, want)
 
 
+def _tdc_case(dev, cfg, b, frames, c, seed, tail=7):
+    """(B, T, C) input with a ragged tail of ``tail`` samples past the last
+    whole frame, and the samples a frame."""
+    spf = cfg.decimation // cfg.tdc_oversample
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randn((b, spf * frames + tail, c), generator=g, device=dev).abs() * 0.2
+    return u, spf
+
+
+def _tdc_plain(u, cfg, spf, frames):
+    c = u.shape[-1]
+    f0 = torch.full((c,), cfg.f_free_hz, device=u.device)
+    k = torch.full((c,), cfg.k_sro_hz, device=u.device)
+    return tdc_counts_plain(u[:, : spf * frames].contiguous(), f0, k, spf, cfg.tdc_oversample,
+                            tdc_scale(cfg))
+
+
+# os = 1, 2, 3 (512 = 4 chunks a frame at os = 2 takes the fast loop; os
+# = 1 takes the generic one, and 341 samples at os = 3 leave frames that
+# end inside a chunk and T not a multiple of it), one to 64 clips, C = 16
+# (bulk copies, the vector helper), 1 and 5 (the 7-sample tail leaves
+# their runs unaligned: plain loads) and 33 (two channel groups, plain
+# loads), 1, 2 and 62 frames; b = frames = c = 1 stays pinned (R4)
+TDC_EDGES = [(1, 1, 1), (3, 1, 5), (64, 1, 16), (1, 62, 16), (3, 2, 33), (64, 2, 1),
+             (3, 2, 16), (1, 1, 33)]
+
+
+@pytest.mark.parametrize("os_", [1, 2, 3])
+@pytest.mark.parametrize("b,frames,c", TDC_EDGES)
+def test_tdc_kernel_geometries_equal_plain(dev, os_, b, frames, c):
+    cfg = TDFExConfig(tdc_oversample=os_)
+    u, spf = _tdc_case(dev, cfg, b, frames, c, seed=b + frames + c + os_)
+    before = build.launches["tdc"]
+    got = tdc_counts(u, cfg)
+    assert build.launches["tdc"] == before + 1
+    assert got.shape == (b, frames, c) and torch.equal(got, _tdc_plain(u, cfg, spf, frames))
+
+
+def test_tdc_kernel_unaligned_input_equals_plain(dev):
+    """An input whose address is not 16-byte aligned is staged by plain
+    loads instead of bulk copies."""
+    cfg = TDFExConfig()
+    u, spf = _tdc_case(dev, cfg, 3, 2, 16, seed=11, tail=0)
+    flat = torch.empty(u.numel() + 1, device=dev)
+    shifted = flat[1:].view(u.shape)
+    shifted.copy_(u)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    assert torch.equal(tdc_counts(shifted, cfg), _tdc_plain(u, cfg, spf, 2))
+
+
+def _tdc_d(u, cfg):
+    """d = scale * max(fma(k, u, f0), 0) in float32 as the kernel rounds it
+    (the float64 product and sum are exact, then one rounding: a fused
+    multiply-add)."""
+    u = np.asarray(u, dtype=np.float32).astype(np.float64)
+    fma = np.float32(np.float64(cfg.k_sro_hz) * u + np.float64(cfg.f_free_hz))
+    return np.float32(tdc_scale(cfg)) * np.maximum(fma, np.float32(0.0))
+
+
+@pytest.mark.parametrize("b,c", [(3, 16), (2, 5), (4, 1)])
+@pytest.mark.parametrize("level", ["below-2^23", "odd-past-2^23"])
+def test_tdc_kernel_d_above_the_magic_floors_limit_equals_plain(dev, b, c, level):
+    """Samples that drive d past 2^22 (the 2^23 add is exact only for
+    r + d < 2^23): their chunk takes floorf, the others the add.
+    below-2^23: one sample a clip with d below 2^23, so a frame's count sum
+    stays exact (< 2^24) in the plain version too. odd-past-2^23: 16
+    consecutive float32 u with d from 2^23 up, odd integers among them;
+    there the add would floor s = r + d one low, so a chunk flagged wrongly
+    differs from the plain version (bit-equality needs no exact sum: both
+    add a frame's counts tick by tick). No tail: C = 5 and 1 are staged by bulk copies
+    here and turned into d by the scalar helper loop."""
+    cfg = TDFExConfig()
+    u, spf = _tdc_case(dev, cfg, b, 2, c, seed=12, tail=0)
+    if level == "below-2^23":
+        hi = np.array([2.2e5], dtype=np.float32)
+        d = _tdc_d(hi, cfg)
+        assert ((d >= 2.0**22) & (d < 2.0**23)).all()
+    else:
+        hi = np.float32(298262.0) + np.arange(16, dtype=np.float32) * np.float32(2.0**-5)
+        d = _tdc_d(hi, cfg)
+        assert (d >= 2.0**23).all() and (d < 2.0**24).all() and (d % 2 == 1).sum() >= 4
+    u[:, 700:700 + hi.size, :] = torch.from_numpy(hi).to(dev)[None, :, None]
+    want = _tdc_plain(u, cfg, spf, 2)
+    assert float(want.max()) >= 2.0**23 and torch.equal(tdc_counts(u, cfg), want)
+
+
 @pytest.mark.parametrize("frontend", ["software", "hardware", "hardware-pallas"])
 def test_features_run_their_kernels_and_equal_the_cpu(dev, frontend):
     state = FrontendState() if frontend == "software" else _hw_state(dev)
@@ -722,6 +808,48 @@ def test_wkv6_kernel_equals_plain(dev, b, t, h, p, strong):
     assert build.launches["wkv6"] == before + 1
     assert got.shape == (b, t, h, p) and got.dtype == torch.float32
     assert _wkv_rel(got, wkv6_plain(r, k, v, lw, u)) <= WKV_REL_TOL
+
+
+# T = 1, one chunk (16), one chunk + 1, 33; P = 1, 33, 63, 64; B·H = 529
+# (above the 528 blocks that 132 SMs hold at four each, and not a
+# multiple of four); strong decay
+@pytest.mark.parametrize("b,t,h,p,strong", [(3, 1, 2, 64, False), (2, 16, 3, 64, False),
+                                            (2, 17, 3, 64, False), (1, 33, 2, 1, False),
+                                            (2, 17, 2, 33, False), (1, 40, 3, 63, False),
+                                            (23, 20, 23, 64, False), (3, 17, 5, 33, True),
+                                            (1, 33, 2, 64, True)])
+def test_wkv6_kernel_edges_equal_plain(dev, b, t, h, p, strong):
+    r, k, v, lw, u = _wkv_operands(dev, b, t, h, p, seed=7 * b + t + h + p, strong=strong)
+    before = build.launches["wkv6"]
+    got = wkv6(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    assert build.launches["wkv6"] == before + 1
+    assert got.shape == (b, t, h, p) and torch.isfinite(got).all()
+    assert _wkv_rel(got, wkv6_plain(r, k, v, lw, u)) <= WKV_REL_TOL
+
+
+def test_wkv6_kernel_unaligned_input_equals_plain(dev):
+    """Rows not 16-byte aligned are staged by plain loads."""
+    r, k, v, lw, u = _wkv_operands(dev, 2, 20, 3, 64, seed=9)
+
+    def shifted(a):
+        flat = torch.empty(a.numel() + 1, device=dev)
+        out = flat[1:].view(a.shape)
+        out.copy_(a)
+        return out
+
+    args = [shifted(a) for a in (r, k, v, lw)]
+    assert args[0].data_ptr() % 16 != 0
+    assert _wkv_rel(wkv6(*args, u), wkv6_plain(r, k, v, lw, u)) <= WKV_REL_TOL
+
+
+@pytest.mark.parametrize("t,p", [(17, 33), (40, 64), (1, 1)])
+def test_wkv6_kernel_bf16_edges(dev, t, p):
+    r, k, v, lw, u = _wkv_operands(dev, 2, t, 3, p, seed=t + p)
+    bf = [a.to(torch.bfloat16) for a in (r, k, v, lw)]
+    got = wkv6(*bf, u)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, t, 3, p)
+    assert _wkv_rel(got, wkv6_plain(*(a.float() for a in bf), u)) <= BF16_TOL
 
 
 def test_wkv6_kernel_bf16_against_the_float32_plain_version(dev):

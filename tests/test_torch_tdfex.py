@@ -162,6 +162,21 @@ def test_plain_tdc_matches_interpret_tier(interpret_tier, b, frames, c, chip):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("c", [1, 4])
+def test_plain_tdc_sums_counts_past_2_24_in_the_references_order(interpret_tier, c):
+    """16 samples with d from 2^23 up put frame 1's count past 2^24, where
+    float32 sums round: the plain version adds tick by tick as the
+    reference's body does, and so stays array-equal to its interpret
+    tier."""
+    u = _rect(17 + c, 2, SPF * 2, c)
+    hi = np.float32(298262.0) + np.arange(16, dtype=np.float32) * np.float32(2.0**-5)
+    u[:, 700:716, :] = hi[None, :, None]
+    want = np.asarray(j_tdc_counts(jnp.asarray(u), JCFG, None, dispatch="interpret"))
+    got = tdc_counts(torch.from_numpy(u), TCFG).numpy()
+    assert want[:, 1].min() > 2.0**24
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("b,frames,c", [(1, 1, 1), (3, 6, 16), (2, 4, 4)])
 def test_plain_tdc_within_one_count_of_float64_oracle(b, frames, c):
     u = _rect(b + frames + c, b, SPF * frames, c)

@@ -126,3 +126,70 @@ def test_wkv6_chunked_final_state_is_the_recurrences():
         s = s * np.exp(lw[0, t, 0].astype(np.float64))[:, None] + np.outer(k[0, t, 0], v[0, t, 0])
     _, ts = tr.wkv6_chunked(*(torch.from_numpy(x) for x in (r, k, v, lw, u)), 5)
     assert _rel(ts[0, 0].numpy(), s) <= CHUNKED_REL_TOL
+
+
+# ---------------- K7's summation order, rehearsed in numpy ----------------
+
+# K7 against its plain version on the card (chip_smoke.py, the gpu tests)
+WKV_REL_TOL = 2e-6
+
+
+def _fma(a, b, c):
+    """float32 fused multiply-add: the product is exact in float64, the
+    sum rounds there and then once more to float32 (a double rounding that
+    differs from the card's single one only at exact float64 ties)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _pairwise(x):
+    """Sum over the last axis as the kernel's xor butterflies do: pairs of
+    neighbours, then pairs of pairs (the length a power of two)."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def wkv6_kernel_order(r, k, v, logw, u):
+    """K7's arithmetic (`csrc/wkv6.cu`) in numpy float32, P zero-padded to
+    64: the bonus factored out, a_t = Σ_p r_p (u_p k_p) as 8 fused chains
+    of 8 keys summed pairwise; y's 16 key groups of 4 keys as fused
+    chains, summed (g0 + g2) + (g1 + g3) within each quarter of 4 groups
+    and (q0 + q1) + (q2 + q3) across quarters; y = fma(a_t, v_t, sum);
+    S ← fma(exp(logw), S, k v)."""
+    b, t, h, p = r.shape
+    pad = [(0, 0)] * 3 + [(0, 64 - p)]
+    r, k, v = (np.pad(x, pad) for x in (r, k, v))
+    w = np.pad(np.exp(logw), pad)
+    u = np.pad(u, [(0, 0), (0, 64 - p)])
+    s = np.zeros((b, h, 64, 64), np.float32)  # [key, value]
+    ys = np.zeros((b, t, h, 64), np.float32)
+    for i in range(t):
+        rt, kt, vt, wt = r[:, i], k[:, i], v[:, i], w[:, i]  # (b, h, 64)
+        q = (u[None] * kt).reshape(b, h, 8, 8)
+        rq = rt.reshape(b, h, 8, 8)
+        chains = np.zeros((b, h, 8), np.float32)
+        for j in range(8):
+            chains = _fma(rq[..., j], q[..., j], chains)
+        a = _pairwise(chains)  # (b, h)
+        groups = np.zeros((b, h, 16, 64), np.float32)  # key group, value
+        sg = s.reshape(b, h, 16, 4, 64)
+        rg = rt.reshape(b, h, 16, 4)
+        for j in range(4):
+            groups = _fma(rg[..., j, None], sg[:, :, :, j], groups)
+        g = groups.reshape(b, h, 4, 4, 64)  # quarter, group in quarter, value
+        quarters = (g[:, :, :, 0] + g[:, :, :, 2]) + (g[:, :, :, 1] + g[:, :, :, 3])
+        total = (quarters[:, :, 0] + quarters[:, :, 1]) + (quarters[:, :, 2] + quarters[:, :, 3])
+        ys[:, i] = _fma(a[..., None], vt, total)
+        s = _fma(wt[..., :, None], s, kt[..., :, None] * vt[..., None, :])
+    return ys[..., :p]
+
+
+@pytest.mark.parametrize("b,t,h,p,strong", [(1, 8, 1, 4, False), (2, 16, 4, 16, False),
+                                            (2, 40, 3, 33, False), (2, 32, 2, 64, False),
+                                            (1, 100, 2, 16, False), (2, 12, 1, 4, True),
+                                            (2, 20, 2, 64, True)])
+def test_kernel_summation_order_is_within_the_kernels_tolerance(b, t, h, p, strong):
+    a = _inputs(b, t, h, p, seed=b * t + h + p, strong=strong)
+    got = wkv6_kernel_order(*a)
+    assert got.dtype == np.float32 and got.shape == (b, t, h, p)
+    assert _rel(got, _ref(*a)) <= WKV_REL_TOL
