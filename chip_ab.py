@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times intgemm (K2), the dense tick's branches (K3), the TDC (K5) and
-WKV6 (K7) of two source trees in one call on one card, in turns: first,
-second, second, first.
+"""Times the batch filterbank (K1 and its scan entry), intgemm (K2), the
+dense tick's branches (K3), the TDC (K5) and WKV6 (K7) of two source trees
+in one call on one card, in turns: first, second, second, first.
 
     python3 chip_ab.py FIRST_ROOT [SECOND_ROOT]
 
@@ -10,20 +10,25 @@ one), for example the parent commit unpacked with ``git archive`` into
 ``chip_archive/``. Each turn is a process that imports that root's
 ``repro_torch`` (its kernels built by nvcc into that root's build
 directory) and runs this checkout's `chip_smoke` timing functions on it:
+K1 and the scan entry at (64, 32 000) (`chip_smoke.fex_times`: K1 with
+frames of 512 and of 500, the event loop; each entry as one block alone),
 intgemm beside torch.matmul, the software tick of every dense backend and
 of the ΔGRU backends at θ = 0.15 on raw audio and FV input, the qat
 and integer FV ticks with the gate shut (`chip_smoke.phase_split`), K5
 at (64, 31 744, 16) (`chip_smoke.tdc_times`: also with every chunk
 floored by floorf, and as one block alone) and K7 at (8, 4096, 64, 64)
-(`chip_smoke.wkv6_times`). Prints the card's name and power limit, one
-JSON line a turn, then each key's times, first root against second.
+(`chip_smoke.wkv6_times`), and `record_features` of 128 clips on each
+frontend, warm (`chip_smoke.record_times`). Prints the card's name and
+power limit, one JSON line a turn, then each key's times, first root
+against second.
 
-Before the turns it measures K5's dependent chain on this checkout's
-compiler flags: a probe kernel (one warp) runs the carry's tick, with
-floorf and with the 2^23 add, and reports cycles a tick (clock64) and the
-SM clock (clock64 over %globaltimer, and nvidia-smi's clocks.sm just
-after); the probe's and the built tdc library's SASS go to ``chain/`` in
-the kernels' build directory. Needs a CUDA device.
+Before the turns it measures the two dependent chains on this checkout's
+compiler flags: a probe kernel (one warp) runs K5's carry tick, with
+floorf and with the 2^23 add, and K1's step (biquad.cuh's biquad_y and
+the |y| sum), and reports cycles a tick or sample (clock64) and the SM
+clock (clock64 over %globaltimer, and nvidia-smi's clocks.sm just after);
+the probe's and the built tdc and fex_fused libraries' SASS go to
+``chain/`` in the kernels' build directory. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,26 +56,32 @@ def turn(src: str) -> None:
     if not build.__file__.startswith(src):
         raise SystemExit(f"chip_ab: imported {build.__file__}, not the tree under {src}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.SOURCES = {k: build.SOURCES[k] for k in ("intgemm", "tick_fused", "tdc", "wkv6")}
+    build.SOURCES = {k: build.SOURCES[k]
+                     for k in ("fex_fused", "intgemm", "tick_fused", "tdc", "wkv6")}
     for name, report in build.build_all().items():
         print(f"  {name}: {report.strip()}", file=sys.stderr)
     dev = torch.device("cuda")
-    times = chip_smoke.intgemm_times(dev)
+    times = chip_smoke.fex_times(dev)
+    times.update(chip_smoke.intgemm_times(dev))
     # the software ticks at the smoke's operating points (no die to calibrate)
     runs = [r for r in chip_smoke.TICK_RUNS if not r[2] and r[1] != 0.0]
     times.update(chip_smoke.tick_times(dev, None, runs, plain=False))
     times.update(chip_smoke.phase_split(dev, times))
     times.update(chip_smoke.tdc_times(dev))
     times.update(chip_smoke.wkv6_times(dev))
+    times.update(chip_smoke.record_times(dev))
     print(json.dumps({"src": src, "times": times}))
 
 
 # one warp runs n ZOH ticks of csrc/tdc.cu's carry (its tick from
-# tdc_tick.cuh, built with the same flags), timed by clock64 and %globaltimer
+# tdc_tick.cuh), or n samples of csrc/fex_fused.cu's K1 step (biquad_y from
+# biquad.cuh and the |y| sum), built with the same flags, timed by clock64
+# and %globaltimer
 CHAIN_PROBE = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "biquad.cuh"
 #include "tdc_tick.cuh"
 
 template <bool MAGIC>
@@ -92,6 +103,31 @@ __global__ void chain(const float* d, int n, float* out, long long* cycles,
   }
 }
 
+__global__ void biquad_chain(const float* coeffs, const float* x, int n, float* out,
+                             long long* cycles, unsigned long long* ns) {
+  const Biquad q = load_biquad(coeffs, threadIdx.x % 16, 16);
+  const float xx = x[threadIdx.x];
+  float s1 = 0.0f, s2 = 0.0f, part = 0.0f;
+  unsigned long long g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+  const long long c0 = clock64();
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) part = __fadd_rn(part, fabsf(biquad_y(q, xx, s1, s2)));
+  const long long c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+  out[threadIdx.x] = part + s1 + s2;
+  if (threadIdx.x == 0) {
+    cycles[0] = c1 - c0;
+    ns[0] = g1 - g0;
+  }
+}
+
+extern "C" int biquad_probe(const float* coeffs, const float* x, int n, float* out,
+                            long long* cycles, unsigned long long* ns) {
+  biquad_chain<<<1, 32>>>(coeffs, x, n, out, cycles, ns);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+
 extern "C" int chain_probe(const float* d, int n, int magic, float* out, long long* cycles,
                            unsigned long long* ns) {
   if (magic) {
@@ -105,7 +141,8 @@ extern "C" int chain_probe(const float* d, int n, int magic, float* out, long lo
 
 
 def chain() -> None:
-    """K5's chain on the card: cycles a tick by floor, the SM clock, SASS."""
+    """The chains on the card: K5's cycles a tick by floor, K1's cycles a
+    sample, the SM clock, SASS."""
     import ctypes
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -143,14 +180,29 @@ def chain() -> None:
                 raise SystemExit(f"chip_ab: the chain probe failed (cudaError {rc})")
         cyc, nsec = int(cycles.item()), int(ns.item())
         result[name] = {"cycles_per_tick": cyc / n, "sm_ghz": cyc / nsec}
+    lib.biquad_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 3
+    from repro_torch.core.fex import FExConfig
+
+    coeffs = FExConfig().filterbank().stacked(device=dev).contiguous()
+    x = (torch.randn(32, device=dev) * 0.2).contiguous()
+    for name in ("biquad_y", "biquad_y again"):
+        for _ in range(2):
+            rc = lib.biquad_probe(coeffs.data_ptr(), x.data_ptr(), n, res.data_ptr(),
+                                  cycles.data_ptr(), ns.data_ptr())
+            if rc != 0:
+                raise SystemExit(f"chip_ab: the biquad probe failed (cudaError {rc})")
+        cyc, nsec = int(cycles.item()), int(ns.item())
+        result[name] = {"cycles_per_sample": cyc / n, "sm_ghz": cyc / nsec}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     print(json.dumps({"chain": result, "nvidia-smi clocks.sm, clocks.max.sm, power.limit": smi}))
     cuobjdump = Path(nvcc).with_name("cuobjdump")
-    build.SOURCES = {"tdc": build.SOURCES["tdc"]}
+    build.SOURCES = {k: build.SOURCES[k] for k in ("fex_fused", "tdc")}
     build.build_all()
-    for name, path in (("chain_probe", lib_path), ("tdc", build._lib_path("tdc"))):
+    for name, path in (("chain_probe", lib_path), ("tdc", build._lib_path("tdc")),
+                       ("fex_fused", build._lib_path("fex_fused"))):
         sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                               text=True, timeout=300).stdout
         (out_dir / f"{name}.sass").write_text(sass)

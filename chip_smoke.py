@@ -18,9 +18,13 @@ plain PyTorch version on the card:
   5. the batch features path: `record_features` of 128 seeded 1 s clips
      (batches of 64) for the software, hardware and hardware-pallas
      frontends, each with its launch counts (K1; the K1 scan entry; the
-     scan entry and K5); codes equal to the CPU's on a small input;
+     scan entry and K5) and its warm time (`record_times`); codes equal
+     to the CPU's on a small input;
      K1, the scan entry and K5 against their plain versions at the
-     path's shapes (bit-equal), K5 within 1 count of the float64 oracle
+     path's shapes (bit-equal), K1 and the scan entry also at the edges of
+     their geometry (`fex_edges`: frames of 512 / 100 / 20, float32 and
+     bfloat16, C 1..33, B 1..33, T 1..1001, unaligned audio, the carry
+     across two calls), K5 within 1 count of the float64 oracle
      (also at b = frames = c = 1), hardware-pallas within the
      reference's 2 LSB of hardware; norm stats fitted from the recorded
      hardware-pallas codes;
@@ -45,7 +49,9 @@ plain PyTorch version on the card:
      delta-int with the energy gate at 0.15, delta (θ = 0.15) at 0.1 with
      hangover 3 and decay 0.9, qat on the calibrated die with a "linear"
      detector fitted on the card from the die's FV_Norm frames (0.5,
-     hangover 3), and an always-on qat server equal to the ungated one;
+     hangover 3; one fma_rows launch a step, the fit equal to the same
+     fit on the CPU, the kernel bit-equal to its plain version), and an
+     always-on qat server equal to the ungated one;
      every tick held against the plain tick loop (detector state, GRU
      state, top, srv.sparsity equal, scores within 1e-6), one tick_fused
      launch per tick, the mean srv.wake_rate per server;
@@ -67,12 +73,14 @@ plain PyTorch version on the card:
      yardstick where one exists (the qat, integer and ΔGRU ticks on raw
      audio and on the reference's sparsity traffic as FV input, the ΔGRU
      at θ = 0 and 0.15, the hardware tick, the gated tick beside the
-     ungated one, intgemm beside torch.matmul and as one 16-row block, K1,
-     the scan entry and K5 at the batch path's shapes (K5 also with
+     ungated one, intgemm beside torch.matmul and as one 16-row block, K1
+     and the scan entry at the batch path's shapes (also as one block
+     alone, and K1 with frames of 500: `fex_times`), K5 (also with
      every chunk floored by floorf and as one block alone), K6 beside cuDNN,
-     K7); the dense tick's phase split (qat and integer: the raw tick, the
-     FV tick and the FV tick behind a gate that opens for nobody give the
-     frontend's and the classifier's shares); one JSON line per kernel,
+     K7, the fit's fma_rows beside torch.mv); the dense tick's phase
+     split (qat and integer: the raw tick, the FV tick and the FV tick
+     behind a gate that opens for nobody give the frontend's and the
+     classifier's shares); one JSON line per kernel,
      then all kernels in one JSON line;
  14. the result line ``{"ok": true, "device": {...}}``.
 
@@ -836,6 +844,141 @@ def tdc_bound(b: int, t: int, c: int, spf: int, os: int):
     return _bound(b * t * c * 4 + 2 * c * 4 + b * (t // spf) * c * 4, b * t * c * (4 + 4 * os))
 
 
+FEX_SHAPE = (FEATURE_BATCH, 2 * CLIP_SAMPLES)  # K1 and the scan on a batch of 1 s clips
+GENERIC_FRAME = 500  # a frame length off the 32-sample blocks: K1's event loop
+
+
+def fex_times(dev, x=None, coeffs=None, duty=None, scan_coeffs=None):
+    """K1's and the scan entry's ms on ``x`` / ``duty`` (default: N(0,
+    0.2²) at FEX_SHAPE, the nominal filterbank): K1 with frames of 512 (the
+    untrimmed rows read in place, the branch-free body), K1 with frames of
+    GENERIC_FRAME (the event loop), the scan entry, and each entry on the
+    first two clips alone (one block: the filter warp's chain with nothing
+    beside it)."""
+    import torch
+
+    from repro_torch.core.fex import FExConfig
+    from repro_torch.kernels.fex_fused import biquad_stream, fex_fused
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    if x is None:
+        x = torch.randn(FEX_SHAPE, generator=g, device=dev) * 0.2
+    if duty is None:
+        duty = torch.randn(FEX_SHAPE, generator=g, device=dev) * 0.2
+    nominal = FExConfig().filterbank().stacked(device=dev)
+    coeffs = nominal if coeffs is None else coeffs
+    scan_coeffs = nominal if scan_coeffs is None else scan_coeffs
+    out = {}
+    out["fex_fused ms"], _ = _cuda_ms(lambda: fex_fused(x, coeffs, 512), reps=20, hold=True)
+    out["fex_fused one block ms"], _ = _cuda_ms(lambda: fex_fused(x[:2], coeffs, 512), reps=10,
+                                                hold=True)
+    out["fex_fused generic ms"], _ = _cuda_ms(lambda: fex_fused(x, coeffs, GENERIC_FRAME),
+                                              reps=10, hold=True)
+    out["scan ms"], _ = _cuda_ms(lambda: biquad_stream(duty, scan_coeffs), reps=20, hold=True)
+    out["scan one block ms"], _ = _cuda_ms(lambda: biquad_stream(duty[:2], scan_coeffs), reps=10,
+                                           hold=True)
+    return out
+
+
+def record_times(dev, state=None, reps: int = 3):
+    """Warm ms of `record_features` of FEATURE_CLIPS clips in batches of
+    FEATURE_BATCH on each frontend, on the host's clock (the call returns
+    host arrays): the median of ``reps`` calls after one untimed call.
+    ``state``: the hardware die (default: one drawn from torch.Generator
+    seed SEED and calibrated on the card)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core.frontend import FrontendState
+    from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
+
+    if state is None:
+        state = KWSPipeline(KWSPipelineConfig(frontend="hardware")).init_frontend_state(
+            torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    audio = _clips(FEATURE_CLIPS)
+    out = {}
+    for frontend, st in (("software", FrontendState()), ("hardware", state),
+                         ("hardware-pallas", state)):
+        pipe = KWSPipeline(KWSPipelineConfig(frontend=frontend), state=st)
+        pipe.record_features(audio, batch_size=FEATURE_BATCH)
+        secs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            pipe.record_features(audio, batch_size=FEATURE_BATCH)
+            secs.append(time.perf_counter() - t0)
+        out[f"record_features {frontend} warm ms"] = statistics.median(secs) * 1e3
+    return out
+
+
+# K1's and the scan's edges, each held bit-equal to its plain version on the
+# card (tests/test_torch_kernels_gpu.py sweeps more): (b, c) with one clip,
+# partial blocks, idle lanes and two channel groups; K1 frames of 512 (the
+# branch-free body), 100 and 20 (the event loop; 200 samples is shorter
+# than a chunk), float32 and bfloat16, rows with a tail past the last frame;
+# the scan at T = 1, 3 and 1001 (not multiples of 4), 200 and 768
+FEX_EDGE_BC = ((1, 16), (33, 16), (33, 1), (5, 7), (2, 33))
+FEX_EDGE_FRAMES = ((512, 3), (100, 7), (20, 10))
+SCAN_EDGE_T = (1, 3, 200, 768, 1001)
+
+
+def fex_edges(dev) -> int:
+    """K1 and the scan entry against their plain versions at the edges of
+    their geometry, on unaligned audio and across two calls of the scan.
+    Returns the number of comparisons; raises on the first difference."""
+    import torch
+
+    from repro_torch.core.filters import design_filterbank
+    from repro_torch.kernels.fex_fused import (
+        biquad_stream,
+        biquad_stream_ref,
+        fex_fused,
+        fex_fused_ref,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    n = 0
+
+    def scan_equal(x, coeffs, carry, where):
+        y, (s1, s2) = biquad_stream(x, coeffs, carry)
+        py, (p1, p2) = biquad_stream_ref(x, coeffs, carry)
+        if not (torch.equal(y, py) and torch.equal(s1, p1) and torch.equal(s2, p2)):
+            raise AssertionError(f"biquad_stream differs from the plain scan at {where}")
+        return y, (s1, s2)
+
+    for b, c in FEX_EDGE_BC:
+        coeffs = design_filterbank(c, 32000.0)
+        for frame, frames in FEX_EDGE_FRAMES:
+            t = frame * frames
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randn((b, t + frame // 2 + 1), generator=g, device=dev) * 0.2).to(dtype)
+                want = fex_fused_ref(x[:, :t], coeffs, frame)
+                if not torch.equal(fex_fused(x, coeffs, frame), want):
+                    raise AssertionError(f"fex_fused differs from its plain version at b={b} "
+                                         f"c={c} frame={frame} {dtype}")
+                n += 1
+        for t in SCAN_EDGE_T:
+            x = torch.randn((b, t), generator=g, device=dev) * 0.3
+            carry = tuple(torch.randn((b, c), generator=g, device=dev) * 0.01 for _ in range(2))
+            scan_equal(x, coeffs, carry, f"b={b} t={t} c={c}")
+            n += 1
+    coeffs = design_filterbank(16, 32000.0)
+    for dtype in (torch.float32, torch.bfloat16):  # 4 (bfloat16: 2) bytes off 16
+        x = torch.empty(3 * 1024 + 1, device=dev, dtype=dtype)[1:].view(3, 1024)
+        x.copy_(torch.randn((3, 1024), generator=g, device=dev) * 0.2)
+        if not torch.equal(fex_fused(x, coeffs, 512), fex_fused_ref(x, coeffs, 512)):
+            raise AssertionError(f"fex_fused differs from its plain version on unaligned {dtype}")
+        n += 1
+    x = torch.empty(3 * 1000 + 1, device=dev)[1:].view(3, 1000)
+    x.copy_(torch.randn((3, 1000), generator=g, device=dev) * 0.3)
+    y, state = scan_equal(x, coeffs, None, "unaligned audio")
+    y_a, mid = biquad_stream(x[:, :333], coeffs)
+    y_b, end = biquad_stream(x[:, 333:], coeffs, mid)
+    if not (torch.equal(torch.cat([y_a, y_b], 1), y) and all(map(torch.equal, end, state))):
+        raise AssertionError("biquad_stream across two calls differs from one call")
+    return n + 2
+
+
 TDC_SHAPE = (FEATURE_BATCH, 31744, C)  # K5 on a batch of 1 s clips, whole frames
 
 
@@ -1122,6 +1265,7 @@ def phase_features(dev, state):
         fex_fused,
         fex_fused_ref,
     )
+    from repro_torch.kernels.fex_fused import ops as fex_ops
     from repro_torch.kernels.tdc import ops as tdc_ops
     from repro_torch.kernels.tdc import tdc_counts, tdc_counts_plain, tdc_counts_ref
     from repro_torch.kernels.tdc.ops import tdc_scale
@@ -1162,12 +1306,15 @@ def phase_features(dev, state):
     if hw_diff > 2:
         raise AssertionError(f"hardware-pallas differs from hardware by {hw_diff} LSB (limit 2)")
     print(f"hardware-pallas against hardware: at most {hw_diff:.0f} LSB apart (limit 2)")
+    warm = record_times(dev, state)
+    print("record_features warm (median of 3 after one untimed call): " + ", ".join(
+        f"{k.split()[1]} {v:.2f} ms" for k, v in warm.items()))
 
     # the kernels at the path's shapes: one batch of 64 clips, 32 000
     # internal samples each
     tdcfg = KWSPipelineConfig().tdfex_config
     batch = torch.as_tensor(audio[:FEATURE_BATCH], device=dev)
-    errs, times = {}, {}
+    errs, times = {}, dict(warm)
     x = fex.oversample2x(batch)
     nominal = fex.FExConfig().filterbank().stacked(device=dev)
     got = fex_fused(x, nominal, 512)
@@ -1209,17 +1356,27 @@ def phase_features(dev, state):
           f"tdc at most {off:.0f} count off the float64 oracle (also at b = frames = c = 1); "
           f"tdc geometry {tdc_ops.tdc_geometry(b_t, t_use, C, spf, os_, clip_samples=rect.shape[1])}")
     # kernel times at the same shapes
-    times["fex_fused ms"], _ = _cuda_ms(lambda: fex_fused(x, nominal, 512), reps=20, hold=True)
-    times["scan ms"], _ = _cuda_ms(lambda: biquad_stream(duty, state.coeffs), reps=20, hold=True)
+    n_edges = fex_edges(dev)
+    geo = fex_ops.fex_geometry(x.shape[0], x.shape[1] // 512 * 512, C, 512, x.stride(0),
+                               x.data_ptr() % 16 == 0, False)
+    print(f"fex_fused and biquad_stream: {n_edges} edge cases bit-equal to their plain versions "
+          f"(frames 512 / 100 / 20, float32 / bfloat16, C 1..33, B 1..33, T 1..1001, "
+          f"unaligned audio, the carry across two calls); K1 geometry {geo}")
+    times.update(fex_times(dev, x, nominal, duty, state.coeffs))
     times.update(tdc_times(dev, rect, tdcfg, state.chip))
     b, t = x.shape
-    times["fex_fused bound_ms"], times["fex_fused bound_by"] = fex_fused_bound(b, t, C, 512)
+    # K1 reads the whole frames only (62 of 512 samples a clip)
+    times["fex_fused bound_ms"], times["fex_fused bound_by"] = fex_fused_bound(
+        b, t // 512 * 512, C, 512)
     times["scan bound_ms"], times["scan bound_by"] = scan_bound(b, t, C)
     times["tdc bound_ms"], times["tdc bound_by"] = tdc_bound(b, t_use, C, spf, os_)
     for name in ("fex_fused", "scan", "tdc"):
         print(f"{name}: {times[f'{name} ms']:.5f} ms on the card, plain "
               f"{times[f'{name} plain_ms']:.1f} ms, bound {times[f'{name} bound_ms']:.5f} ms "
               f"({times[f'{name} bound_by']})")
+    print(f"fex_fused one block (2 clips) alone {times['fex_fused one block ms']:.5f} ms, frames "
+          f"of {GENERIC_FRAME} (event loop) {times['fex_fused generic ms']:.5f} ms; scan one "
+          f"block alone {times['scan one block ms']:.5f} ms")
     print(f"tdc with every chunk floored by floorf {times['tdc floorf ms']:.5f} ms; one block "
           f"(2 clips) alone {times['tdc one block ms']:.5f} ms")
     stats = fit_norm_stats_from_counts(torch.as_tensor(codes["hardware-pallas"], device=dev), tdcfg)
@@ -1241,16 +1398,30 @@ INGRESS_TICKS = 64
 COALESCER_TICKS = 8
 DETECTOR_CLIPS = 16  # 0.5 s clips of tone and of silence for the linear detector
 DETECTOR_SAMPLES = 8000
+DETECTOR_STEPS = 200  # fit_linear_detector's default
+
+
+def fma_rows_bound(n: int, c: int):
+    """The fit's row chain: d and xs read once, (C,) written; an FMA (two
+    flops) a (row, channel)."""
+    return _bound(4 * (n + n * c + c), 2 * n * c)
 
 
 def _fit_die_detector(dev, hw_state):
     """The "linear" detector for the hardware die: `fit_linear_detector`
     run on the card on the die's FV_Norm frames of tone clips (speech
-    stand-ins) against -60 dB noise clips (silence)."""
+    stand-ins) against -60 dB noise clips (silence), launches counted
+    around it, held array-equal to the same fit on the CPU; then its row
+    chain's kernel (`kernels.fma_rows`) against its plain version at the
+    fit's shapes (and on a case where float64 lands on a float32
+    midpoint), timed beside its plain version and torch.mv. Returns
+    ((linear_w, linear_b), fma_rows launches, the kernel's error, times)."""
     import numpy as np
     import torch
 
     from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fma_rows import fma_rows, fma_rows_ref
     from repro_torch.serving.cascade import fit_linear_detector
 
     pipe = KWSPipeline(KWSPipelineConfig(frontend="hardware"), state=hw_state)
@@ -1259,12 +1430,49 @@ def _fit_die_detector(dev, hw_state):
         (DETECTOR_CLIPS, DETECTOR_SAMPLES)).astype(np.float32) * 1e-3, device=dev)
     tone_fv, _ = pipe.features(tones)
     silence_fv, _ = pipe.features(silence)
+    build.launches.clear()
     t0 = time.perf_counter()
-    w, b = fit_linear_detector(tone_fv, silence_fv)
+    w, b = fit_linear_detector(tone_fv, silence_fv, steps=DETECTOR_STEPS)
+    secs = time.perf_counter() - t0
+    counts = dict(build.launches)
+    if counts != {"fma_rows": DETECTOR_STEPS}:
+        raise AssertionError(f"fit_linear_detector: launches {counts}, want only "
+                             f"fma_rows={DETECTOR_STEPS}")
+    t0 = time.perf_counter()
+    cw, cb = fit_linear_detector(tone_fv.cpu(), silence_fv.cpu(), steps=DETECTOR_STEPS)
+    cpu_secs = time.perf_counter() - t0
+    if w != cw or b != cb:
+        raise AssertionError("the linear detector fitted on the card differs from the CPU's fit")
     print(f"linear detector fitted on the card on {tuple(tone_fv.shape)} tone and "
-          f"{tuple(silence_fv.shape)} silence FV_Norm frames of the die in "
-          f"{time.perf_counter() - t0:.2f} s; b = {b:.4f}")
-    return w, b
+          f"{tuple(silence_fv.shape)} silence FV_Norm frames of the die in {secs:.3f} s "
+          f"({DETECTOR_STEPS} steps, launches {counts}); equal to the same fit on the CPU "
+          f"({cpu_secs:.3f} s); b = {b:.4f}")
+
+    c = tone_fv.shape[-1]
+    xs = torch.cat([tone_fv.reshape(-1, c), silence_fv.reshape(-1, c)])
+    n = xs.shape[0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    d = torch.randn(n, generator=g, device=dev) * 1e-3
+    got = fma_rows(d, xs)
+    times = {}
+    times["fma_rows plain_ms"], want = _once_ms(lambda: fma_rows_ref(d, xs))
+    if not torch.equal(got, want):
+        raise AssertionError("fma_rows differs from its plain version")
+    # acc = 1 + 2^-23, then p = 2^-24 - 2^-70: float64 lands on a midpoint
+    md = torch.tensor([1.0, 2.0**-24 * (1 + 2.0**-23)], device=dev)
+    mx = torch.tensor([[1 + 2.0**-23], [1 - 2.0**-23]], device=dev)
+    if fma_rows(md, mx).item() != 1 + 2.0**-23 or not torch.equal(fma_rows(md, mx),
+                                                                  fma_rows_ref(md, mx)):
+        raise AssertionError("fma_rows: the midpoint case is not rounded once")
+    times["fma_rows ms"], _ = _cuda_ms(lambda: fma_rows(d, xs), reps=20, hold=True)
+    xt = xs.t()
+    times["fma_rows library_ms"], _ = _cuda_ms(lambda: torch.mv(xt, d), reps=20, hold=True)
+    times["fma_rows bound_ms"], times["fma_rows bound_by"] = fma_rows_bound(n, c)
+    print(f"fma_rows ({n},) x ({n}, {c}): bit-equal to its plain version (and on a float64 "
+          f"midpoint); {times['fma_rows ms']:.5f} ms on the card, plain "
+          f"{times['fma_rows plain_ms']:.1f} ms, torch.mv {times['fma_rows library_ms']:.5f} ms, "
+          f"bound {times['fma_rows bound_ms']:.6f} ms ({times['fma_rows bound_by']})")
+    return (w, b), counts["fma_rows"], 0.0, times
 
 
 def cascade_runs(hw_state, linear):
@@ -1292,10 +1500,11 @@ def phase_cascade(dev, hw_state):
     and run_batch against the plain tick loop, launches counted around
     each run; the always-on server against the ungated one, bit for bit.
     Returns (worst score difference, tick_fused launches, per-server mean
-    wake rates, the linear detector)."""
+    wake rates, the linear detector, and `_fit_die_detector`'s fma_rows
+    launches, error and times)."""
     import numpy as np
 
-    linear = _fit_die_detector(dev, hw_state)
+    linear, fit_launches, fit_err, fit_times = _fit_die_detector(dev, hw_state)
     worst, launches, rates = 0.0, 0, {}
     for label, classifier, theta, die, casc in cascade_runs(hw_state, linear):
         pipe, srv, live, replay, outs, replay_out, counts, live_s = drive_server(
@@ -1329,7 +1538,7 @@ def phase_cascade(dev, hw_state):
                 if not bool((x == y).all()):
                     raise AssertionError("always_on server state differs from the ungated one")
             print("cascade server qat always_on: equal to the ungated qat server, bit for bit")
-    return worst, launches, rates, linear
+    return worst, launches, rates, linear, (fit_launches, fit_err, fit_times)
 
 
 def cascade_times(dev, hw_state, linear):
@@ -1602,7 +1811,8 @@ def main() -> int:
               f"within {err:.3g}); live ticks took {live_s:.3f} s{extra}")
         servers[key] = (srv, live)
     intgemm_launches = sum(phase_pipeline(dev, c) for c in ("integer", "delta-int"))
-    casc_err, casc_launches, _, linear = phase_cascade(dev, hw_state)
+    casc_err, casc_launches, _, linear, (fit_launches, fit_err, fit_times) = phase_cascade(
+        dev, hw_state)
     ingress_times, _ = phase_ingress(dev)
     gru_err, gru_launches, gru_times = phase_gru_seq(dev)
     wkv_err, wkv_launches, wkv_times = phase_wkv6(dev)
@@ -1610,6 +1820,7 @@ def main() -> int:
     times = phase_times(dev, *servers["qat"], hw_state)
     times.update(feat_times)
     times.update(cascade_times(dev, hw_state, linear))
+    times.update(fit_times)
     times.update(ingress_times)
     times.update(gru_times)
     times.update(wkv_times)
@@ -1693,6 +1904,16 @@ def main() -> int:
             "ms": times["wkv6 ms"], "plain_ms": times["wkv6 plain_ms"],
             "bound_ms": times["wkv6 bound_ms"], "bound_by": times["wkv6 bound_by"],
             "library_ms": None,  # no single PyTorch call computes the WKV6 recurrence
+        },
+        {
+            # no Pallas kernel: the reference's compiled jax.grad takes this chain
+            "name": "fma_rows", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fma_rows.cu",
+            "replaces": "src/repro/serving/cascade.py:280",
+            "launches": fit_launches, "max_abs_err": fit_err,
+            "ms": times["fma_rows ms"], "plain_ms": times["fma_rows plain_ms"],
+            "bound_ms": times["fma_rows bound_ms"], "bound_by": times["fma_rows bound_by"],
+            "library_ms": times["fma_rows library_ms"],  # torch.mv, in its own order
         },
     ]
     for k in kernels:

@@ -238,12 +238,15 @@ def hardware_state(
     device=None,
 ) -> FrontendState:
     """A hardware-frontend state on ``device`` (default: the chip's, or
-    the CPU), designing the die's (possibly mismatched) Rec-BPF
-    coefficients once. beta / alpha default to the nominal offset and
-    unity gain (an uncalibrated die)."""
+    the card without a chip: `kernels.build.resolve_device`, which raises
+    where there is none), designing the die's (possibly mismatched)
+    Rec-BPF coefficients once. beta / alpha default to the nominal offset
+    and unity gain (an uncalibrated die)."""
+    from repro_torch.kernels.build import resolve_device
+
     c = tdcfg.fex.num_channels
     if device is None:
-        device = chip.gain_mismatch.device if chip is not None else "cpu"
+        device = chip.gain_mismatch.device if chip is not None else resolve_device()
     f32 = lambda t: t.to(device=device, dtype=torch.float32)  # noqa: E731
     if beta is None:
         beta = torch.full((c,), tdcfg.beta_nominal)

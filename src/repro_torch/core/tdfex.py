@@ -108,10 +108,17 @@ def draw_chip(
     generator: Optional[torch.Generator], cfg: TDFExConfig, device=None
 ) -> TDFExState:
     """A die's gain and centre-frequency mismatch, (C,) float32 each,
-    drawn from ``generator`` (on its device, or the CPU) and placed on
-    ``device``."""
+    drawn from ``generator`` (on its device) and placed on ``device``
+    (default: the generator's). Without a generator the draw takes the
+    default generator of ``device``, which defaults to the card
+    (`kernels.build.resolve_device`: raises where there is none)."""
+    from repro_torch.kernels.build import resolve_device
+
     c = cfg.fex.num_channels
-    gdev = generator.device if generator is not None else "cpu"
+    if generator is not None:
+        gdev = generator.device
+    else:
+        gdev = device = resolve_device(device)
     draw = lambda: torch.randn((c,), generator=generator, device=gdev)  # noqa: E731
     gm, cm = draw(), draw()
     return TDFExState(

@@ -46,6 +46,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = {
     "fex_fused": "fex_fused.cu",
+    "fma_rows": "fma_rows.cu",
     "gru_seq": "gru_seq.cu",
     "intgemm": "intgemm.cu",
     "tdc": "tdc.cu",
@@ -61,11 +62,18 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fex_fused": {
-        # x, x_bf16, coeffs, out, b, t, c, frame_len, inv_frame, stream
-        "fex_fused_launch": ([_P, _I, _P, _P, _I, _I, _I, _I, _F, _P], _I),
-        # x, coeffs, s1, s2, y, b, t, c, stream
-        "biquad_stream_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        # x, x_bf16, coeffs, out, b, t, row stride, c, frame_len,
+        # inv_frame, clips a block, bulk, fast, stream
+        "fex_fused_launch": ([_P, _I, _P, _P] + [_I] * 5 + [_F] + [_I] * 3 + [_P], _I),
+        # x, coeffs, s1, s2, y, b, t, row stride, c, clips a block, bulk,
+        # store_bulk, stream
+        "biquad_stream_launch": ([_P] * 5 + [_I] * 7 + [_P], _I),
         "fex_fused_error_string": ([_I], ctypes.c_char_p),
+    },
+    "fma_rows": {
+        # d, xs, out, n, c, stream
+        "fma_rows_launch": ([_P, _P, _P, _I, _I, _P], _I),
+        "fma_rows_error_string": ([_I], ctypes.c_char_p),
     },
     "gru_seq": {
         # x, x_bf16, w, u, b_i, b_h, h0, out, b, t, i, h, smem bytes, stream

@@ -1,7 +1,8 @@
-// Asynchronous global -> shared copies for the batch kernels' staging:
-// cp.async (sm_80 and later) for word and 16-byte copies, and Hopper's bulk
-// copies completing on an mbarrier, so the next chunk is in flight while the
-// threads run the current chunk's dependent chain.
+// Asynchronous copies for the batch kernels' staging: cp.async (sm_80 and
+// later) for word and 16-byte copies, Hopper's bulk copies into shared
+// memory completing on an mbarrier, so the next chunk is in flight while the
+// threads run the current chunk's dependent chain, and bulk stores from
+// shared memory back to device memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,4 +86,42 @@ __device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, unsigned
 // asynchronous-proxy (bulk copy) writes to the same buffer.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Make `bar` track this thread's earlier cp.async copies: it receives one
+// of its expected arrivals once they have landed (.noinc: the arrival is
+// counted in the barrier's initial count).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// ---- bulk stores (sm_90): shared memory -> device memory ----
+// The threads that wrote the source run fence_proxy_async() before the
+// issuing thread sees their writes (through an mbarrier); the issuing
+// thread commits its stores as one group and waits for the group before
+// the source buffer is written again.
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from this
+// block's shared memory into device memory.
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem),
+               "r"(smem_addr(smem)), "r"(bytes)
+               : "memory");
+}
+
+// Close the group of bulk stores issued since the last commit.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still reading their source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N committed groups are still in flight (written).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }

@@ -28,10 +28,16 @@ its sigmoid is XLA's CPU expansion ``1 / (1 + exp(-z))`` with XLA's
 Cephes exp polynomial (fused multiply-adds as the compiled code has
 them, results below the smallest normal flushed to zero). The CUDA tick
 (``kernels/csrc/tick_fused.cu``) computes the same operations.
+`fit_linear_detector` takes the gradient the reference's compiled
+``jit(grad(loss))`` takes, operation for operation (XLA's exp, log and
+log1p, its dot and reduction orders), so the two fits are array-equal;
+on the card the weight gradient's row chain is the kernel
+``kernels/csrc/fma_rows.cu``.
 
-This module imports torch, `repro_torch.core.fex` and
-`repro_torch.kernels.build` only (no serving or pipeline module), so
-`repro_torch.core.pipeline` can host the config without a cycle.
+This module imports torch, `repro_torch.core.fex`,
+`repro_torch.kernels.build` and `repro_torch.kernels.fma_rows` only (no
+serving or pipeline module), so `repro_torch.core.pipeline` can host the
+config without a cycle.
 """
 
 from __future__ import annotations
@@ -43,8 +49,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.fex import fma_f32
+from repro_torch.core.fex import SUM_BLOCK, fma_f32
 from repro_torch.kernels.build import resolve_device
+from repro_torch.kernels.fma_rows import fma_rows
 
 __all__ = [
     "CascadeConfig",
@@ -170,13 +177,31 @@ _EXP_P = tuple(_hex_f32(h) for h in (
 _F32_MIN_NORMAL = 1.1754943508222875e-38
 
 
-def xla_sigmoid(z: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.sigmoid`` as the reference's compiled CPU code computes it:
-    ``1 / (1 + exp(-z))`` with XLA's exp polynomial, its multiply-adds
-    fused where the compiled code fuses them, and a result below the
-    smallest normal float32 flushed to zero. float32 in and out."""
-    k = lambda v: torch.full_like(z, v)  # noqa: E731
-    x = -z
+# XLA's CPU log (the log_f32 of its elemental IR): the mantissa in
+# [0.5, 1) against sqrt(1/2), and a Horner polynomial split in three.
+_SQRT_HALF = _hex_f32("3FE6A09E60000000")
+_LOG_P = tuple(tuple(_hex_f32(h) for h in hs) for hs in (
+    ("3FB2043760000000", "BFBD7A3700000000", "3FBDE4A340000000"),
+    ("BFBFCBA9E0000000", "3FC23D37E0000000", "BFC555CA00000000"),
+    ("3FC999D580000000", "BFCFFFFF80000000", "3FD5555540000000"),
+))
+# XLA's log1p: a rational approximation below sqrt(2) - 1, else log(1 + x).
+_LOG1P_SMALL = _hex_f32("3FDA8279A0000000")
+_LOG1P_DEN = tuple(_hex_f32(h) for h in (
+    "402E2035A0000000", "4054C30B60000000", "406BB865A0000000",
+    "4073519460000000", "406B0DB140000000", "404E0F3040000000",
+))
+_LOG1P_NUM = tuple(_hex_f32(h) for h in (
+    "3F07BC0960000000", "3FDFE818A0000000", "401A509F40000000",
+    "403DE97380000000", "404E798EC0000000", "404C8E75A0000000",
+    "40340A2020000000",
+))
+
+
+def _exp_parts(x: torch.Tensor):
+    """XLA's CPU exp as two factors (y, 2^n): exp(x) = y * 2^n, the caller
+    rounding the product (alone or fused with what follows)."""
+    k = lambda v: torch.full_like(x, v)  # noqa: E731
     x = torch.where(x >= _EXP_LO, x, k(_EXP_LO))
     x = torch.where(x <= _EXP_HI, x, k(_EXP_HI))
     fx = torch.clamp(torch.floor(fma_f32(x, k(_LOG2E), k(0.5))), -127.0, 127.0)
@@ -186,9 +211,96 @@ def xla_sigmoid(z: torch.Tensor) -> torch.Tensor:
     for p in _EXP_P[2:] + (0.5,):
         y = fma_f32(y, r, k(p))
     y = fma_f32(y, r * r, r) + 1.0
-    pow2n = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
-    s = 1.0 / fma_f32(y, pow2n, k(1.0))
+    return y, ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def xla_sigmoid(z: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the reference's compiled CPU code computes it:
+    ``1 / (1 + exp(-z))`` with XLA's exp polynomial, its multiply-adds
+    fused where the compiled code fuses them, and a result below the
+    smallest normal float32 flushed to zero. float32 in and out."""
+    y, pow2n = _exp_parts(-z)
+    s = 1.0 / fma_f32(y, pow2n, torch.ones_like(z))
     return torch.where(s.abs() < _F32_MIN_NORMAL, torch.zeros_like(s), s)
+
+
+def _xla_log(v: torch.Tensor) -> torch.Tensor:
+    """log(v) for finite v > 0 as XLA's CPU code computes it, the
+    multiply-adds fused where the compiled code fuses them."""
+    k = lambda c: torch.full_like(v, c)  # noqa: E731
+    bits = torch.where(v > _F32_MIN_NORMAL, v, k(_F32_MIN_NORMAL)).view(torch.int32)
+    expo = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    low = m < _SQRT_HALF
+    x = (m + -1.0) + torch.where(low, m, torch.zeros_like(m))
+    expo = torch.where(low, expo - 1.0, expo)
+    x2 = x * x
+    x3 = x2 * x
+    a, b, c = (fma_f32(fma_f32(x, k(p0), k(p1)), x, k(p2)) for p0, p1, p2 in _LOG_P)
+    poly = fma_f32(fma_f32(fma_f32(a, x3, b), x3, c), x3, expo * _LN2_LO)
+    return fma_f32(expo, k(_LN2_HI), fma_f32(k(-0.5), x2, x) + poly)
+
+
+def _xla_log1p(e: torch.Tensor) -> torch.Tensor:
+    """log1p(e) for 0 <= e <= 1 as XLA's CPU code computes it."""
+    k = lambda c: torch.full_like(e, c)  # noqa: E731
+    e2 = e * e
+    ez = e * 0.0
+    den = ez + 1.0
+    for c in _LOG1P_DEN:
+        den = fma_f32(den, e, k(c))
+    num = ez + _LOG1P_NUM[0]
+    for c in _LOG1P_NUM[1:]:
+        num = fma_f32(num, e, k(c))
+    small = e + fma_f32(k(-0.5), e2, (e * e2) * (num / den))
+    return torch.where(e.abs() < _LOG1P_SMALL, small, _xla_log(e + 1.0))
+
+
+def _xla_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum of a 1-D float32 tensor in the order of XLA's CPU reduce:
+    longer than its window (`SUM_BLOCK`, 32), padded evenly to whole
+    windows, each window summed left to right from 0, then the window sums
+    the same way."""
+    n = v.shape[0]
+    if n > SUM_BLOCK:
+        pad = -n % SUM_BLOCK
+        v = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
+        wins = v.reshape(-1, SUM_BLOCK)
+        acc = torch.zeros(wins.shape[0], dtype=v.dtype, device=v.device)
+        for i in range(SUM_BLOCK):
+            acc = acc + wins[:, i]
+        return _xla_sum(acc)
+    acc = torch.zeros((), dtype=v.dtype, device=v.device)
+    for i in range(n):
+        acc = acc + v[i]
+    return acc
+
+
+def _fit_grad(xs: torch.Tensor, ys: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """(dL/dw, dL/db) of mean(softplus(xs @ w + b) - ys * (xs @ w + b)) as
+    the reference's compiled ``jit(grad(loss))`` computes it (jax 0.9.0,
+    the CPU): z = xs @ w summed in 8 lanes (column j in lane j mod 8, fused
+    multiply-adds from 0, the lanes added as an adjacent pairwise tree),
+    then + b; dz = fma(exp(z - softplus(z)), 1/N, -y/N), softplus as
+    max(z, 0) + log1p(exp(-|z|)); dL/dw a chain of fused multiply-adds over
+    the rows from 0 (`kernels.fma_rows`); dL/db `_xla_sum` of dz.
+    Array-equal to the reference at C = 16, the FV width; XLA tiles other
+    widths' dots otherwise."""
+    n, c = xs.shape
+    lanes = torch.zeros((n, 8), dtype=xs.dtype, device=xs.device)
+    for c0 in range(0, c, 8):
+        cols = min(8, c - c0)
+        lanes[:, :cols] = fma_f32(xs[:, c0:c0 + cols], w[c0:c0 + cols].expand(n, cols),
+                                  lanes[:, :cols])
+    while lanes.shape[1] > 1:
+        lanes = lanes[:, 0::2] + lanes[:, 1::2]
+    z = (lanes[:, 0] + 0.0) + b
+    y, pow2n = _exp_parts(-z.abs())
+    softplus = torch.clamp_min(z, 0.0) + _xla_log1p(y * pow2n)
+    y, pow2n = _exp_parts(z - softplus)
+    inv_n = _f32(1.0 / n)
+    dz = fma_f32(y * pow2n, torch.full_like(z, inv_n), ys * -inv_n)
+    return fma_rows(dz, xs), _xla_sum(dz)
 
 
 def detector_scores(fv: torch.Tensor, config: CascadeConfig) -> torch.Tensor:
@@ -276,7 +388,7 @@ def fit_linear_detector(speech_fv, silence_fv, steps: int = 200,
                         lr: float = 0.5) -> Tuple[Tuple[float, ...], float]:
     """Fit the "linear" detector: logistic regression speech-vs-silence on
     FV_Norm frames, full-batch gradient descent on the softplus BCE with
-    gradients from `torch.autograd.grad`.
+    the gradient the reference's compiled step takes (`_fit_grad`).
 
     speech_fv / silence_fv: (..., C) frame stacks (numpy arrays or
     tensors; the fit runs where a tensor lies). Returns (linear_w tuple,
@@ -298,12 +410,7 @@ def fit_linear_detector(speech_fv, silence_fv, steps: int = 200,
     w = torch.zeros(n_ch, device=speech.device)
     b = torch.zeros((), device=speech.device)
     for _ in range(steps):
-        w.requires_grad_(True)
-        b.requires_grad_(True)
-        z = xs @ w + b
-        loss = torch.mean(torch.nn.functional.softplus(z) - ys * z)
-        gw, gb = torch.autograd.grad(loss, (w, b))
-        with torch.no_grad():
-            w = w - lr * gw
-            b = b - lr * gb
+        gw, gb = _fit_grad(xs, ys, w, b)
+        w = w - lr * gw
+        b = b - lr * gb
     return tuple(float(v) for v in w.cpu().numpy()), float(b)

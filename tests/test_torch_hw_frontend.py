@@ -149,6 +149,22 @@ def test_frontend_state_from_numpy_carries_a_reference_die(die):
     assert bare == FrontendState()
 
 
+def test_hardware_state_without_a_chip_defaults_to_the_card(die):
+    """No chip and no device means the card, as at every entry point of
+    the port: it raises where there is none rather than building the state
+    on the CPU. A named device, or the chip's, is followed."""
+    if torch.cuda.is_available():
+        assert hardware_state(TDFExConfig()).coeffs.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            hardware_state(TDFExConfig())
+    state = hardware_state(TDFExConfig(), device="cpu")
+    assert state.chip is None
+    assert all(t.device.type == "cpu" for t in (state.beta, state.alpha, state.coeffs))
+    _, tstate = die
+    assert hardware_state(TDFExConfig(), tstate.chip).coeffs.device.type == "cpu"
+
+
 def test_init_frontend_state_draws_and_calibrates_a_die():
     pipe = KWSPipeline(KWSPipelineConfig(frontend="hardware"))
     state = pipe.init_frontend_state(torch.Generator().manual_seed(0), device="cpu")

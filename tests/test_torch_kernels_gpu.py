@@ -18,11 +18,13 @@ from repro_torch.core.tdfex import TDFExConfig, TDFExState, draw_chip
 from repro_torch.kernels import build
 from repro_torch.kernels import gru_sequence, gru_sequence_plain, wkv6, wkv6_plain
 from repro_torch.kernels.fex_fused import biquad_stream, biquad_stream_ref, fex_fused, fex_fused_ref
+from repro_torch.kernels.fma_rows import fma_rows, fma_rows_ref
 from repro_torch.kernels.intgemm import intgemm, intgemm_ref
 from repro_torch.kernels.tdc import tdc_counts, tdc_counts_plain
 from repro_torch.kernels.tdc.ops import tdc_scale
 from repro_torch.kernels.tick_fused import pack_operands, tick_fused, tick_reference
 from repro_torch.kernels.tick_fused.gather import make_sparse_step
+from repro_torch.serving.cascade import fit_linear_detector
 from repro_torch.serving.serve_loop import StreamingKWSServer
 
 pytestmark = pytest.mark.gpu
@@ -608,6 +610,134 @@ def test_scan_entry_equals_plain_with_its_carry(dev, b, t):
     assert torch.equal(y, py) and torch.equal(s1, p1) and torch.equal(s2, p2)
 
 
+# (b, c): one clip, a partial last block (33 clips at 2 a block, 33 at 32
+# a block), 7 channels (4 clips a block, 4 lanes idle), a whole warp of
+# channels, and 33 (two channel groups, the writer warp copies y)
+FEX_BC = [(1, 16), (33, 16), (33, 1), (5, 7), (3, 32), (2, 33)]
+# (frame_len, frames): 512 takes the branch-free body over whole 256-sample
+# chunks; 100 and 20 the event loop, with T not a multiple of the chunk and
+# (20 x 10) T shorter than one chunk
+FEX_FRAMES = [(512, 3), (100, 7), (20, 10)]
+
+
+def _fex_audio(dev, b, t, seed, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((b, t), generator=g, device=dev) * 0.2).to(dtype)
+
+
+def _fex_coeffs(c):
+    from repro_torch.core.filters import design_filterbank
+
+    return design_filterbank(c, 32000.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("frame,frames", FEX_FRAMES)
+@pytest.mark.parametrize("b,c", FEX_BC)
+@pytest.mark.parametrize("tail", [False, True], ids=["whole", "tail"])
+def test_fex_fused_kernel_edges_equal_plain(dev, dtype, frame, frames, b, c, tail):
+    """K1 bit-equal at every edge of its geometry; a tail of frame / 2 + 1
+    samples past the last frame leaves rows the kernel reads in place at a
+    stride that is not whole 16-byte words (staged by cp.async / plain
+    loads)."""
+    t = frame * frames
+    extra = frame // 2 + 1 if tail else 0
+    x = _fex_audio(dev, b, t + extra, seed=b + c + frame + extra, dtype=dtype)
+    coeffs = _fex_coeffs(c)
+    before = build.launches["fex_fused"]
+    got = fex_fused(x, coeffs, frame)
+    assert build.launches["fex_fused"] == before + 1
+    assert got.shape == (b, frames, c)
+    assert torch.equal(got, fex_fused_ref(x[:, :t], coeffs, frame))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fex_fused_kernel_unaligned_input_equals_plain(dev, dtype):
+    """Audio whose address is 4 (bfloat16: 2) bytes off 16-byte alignment
+    is staged by the producer warp instead of bulk copies."""
+    b, t = 3, 1024
+    flat = torch.empty(b * t + 1, device=dev, dtype=dtype)
+    x = flat[1:].view(b, t)
+    x.copy_(_fex_audio(dev, b, t, seed=5, dtype=dtype))
+    assert x.data_ptr() % 16 != 0
+    coeffs = _fex_coeffs(16)
+    assert torch.equal(fex_fused(x, coeffs, 512), fex_fused_ref(x, coeffs, 512))
+
+
+def test_fex_fused_reads_untrimmed_rows_in_place(dev):
+    """(64, 32 000) oversampled clips trimmed to 62 frames: the kernel reads
+    the view's rows at their stride, and nothing the size of the audio is
+    allocated around the launch."""
+    x = _fex_audio(dev, 64, 32000, seed=6)
+    coeffs = FExConfig().filterbank()
+    fex_fused(x, coeffs, 512)  # the library is built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got = fex_fused(x, coeffs, 512)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base < x.numel() * x.element_size() // 8
+    assert got.shape == (64, 62, 16)
+    assert torch.equal(got, fex_fused_ref(x[:, :31744], coeffs, 512))
+
+
+def _carry(dev, b, c, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((b, c), generator=g, device=dev) * 0.01,
+            torch.randn((b, c), generator=g, device=dev) * 0.01)
+
+
+# T = 1, T not a multiple of 4 (3, 1001), shorter than a chunk (200), and
+# whole and partial chunks (768, 1001, 3000)
+@pytest.mark.parametrize("t", [1, 3, 200, 768, 1001, 3000])
+@pytest.mark.parametrize("b,c", FEX_BC)
+def test_scan_entry_edges_equal_plain(dev, t, b, c):
+    x = _fex_audio(dev, b, t, seed=b * t + c) * 1.5
+    coeffs = _fex_coeffs(c)
+    carry = _carry(dev, b, c, seed=t + c)
+    before = build.launches["biquad_stream"]
+    y, (s1, s2) = biquad_stream(x, coeffs, carry)
+    assert build.launches["biquad_stream"] == before + 1
+    py, (p1, p2) = biquad_stream_ref(x, coeffs, carry)
+    assert y.shape == (b, t, c)
+    assert torch.equal(y, py) and torch.equal(s1, p1) and torch.equal(s2, p2)
+
+
+def test_scan_entry_unaligned_and_strided_input_equals_plain(dev):
+    """Audio 4 bytes off 16-byte alignment, and a view of every other
+    row's first 700 samples (read in place at its stride)."""
+    coeffs = _fex_coeffs(16)
+    flat = torch.empty(3 * 1000 + 1, device=dev)
+    x = flat[1:].view(3, 1000)
+    x.copy_(_fex_audio(dev, 3, 1000, seed=8))
+    assert x.data_ptr() % 16 != 0
+    y, (s1, s2) = biquad_stream(x, coeffs)
+    py, (p1, p2) = biquad_stream_ref(x, coeffs)
+    assert torch.equal(y, py) and torch.equal(s1, p1) and torch.equal(s2, p2)
+    wide = _fex_audio(dev, 6, 1024, seed=9)
+    view = wide[::2, :700]
+    y, (s1, s2) = biquad_stream(view, coeffs)
+    py, (p1, p2) = biquad_stream_ref(view.contiguous(), coeffs)
+    assert torch.equal(y, py) and torch.equal(s1, p1) and torch.equal(s2, p2)
+
+
+@pytest.mark.parametrize("split", [1, 256, 777])
+@pytest.mark.parametrize("c", [16, 33])
+def test_scan_entry_carries_across_calls(dev, split, c):
+    """Two calls that hand (s1, s2) on equal one call on the joined input."""
+    b, t = 5, 2000
+    x = _fex_audio(dev, b, t, seed=split + c)
+    coeffs = _fex_coeffs(c)
+    carry = _carry(dev, b, c, seed=split)
+    y_a, state = biquad_stream(x[:, :split], coeffs, carry)
+    y_b, (s1, s2) = biquad_stream(x[:, split:], coeffs, state)
+    y, (w1, w2) = biquad_stream(x, coeffs, carry)
+    assert torch.equal(torch.cat([y_a, y_b], dim=1), y)
+    assert torch.equal(s1, w1) and torch.equal(s2, w2)
+    py, (p1, p2) = biquad_stream_ref(x, coeffs, carry)
+    assert torch.equal(y, py) and torch.equal(w1, p1) and torch.equal(w2, p2)
+
+
 @pytest.mark.parametrize("b,frames,c", [(8, 4, 16), (1, 1, 1), (3, 2, 5)])
 @pytest.mark.parametrize("mismatch", [False, True], ids=["ideal", "chip"])
 def test_tdc_kernel_equals_plain(dev, b, frames, c, mismatch):
@@ -876,3 +1006,41 @@ def test_wkv6_wrapper_rejects_dtypes_and_head_sizes(dev):
     with pytest.raises(ValueError, match="above the kernel's 64"):
         wkv6(*big)
     assert build.launches["wkv6"] == before
+
+
+# the fit's (992, 16); a row group's tail (1001, 5 rows); several tiles of
+# 1536 rows and channel blocks of 32 (4000, 33); no rows
+@pytest.mark.parametrize("n,c", [(1, 1), (992, 16), (5, 200), (1001, 7), (4000, 33), (0, 4)])
+def test_fma_rows_kernel_equals_plain(dev, n, c):
+    g = torch.Generator(device=dev).manual_seed(n + c)
+    d = torch.randn(n, generator=g, device=dev) * 1e-3
+    xs = torch.randn((n, c), generator=g, device=dev)
+    before = build.launches["fma_rows"]
+    got = fma_rows(d, xs)
+    assert build.launches["fma_rows"] == before + 1
+    assert got.device == xs.device and torch.equal(got, fma_rows_ref(d, xs))
+
+
+@pytest.mark.parametrize("case", ["midpoint", "subnormal"])
+def test_fma_rows_kernel_rounds_each_step_once(dev, case):
+    """Where float64 lands on a float32 midpoint (a normal and a subnormal
+    sum), the kernel's fused step rounds the exact sum."""
+    if case == "midpoint":
+        acc, d1, x1 = 1 + 2.0**-23, 2.0**-24 * (1 + 2.0**-23), 1 - 2.0**-23
+    else:
+        acc, d1, x1 = 2.0**-127 + 2.0**-149, 2.0**-75 * (1 + 2.0**-23), 2.0**-75 * (1 - 2.0**-23)
+    d = torch.tensor([1.0, d1], device=dev)
+    xs = torch.tensor([[acc], [x1]], device=dev)
+    got = fma_rows(d, xs)
+    assert got.item() == acc and torch.equal(got, fma_rows_ref(d, xs))
+
+
+def test_fit_linear_detector_on_the_card_equals_the_cpu(dev):
+    rng = np.random.default_rng(1)
+    speech = rng.normal(0.8, 0.4, (300, 16)).astype(np.float32)
+    silence = rng.normal(-0.8, 0.4, (300, 16)).astype(np.float32)
+    build.launches.clear()
+    got = fit_linear_detector(torch.as_tensor(speech, device=dev),
+                              torch.as_tensor(silence, device=dev), steps=50)
+    assert dict(build.launches) == {"fma_rows": 50}
+    assert got == fit_linear_detector(speech, silence, steps=50)

@@ -334,6 +334,23 @@ def test_draw_chip_statistics():
     assert torch.equal(a.gain_mismatch, b.gain_mismatch)
 
 
+def test_draw_chip_without_a_generator_defaults_to_the_card():
+    """No generator and no device means the card, as at every entry point
+    of the port: it raises where there is none rather than drawing on the
+    CPU. A named device, or a generator's, is followed."""
+    if torch.cuda.is_available():
+        chip = ttd.draw_chip(None, TCFG)
+        assert chip.gain_mismatch.device.type == chip.cf_mismatch.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ttd.draw_chip(None, TCFG)
+    chip = ttd.draw_chip(None, TCFG, device="cpu")
+    assert chip.gain_mismatch.device.type == chip.cf_mismatch.device.type == "cpu"
+    assert chip.gain_mismatch.shape == (16,) and chip.gain_mismatch.dtype == torch.float32
+    chip = ttd.draw_chip(torch.Generator().manual_seed(1), TCFG)
+    assert chip.cf_mismatch.device.type == "cpu"
+
+
 def test_vtc_noise_statistics():
     x = torch.zeros((4, 8192))
     clean = ttd.vtc(x, TCFG)
