@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times the batch filterbank (K1 and its scan entry), intgemm (K2), the
-dense tick's branches (K3), the TDC (K5) and WKV6 (K7) of two source trees
-in one call on one card, in turns: first, second, second, first.
+tick's branches (K3, with K4 inside for the ΔGRU), the TDC (K5), WKV6 (K7)
+and the fit's row chain (fma_rows) of two source trees in one call on one
+card, in turns: first, second, second, first.
 
     python3 chip_ab.py FIRST_ROOT [SECOND_ROOT]
 
@@ -13,8 +14,10 @@ directory) and runs this checkout's `chip_smoke` timing functions on it:
 K1 and the scan entry at (64, 32 000) (`chip_smoke.fex_times`: K1 with
 frames of 512 and of 500, the event loop; each entry as one block alone),
 intgemm beside torch.matmul, the software tick of every dense backend and
-of the ΔGRU backends at θ = 0.15 on raw audio and FV input, the qat
-and integer FV ticks with the gate shut (`chip_smoke.phase_split`), K5
+of the ΔGRU backends at θ = 0 and 0.15 on raw audio and FV input, the
+qat, integer, delta and delta-int FV ticks with the gate shut
+(`chip_smoke.phase_split`), fma_rows at (992, 16) beside torch.mv
+(`chip_smoke.fma_rows_times`), K5
 at (64, 31 744, 16) (`chip_smoke.tdc_times`: also with every chunk
 floored by floorf, and as one block alone) and K7 at (8, 4096, 64, 64)
 (`chip_smoke.wkv6_times`), and `record_features` of 128 clips on each
@@ -24,11 +27,14 @@ against second.
 
 Before the turns it measures the two dependent chains on this checkout's
 compiler flags: a probe kernel (one warp) runs K5's carry tick, with
-floorf and with the 2^23 add, and K1's step (biquad.cuh's biquad_y and
-the |y| sum), and reports cycles a tick or sample (clock64) and the SM
-clock (clock64 over %globaltimer, and nvidia-smi's clocks.sm just after);
-the probe's and the built tdc and fex_fused libraries' SASS go to
-``chain/`` in the kernels' build directory. Needs a CUDA device.
+floorf and with the 2^23 add, K1's step (biquad.cuh's biquad_y and
+the |y| sum) and the fit's FMA chain, and reports cycles a tick, sample
+or FMA (clock64) and the SM clock (clock64 over %globaltimer, and
+nvidia-smi's clocks.sm just after); it times an empty launch on
+fma_rows' grid, whose sum with 992 FMAs is fma_rows' floor at the fit's
+shape; the probe's and the built tdc, fex_fused, fma_rows and tick_fused
+libraries' SASS go to ``chain/`` in the kernels' build directory. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,16 +63,17 @@ def turn(src: str) -> None:
         raise SystemExit(f"chip_ab: imported {build.__file__}, not the tree under {src}")
     torch.backends.cuda.matmul.allow_tf32 = False
     build.SOURCES = {k: build.SOURCES[k]
-                     for k in ("fex_fused", "intgemm", "tick_fused", "tdc", "wkv6")}
+                     for k in ("fex_fused", "fma_rows", "intgemm", "tick_fused", "tdc", "wkv6")}
     for name, report in build.build_all().items():
         print(f"  {name}: {report.strip()}", file=sys.stderr)
     dev = torch.device("cuda")
     times = chip_smoke.fex_times(dev)
     times.update(chip_smoke.intgemm_times(dev))
     # the software ticks at the smoke's operating points (no die to calibrate)
-    runs = [r for r in chip_smoke.TICK_RUNS if not r[2] and r[1] != 0.0]
+    runs = [r for r in chip_smoke.TICK_RUNS if not r[2]]
     times.update(chip_smoke.tick_times(dev, None, runs, plain=False))
     times.update(chip_smoke.phase_split(dev, times))
+    times.update(chip_smoke.fma_rows_times(dev))
     times.update(chip_smoke.tdc_times(dev))
     times.update(chip_smoke.wkv6_times(dev))
     times.update(chip_smoke.record_times(dev))
@@ -120,6 +127,54 @@ __global__ void biquad_chain(const float* coeffs, const float* x, int n, float* 
     cycles[0] = c1 - c0;
     ns[0] = g1 - g0;
   }
+}
+
+// the fit's row chain: n dependent __fmaf_rn a lane
+__global__ void fma_chain(const float* x, int n, float* out, long long* cycles,
+                          unsigned long long* ns) {
+  const float a = x[threadIdx.x], b = x[32 + threadIdx.x];
+  float acc = 0.0f;
+  unsigned long long g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+  const long long c0 = clock64();
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) acc = __fmaf_rn(a, b, acc);
+  const long long c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+  out[threadIdx.x] = acc;
+  if (threadIdx.x == 0) {
+    cycles[0] = c1 - c0;
+    ns[0] = g1 - g0;
+  }
+}
+
+__global__ void empty_kernel() {}
+
+extern "C" int fma_probe(const float* x, int n, float* out, long long* cycles,
+                         unsigned long long* ns) {
+  fma_chain<<<1, 32>>>(x, n, out, cycles, ns);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+
+// ms a launch of an empty kernel on one block of `threads` with `smem`
+// bytes of dynamic shared memory, over `reps` back-to-back launches
+extern "C" int empty_launch_ms(int threads, int smem, int reps, float* ms) {
+  cudaError_t e = cudaFuncSetAttribute(empty_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaEvent_t start, stop;
+  cudaEventCreate(&start);
+  cudaEventCreate(&stop);
+  for (int i = 0; i < 10; ++i) empty_kernel<<<1, threads, smem>>>();
+  cudaEventRecord(start);
+  for (int i = 0; i < reps; ++i) empty_kernel<<<1, threads, smem>>>();
+  cudaEventRecord(stop);
+  cudaEventSynchronize(stop);
+  cudaEventElapsedTime(ms, start, stop);
+  *ms /= reps;
+  cudaEventDestroy(start);
+  cudaEventDestroy(stop);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int biquad_probe(const float* coeffs, const float* x, int n, float* out,
@@ -194,15 +249,42 @@ def chain() -> None:
                 raise SystemExit(f"chip_ab: the biquad probe failed (cudaError {rc})")
         cyc, nsec = int(cycles.item()), int(ns.item())
         result[name] = {"cycles_per_sample": cyc / n, "sm_ghz": cyc / nsec}
+    # the fit's row chain: cycles an FMA, and the empty launch on fma_rows'
+    # grid at the fit's (992, 16) (this tree's geometry, and the one-block,
+    # 512-thread, 202 752-byte launch of the earlier one-block design); the floor is their sum
+    lib.fma_probe.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.empty_launch_ms.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    x = (torch.rand(64, device=dev) * 0.5 + 0.25).contiguous()
+    for _ in range(2):
+        rc = lib.fma_probe(x.data_ptr(), n, res.data_ptr(), cycles.data_ptr(), ns.data_ptr())
+        if rc != 0:
+            raise SystemExit(f"chip_ab: the fma probe failed (cudaError {rc})")
+    cyc, nsec = int(cycles.item()), int(ns.item())
+    result["fma"] = {"cycles_per_fma": cyc / n, "sm_ghz": cyc / nsec}
+    from repro_torch.kernels.fma_rows.ops import fma_rows_geometry
+
+    geo = fma_rows_geometry(992, 16)
+    for name, threads, smem in (("this tree", geo.threads, geo.smem),
+                                ("512 threads", 512, 202752)):
+        ms = ctypes.c_float()
+        rc = lib.empty_launch_ms(threads, smem, 2000, ctypes.addressof(ms))
+        if rc != 0:
+            raise SystemExit(f"chip_ab: the empty launch failed (cudaError {rc})")
+        result[f"empty launch, {name}"] = {"threads": threads, "smem": smem, "ms": ms.value}
+    chain_ms = 992 * (cyc / n) / (cyc / nsec) * 1e-6
+    result["fma_rows floor (992, 16)"] = {
+        "chain_ms": chain_ms, "floor_ms": chain_ms + result["empty launch, this tree"]["ms"]}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     print(json.dumps({"chain": result, "nvidia-smi clocks.sm, clocks.max.sm, power.limit": smi}))
     cuobjdump = Path(nvcc).with_name("cuobjdump")
-    build.SOURCES = {k: build.SOURCES[k] for k in ("fex_fused", "tdc")}
+    build.SOURCES = {k: build.SOURCES[k] for k in ("fex_fused", "fma_rows", "tdc", "tick_fused")}
     build.build_all()
     for name, path in (("chain_probe", lib_path), ("tdc", build._lib_path("tdc")),
-                       ("fex_fused", build._lib_path("fex_fused"))):
+                       ("fex_fused", build._lib_path("fex_fused")),
+                       ("fma_rows", build._lib_path("fma_rows")),
+                       ("tick_fused", build._lib_path("tick_fused"))):
         sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                               text=True, timeout=300).stdout
         (out_dir / f"{name}.sass").write_text(sass)

@@ -77,11 +77,14 @@ plain PyTorch version on the card:
      and the scan entry at the batch path's shapes (also as one block
      alone, and K1 with frames of 500: `fex_times`), K5 (also with
      every chunk floored by floorf and as one block alone), K6 beside cuDNN,
-     K7, the fit's fma_rows beside torch.mv); the dense tick's phase
-     split (qat and integer: the raw tick, the FV tick and the FV tick
-     behind a gate that opens for nobody give the frontend's and the
-     classifier's shares); one JSON line per kernel,
-     then all kernels in one JSON line;
+     K7, the fit's fma_rows beside torch.mv); the tick's phase split
+     (qat, integer, and delta / delta-int at θ = 0.15 and 0: the raw
+     tick, the FV tick and the FV tick behind a gate that opens for
+     nobody give the frontend's and the classifier's shares; for the
+     ΔGRU, K4's phase, also its plain sparse step and its own bound); the
+     tick kernels' dynamic shared memory and blocks an SM (occupancy
+     API); one JSON line per kernel (K4's `delta_gather` with its phase's
+     time, plain time and bound), then all kernels in one JSON line;
  14. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
@@ -534,17 +537,10 @@ def tick_bound(n_active: int, raw: bool = True, fires=None, mac_fraction: float 
     carry = 2 * C * 4 if raw else 0
     # the hardware carry adds r (read and written) and j (read only)
     carry_extra = 3 * C * 4 if raw and hardware else 0
-    if fires is None:
-        state_in = state_out = DENSE_STATE_BYTES
-    else:
-        column_frac, acc_frac = fires
-        mems, accs = 4 * (C + 3 * H), 4 * 4 * G  # x_ref + h_ref, acc_x + acc_h of both layers
-        state_in = DELTA_STATE_BYTES
-        state_out = DELTA_STATE_BYTES - mems - accs + column_frac * mems + acc_frac * accs
     # input, mask, carry and top; scores in + out and the classifier
     # state in and out for the streams the classifier runs for
     per_stream = (HOP * 4 if raw else C * 4) + 1 + 2 * carry + carry_extra + 8
-    per_woken = 2 * K * 4 + state_in + state_out
+    per_woken, woken_ops = classifier_work(fires, mac_fraction)
     det_bytes = 2 * 13 if n_woken is not None else 0
     tables = weight_bytes + 2352 + 4096 * 4 + 2 * 32767 * 4 + 5 * C * 4 + 2 * C * 4
     tables += 3 * C * 4 if hardware else 0  # gain, beta, alpha
@@ -553,14 +549,30 @@ def tick_bound(n_active: int, raw: bool = True, fires=None, mac_fraction: float 
     if raw and hardware:  # + VTC (2 mul, add, fma), SRO (fma, mul, max)
         iir = 2 * HOP * C * (11 + 5 + 4)
     post = C * 10 + 2 * HOP if raw else 0
+    gate_ops = 40 if n_woken is not None else 0
+    ops = n_active * (iir + post + gate_ops) + woken * woken_ops
+    return _bound(byts, ops)
+
+
+def classifier_work(fires=None, mac_fraction: float = 1.0):
+    """(bytes, operations) of the classifier for one stream it runs for:
+    the scores read and written and the classifier state (a ΔGRU's as
+    `tick_bound` counts it: read whole, written where this run's data
+    changed it); the thresholds (~4 operations a column), the MACs (the
+    delta-eligible ones times ``mac_fraction``, and the FC head), the
+    gates and the tail."""
+    if fires is None:
+        state_in = state_out = DENSE_STATE_BYTES
+    else:
+        column_frac, acc_frac = fires
+        mems, accs = 4 * (C + 3 * H), 4 * 4 * G  # x_ref + h_ref, acc_x + acc_h of both layers
+        state_in = DELTA_STATE_BYTES
+        state_out = DELTA_STATE_BYTES - mems - accs + column_frac * mems + acc_frac * accs
     delta = 4 * (C + 3 * H) if fires is not None else 0
     macs = mac_fraction * ELIGIBLE_MACS + H * K
     gates = 2 * H * 14
     tail = K * 6
-    gate_ops = 40 if n_woken is not None else 0
-    ops = n_active * (iir + post + gate_ops) + woken * (delta + 2 * macs + gates + tail)
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return 2 * K * 4 + state_in + state_out, delta + 2 * macs + gates + tail
 
 
 def _delta_fires(tick, state, ticks: int = 8):
@@ -678,24 +690,34 @@ def tick_times(dev, hw_state, runs=TICK_RUNS, plain: bool = True):
     return out
 
 
-def phase_split(dev, times):
-    """The dense tick's time split by modes the kernel already has: the
-    qat and integer FV ticks (``times``, from `tick_times`) beside their
-    raw ticks give the frontend's share; the FV tick behind a cascade whose
-    gate opens for nobody (the detector and the tail run, the classifier
-    of every block idles) beside the ungated FV tick gives the
-    classifier's share. Prints one line a backend; returns the times."""
+# the phase split's FV ticks behind a shut gate: (classifier, θ)
+SPLIT_RUNS = (("qat", None), ("integer", None), ("delta", THETA), ("delta", 0.0),
+              ("delta-int", THETA), ("delta-int", 0.0))
+
+
+def phase_split(dev, times, runs=SPLIT_RUNS):
+    """The tick's time split by modes the kernel already has: the FV ticks
+    (``times``, from `tick_times`) beside their raw ticks give the
+    frontend's share; the FV tick behind a cascade whose gate opens for
+    nobody (the detector and the tail run, the classifier of every block
+    idles; a ΔGRU block still stages its state) beside the ungated FV tick
+    gives the classifier's share. For the ΔGRU runs (K4's phase) also the
+    phase's own bound (`classifier_work` at the FV tick's fires, where
+    ``times`` has them) and its plain version: the sparse classifier step
+    (`make_sparse_step`, K4's plain gather) on the same FV input. Prints
+    one line a run; returns the times."""
     import torch
 
     from repro_torch.kernels.tick_fused import pack_operands, tick_fused
+    from repro_torch.kernels.tick_fused.gather import make_sparse_step
     from repro_torch.serving.cascade import CascadeConfig, init_state
 
     n = N_STREAMS
     slabs = [x.to(dev) for x in _fv_traffic(n)]
     full = torch.ones(n, dtype=torch.bool, device=dev)
     out = {}
-    for classifier in ("qat", "integer"):
-        pipe, params = _setup(dev, classifier, cascade=CascadeConfig(
+    for classifier, theta in runs:
+        pipe, params = _setup(dev, classifier, theta, cascade=CascadeConfig(
             wake_threshold=SHUT_GATE_THRESHOLD))
         params = pipe.prepare_params(params)
         ops = pack_operands(pipe, params, pipe.state, dev)
@@ -708,19 +730,36 @@ def phase_split(dev, times):
                        pipe.state, SMOOTHING, operands=ops)
             tick[0] += 1
 
-        key = f"{classifier} fv shut"
+        label = _label(classifier, theta)
+        key = f"{label} fv shut"
         out[f"{key} ms"], _ = _cuda_ms(run, reps=200, hold=True)
         torch.cuda.synchronize()
         if int(state[3]["woken"].sum()) != 0:
             raise AssertionError(f"{key}: the shut gate woke a stream")
-        raw_ms, fv_ms = times[f"{classifier} raw ms"], times[f"{classifier} fv ms"]
-        out[f"{classifier} split frontend_ms"] = raw_ms - fv_ms
-        out[f"{classifier} split classifier_ms"] = fv_ms - out[f"{key} ms"]
-        out[f"{classifier} split rest_ms"] = out[f"{key} ms"]
-        print(f"phase split {classifier}: raw tick {raw_ms:.5f} ms, FV tick {fv_ms:.5f} ms, "
+        raw_ms, fv_ms = times[f"{label} raw ms"], times[f"{label} fv ms"]
+        out[f"{label} split frontend_ms"] = raw_ms - fv_ms
+        out[f"{label} split classifier_ms"] = fv_ms - out[f"{key} ms"]
+        out[f"{label} split rest_ms"] = out[f"{key} ms"]
+        extra = ""
+        if pipe.classifier.is_delta:
+            step_fn = make_sparse_step(pipe)
+            states = tuple(pipe.streaming_init(n, dev))
+            out[f"{label} split classifier plain_ms"], _ = _cuda_ms(
+                lambda: step_fn(params, list(states), slabs[0], full), reps=2, warmup=1)
+            extra = f"; plain sparse step {out[f'{label} split classifier plain_ms']:.3f} ms"
+            fires = times.get(f"{label} fv fired_columns")
+            if fires is not None:
+                byts, n_ops = classifier_work(
+                    (fires, times[f"{label} fv fired_accumulators"]),
+                    times[f"{label} fv mac_fraction"])
+                bound = _bound(n * byts, n * n_ops)
+                out[f"{label} split classifier bound_ms"], out[
+                    f"{label} split classifier bound_by"] = bound
+                extra += f", the phase's bound {bound[0]:.5f} ms ({bound[1]})"
+        print(f"phase split {label}: raw tick {raw_ms:.5f} ms, FV tick {fv_ms:.5f} ms, "
               f"FV tick with the gate shut {out[f'{key} ms']:.5f} ms: frontend "
               f"{raw_ms - fv_ms:.5f} ms, classifier {fv_ms - out[f'{key} ms']:.5f} ms, "
-              f"the rest (launch, staging, detector, tail) {out[f'{key} ms']:.5f} ms")
+              f"the rest (launch, staging, detector, tail) {out[f'{key} ms']:.5f} ms{extra}")
     return out
 
 
@@ -776,6 +815,13 @@ def phase_times(dev, srv_qat, live, hw_state):
     out.update(tick_times(dev, hw_state))
     out.update(phase_split(dev, out))
     out.update(intgemm_times(dev))
+    from repro_torch.kernels.tick_fused.ops import occupancy
+
+    for backend in ("qat", "float", "delta"):
+        smem, blocks = occupancy(backend)
+        out[f"tick {backend} smem_bytes"], out[f"tick {backend} blocks_per_sm"] = smem, blocks
+        print(f"tick_fused {backend}: {smem} B dynamic shared memory, {blocks} blocks an SM "
+              f"(occupancy API)")
     return out
 
 
@@ -1421,7 +1467,6 @@ def _fit_die_detector(dev, hw_state):
 
     from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
     from repro_torch.kernels import build
-    from repro_torch.kernels.fma_rows import fma_rows, fma_rows_ref
     from repro_torch.serving.cascade import fit_linear_detector
 
     pipe = KWSPipeline(KWSPipelineConfig(frontend="hardware"), state=hw_state)
@@ -1450,8 +1495,25 @@ def _fit_die_detector(dev, hw_state):
 
     c = tone_fv.shape[-1]
     xs = torch.cat([tone_fv.reshape(-1, c), silence_fv.reshape(-1, c)])
-    n = xs.shape[0]
+    times = fma_rows_times(dev, xs)
+    times["fit s"], times["fit cpu s"] = secs, cpu_secs
+    return (w, b), counts["fma_rows"], 0.0, times
+
+
+def fma_rows_times(dev, xs=None):
+    """The fit's row chain (`kernels.fma_rows`) at the fit's shapes: ``xs``
+    (default: (992, 16) seeded normal rows, the die's fit's shape) and a
+    seeded d, held bit-equal to its plain version (and on a case where
+    float64 lands on a float32 midpoint), timed beside its plain version
+    and torch.mv (its own order)."""
+    import torch
+
+    from repro_torch.kernels.fma_rows import fma_rows, fma_rows_ref
+
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    if xs is None:
+        xs = torch.randn((2 * DETECTOR_CLIPS * 31, C), generator=g, device=dev)
+    n, c = xs.shape
     d = torch.randn(n, generator=g, device=dev) * 1e-3
     got = fma_rows(d, xs)
     times = {}
@@ -1464,15 +1526,15 @@ def _fit_die_detector(dev, hw_state):
     if fma_rows(md, mx).item() != 1 + 2.0**-23 or not torch.equal(fma_rows(md, mx),
                                                                   fma_rows_ref(md, mx)):
         raise AssertionError("fma_rows: the midpoint case is not rounded once")
-    times["fma_rows ms"], _ = _cuda_ms(lambda: fma_rows(d, xs), reps=20, hold=True)
+    times["fma_rows ms"], _ = _cuda_ms(lambda: fma_rows(d, xs), reps=200, hold=True)
     xt = xs.t()
-    times["fma_rows library_ms"], _ = _cuda_ms(lambda: torch.mv(xt, d), reps=20, hold=True)
+    times["fma_rows library_ms"], _ = _cuda_ms(lambda: torch.mv(xt, d), reps=200, hold=True)
     times["fma_rows bound_ms"], times["fma_rows bound_by"] = fma_rows_bound(n, c)
     print(f"fma_rows ({n},) x ({n}, {c}): bit-equal to its plain version (and on a float64 "
-          f"midpoint); {times['fma_rows ms']:.5f} ms on the card, plain "
-          f"{times['fma_rows plain_ms']:.1f} ms, torch.mv {times['fma_rows library_ms']:.5f} ms, "
+          f"midpoint); {times['fma_rows ms']:.6f} ms on the card, plain "
+          f"{times['fma_rows plain_ms']:.1f} ms, torch.mv {times['fma_rows library_ms']:.6f} ms, "
           f"bound {times['fma_rows bound_ms']:.6f} ms ({times['fma_rows bound_by']})")
-    return (w, b), counts["fma_rows"], 0.0, times
+    return times
 
 
 def cascade_runs(hw_state, linear):
@@ -1849,6 +1911,7 @@ def main() -> int:
         }
 
     d_key = f"{_label('delta', THETA)} raw"
+    k4 = _label("delta", THETA)
     kernels = [
         tick_entry("tick_fused", "qat raw",
                    launches["qat"]["tick_fused"] + launches["integer"]["tick_fused"],
@@ -1859,11 +1922,21 @@ def main() -> int:
                    tick_err["delta"]),
         tick_entry("tick_fused[delta-int]", f"{_label('delta-int', THETA)} raw",
                    launches["delta-int"]["tick_fused"], tick_err["delta-int"]),
-        # K4 runs inside the ΔGRU tick: one per delta / delta-int tick_fused launch
-        tick_entry("delta_gather", d_key,
-                   launches["delta"]["tick_fused"] + launches["delta-int"]["tick_fused"],
-                   max(tick_err["delta"], tick_err["delta-int"]),
-                   replaces="src/repro/kernels/tick_fused/kernel.py:76"),
+        # K4 runs inside the ΔGRU tick: one per delta / delta-int tick_fused
+        # launch; its time is the phase's (the FV tick less the gate-shut FV
+        # tick, both measured in this run), its plain time the sparse step's
+        {
+            "name": "delta_gather", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/tick_fused.cu",
+            "replaces": "src/repro/kernels/tick_fused/kernel.py:76",
+            "launches": launches["delta"]["tick_fused"] + launches["delta-int"]["tick_fused"],
+            "max_abs_err": max(tick_err["delta"], tick_err["delta-int"]),
+            "ms": times[f"{k4} split classifier_ms"],
+            "plain_ms": times[f"{k4} split classifier plain_ms"],
+            "bound_ms": times[f"{k4} split classifier bound_ms"],
+            "bound_by": times[f"{k4} split classifier bound_by"],
+            "library_ms": None,  # no PyTorch call computes the thresholded sparse update
+        },
         tick_entry("tick_fused[hardware]", "qat hardware raw",
                    sum(n["tick_fused"] for label, n in launches.items() if "hardware" in label),
                    max(hw_tick_err.values())),

@@ -73,7 +73,12 @@ def init_gru_classifier(
     device=None,
 ) -> Params:
     """Uniform(-1/sqrt(H), 1/sqrt(H)) init, PyTorch-style, drawn from
-    ``generator`` on the host and placed on ``device``."""
+    ``generator`` on the host and placed on ``device`` (the card by
+    default: `kernels.build.resolve_device`, which raises where there is
+    none)."""
+    from repro_torch.kernels.build import resolve_device  # lazy: kernels import core
+
+    device = resolve_device(device)
     h = config.hidden_dim
     k = 1.0 / math.sqrt(h)
 

@@ -71,8 +71,9 @@ _SIGNATURES = {
         "fex_fused_error_string": ([_I], ctypes.c_char_p),
     },
     "fma_rows": {
-        # d, xs, out, n, c, stream
-        "fma_rows_launch": ([_P, _P, _P, _I, _I, _P], _I),
+        # d, xs, out, n, c, rows, stages, channels a block, flags, smem,
+        # stream
+        "fma_rows_launch": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
         "fma_rows_error_string": ([_I], ctypes.c_char_p),
     },
     "gru_seq": {
@@ -101,11 +102,13 @@ _SIGNATURES = {
         # structs GruState, HwFrontend and Cascade), scores, top, fv_out, w,
         # b, wf, bf, theta, coeffs, mu, sigma, log_rom, sig_rom, tanh_rom,
         # q_max, q_scale, inv_frame, smoothing, one_minus, raw, backend,
-        # stream
+        # delta_bulk, stream
         "tick_fused_launch": (
-            [_P, _P, _I] + [_P] * 8 + [_P] * 11 + [_F] * 5 + [_I, _I, _P],
+            [_P, _P, _I] + [_P] * 8 + [_P] * 11 + [_F] * 5 + [_I, _I, _I, _P],
             _I,
         ),
+        # backend, &smem, &blocks an SM
+        "tick_fused_occupancy": ([_I, _P, _P], _I),
         "tick_fused_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -10,15 +10,34 @@
 // _fit_grad) needs the same chain to stay array-equal to it.
 //
 // Bound: bytes (4 (N + N C + C)), unreachable: the chain is N dependent
-// FMAs, about 4 cycles each, so N = 992 rows take ~2 µs at ~2 GHz.
-// Design: a block owns 32 channels. All its threads stage a tile of up to
-// kMaxRows rows of d and of those channels into shared memory by cp.async
-// (every copy in flight at once); then one warp runs the chain over the
-// tile, a lane a channel, with __fmaf_rn (exact by construction, whatever
-// -fmad says), loading 8 rows from shared memory before their 8 FMAs. One
-// thread a channel reading device memory in the chain's loop waited on a
-// load every few rows (0.025 ms at N = 992 on an H100), and register
-// staging with an unrolled loop still took 0.0146 ms.
+// FMAs, ~4.9 cycles each, so N = 992 rows take ~2.4 µs at 1.98 GHz, and
+// an empty launch ~2.7 µs. What the design can do is start the chain as
+// soon as its first rows have landed and keep only the FMA latency on it.
+// One warp's shared loads are the other limit (a few cycles of issue
+// each): a row-major chunk, a load of d and one of xs a row, held the
+// chain at ~15 cycles a row on an H100.
+// Design: a block owns up to 256 channels (one lane a channel in each of
+// its chain warps), one producer warp and four helper warps. Rows arrive
+// in a ring of chunks of `rows` rows (a multiple of 8): where the block
+// owns whole rows (C <= 256) a chunk of d and one of xs are each one
+// contiguous run, sent by one bulk copy of its whole 16-byte words, the
+// words past them (a ragged last chunk) and every chunk of an input whose
+// base is off 16 bytes by cp.async words completing on the same barrier;
+// where C > 256 each row's slice goes by words. The producer sends the
+// first chunk while the other barriers are still being initialised, and
+// few large chunks (issuing a bulk copy takes it ~400 cycles). The helper
+// warps turn each landed chunk of xs column-major ([channel][row], rows
+// padded to a multiple of 32 plus 4 so the chain's vector loads are free
+// of bank conflicts; 4 x 4 register transposes where C % 4 == 0), so a
+// chain lane reads 4 rows of its channel, and 4 rows of d, with one
+// 16-byte load each: 0.5 loads a row. The chain warps run a chunk's whole
+// groups of 8 rows in two register sets (group g + 1 loads while group
+// g's FMAs run) on __fmaf_rn (exact by construction, whatever -fmad
+// says), with nothing else on the path, then its last rows one by one.
+// Warps off the path poll their barriers with a sleep between polls. The
+// wrapper's `fma_rows_geometry` picks rows, stages and the copies; the
+// dynamic shared memory limit is raised once per device, not at every
+// launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -26,65 +45,245 @@
 
 namespace {
 
-constexpr int kCols = 32;       // channels a block: one lane of the chain warp each
-constexpr int kThreads = 512;   // all stage a tile; warp 0 runs the chain
-constexpr int kMaxRows = 1536;  // rows a tile: (1 + 32) * 1536 * 4 = 202 752 B of shared memory
-constexpr int kGroup = 8;       // rows the chain warp loads before it runs their FMAs
+constexpr int kMaxCols = 256;     // channels a block: 8 chain warps
+constexpr int kMaxStages = 16;    // chunks in flight
+constexpr int kHelpers = 4;       // warps that turn a chunk column-major
+constexpr int kGroup = 8;         // rows a chain step loads ahead
+constexpr int kBarBytes = 3 * kMaxStages * 8;
+constexpr int kMaxSmem = kBarBytes + 192 * 1024;  // barriers + the ring
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kThreads)
-    fma_rows_kernel(const float* __restrict__ d, const float* __restrict__ xs,
-                    float* __restrict__ out, int n, int c, int tile) {
-  extern __shared__ float smem[];
-  float* d_s = smem;         // [tile]
-  float* x_s = smem + tile;  // [tile][kCols]; a column past c is never read out
-  const int j0 = blockIdx.x * kCols;
-  const int cols = min(kCols, c - j0);
-  const int lane = threadIdx.x;
-  float acc = 0.0f;
-  for (int r0 = 0; r0 < n; r0 += tile) {
-    const int rows = min(tile, n - r0);
-    for (int r = threadIdx.x; r < rows; r += kThreads) cp_async4(d_s + r, d + r0 + r);
-    for (int i = threadIdx.x; i < rows * kCols; i += kThreads) {
-      const int k = i % kCols;
-      if (k < cols) cp_async4(x_s + i, xs + static_cast<int64_t>(r0 + i / kCols) * c + j0 + k);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (lane < kCols) {
-      int r = 0;
-      for (; r + kGroup <= rows; r += kGroup) {  // the group's loads, then its chain
-        float dv[kGroup], xv[kGroup];
-#pragma unroll
-        for (int u = 0; u < kGroup; ++u) {
-          dv[u] = d_s[r + u];
-          xv[u] = x_s[(r + u) * kCols + lane];
-        }
-#pragma unroll
-        for (int u = 0; u < kGroup; ++u) acc = __fmaf_rn(dv[u], xv[u], acc);
-      }
-      for (; r < rows; ++r) acc = __fmaf_rn(d_s[r], x_s[r * kCols + lane], acc);
-    }
-    __syncthreads();
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// mbar_wait for a warp off the chain's path (the producer, the helpers):
+// it sleeps between polls, so its polls do not take issue slots and
+// shared-memory cycles from the chain warp (polling warps held the chain
+// at ~20 cycles a row, against 4.6 alone).
+__device__ __forceinline__ void mbar_wait_sleep(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    __nanosleep(128);
   }
-  if (lane < cols) out[j0 + lane] = acc;
+}
+
+__global__ void fma_rows_kernel(const float* __restrict__ d, const float* __restrict__ xs,
+                                float* __restrict__ out, int n, int c, int rows, int stages,
+                                int cb, int flags) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [kMaxStages] chunk landed
+  uint64_t* ready = full + kMaxStages;                  // [kMaxStages] chunk column-major
+  uint64_t* empty = ready + kMaxStages;                 // [kMaxStages] chunk read
+  float* ring = reinterpret_cast<float*>(smem + kBarBytes);
+  const int j0 = blockIdx.x * cb;
+  const int cols = min(cb, c - j0);
+  const bool whole = cols == c;     // the block owns whole rows
+  const int ld = whole ? c : cb;    // a landed row's words
+  const int cstride = rows + 4;     // a column's words in the column-major copy
+  // a stage: d [rows], xs as landed [rows][ld], xs column-major [cb][cstride],
+  // kGroup words of padding
+  const int stage_words = rows * (1 + ld) + cb * cstride + kGroup;  // + the chain's overread
+  const int chain_warps = blockDim.x / 32 - 1 - kHelpers;  // the same in every block
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int chunks = (n + rows - 1) / rows;
+  // the producer warp sends chunk k into its stage
+  auto issue = [&](int k) {
+    const int st = k % stages;
+    if (k >= stages) mbar_wait_sleep(&empty[st], (k / stages - 1) & 1);
+    float* d_s = ring + st * stage_words;
+    float* x_s = d_s + rows;
+    const int r0 = k * rows;
+    const int nr = min(rows, n - r0);
+    // the leading whole 16-byte words by bulk copy, the rest by words
+    const int d_bulk = (flags & 1) ? nr / 4 * 4 : 0;
+    const int x_bulk = (flags & 2) && whole ? nr * c / 4 * 4 : 0;
+    if (lane == 0) {
+      mbar_arrive_tx(&full[st], 4u * (d_bulk + x_bulk));
+      if (d_bulk) bulk_copy(d_s, d + r0, 4u * d_bulk, &full[st]);
+      if (x_bulk) bulk_copy(x_s, xs + static_cast<int64_t>(r0) * c, 4u * x_bulk, &full[st]);
+    }
+    for (int e = d_bulk + lane; e < nr; e += 32) cp_async4(d_s + e, d + r0 + e);
+    if (whole) {
+      const float* src = xs + static_cast<int64_t>(r0) * c;
+      for (int e = x_bulk + lane; e < nr * c; e += 32) cp_async4(x_s + e, src + e);
+    } else {
+      for (int e = lane; e < nr * cols; e += 32) {
+        const int r = e / cols;
+        const int j = e - r * cols;
+        cp_async4(x_s + r * ld + j, xs + static_cast<int64_t>(r0 + r) * c + j0 + j);
+      }
+    }
+    if (!(flags & 4)) cp_async_mbar_arrive(&full[st]);
+  };
+  // The producer's lane 0 initialises the landing barriers and the
+  // producer sends the first chunk before the block barrier, which orders
+  // the other barriers' initialisation (by chain threads) before their
+  // first use: the first chunk is in flight meanwhile.
+  if (warp == chain_warps) {
+    if (lane == 0) {
+      for (int s = 0; s < stages; ++s) {
+        // the expect-tx arrival, and each producer lane's cp.async arrival
+        // unless every copy of the launch is a bulk copy (flags bit 2)
+        mbar_init(&full[s], (flags & 4) ? 1 : 1 + 32);
+      }
+      mbar_fence_init();
+    }
+    __syncwarp();
+    if (chunks > 0) issue(0);
+  } else if (threadIdx.x < stages) {  // a chain thread a stage
+    mbar_init(&ready[threadIdx.x], 32 * kHelpers);
+    mbar_init(&empty[threadIdx.x], chain_warps);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == chain_warps) {  // the producer warp: the other chunks
+    for (int k = 1; k < chunks; ++k) issue(k);
+    cp_async_wait<0>();
+    return;
+  }
+
+  if (warp > chain_warps) {  // a helper warp: each landed chunk, column-major
+    // a helper thread copies channel hj (and every per_row-th after it) of
+    // every rstep-th row from row hr: no division in the loops
+    const int h = threadIdx.x - 32 * (chain_warps + 1);
+    const bool vec = whole && c % 4 == 0;  // a landed row is whole 16-byte words
+    const int per_row = min(cols, 32 * kHelpers);
+    const int rstep = 32 * kHelpers / per_row;
+    const int hj = h % per_row;
+    const int hr = h / per_row;
+    int st = 0;
+    unsigned parity = 0;
+    for (int k = 0; k < chunks; ++k) {
+      mbar_wait_sleep(&full[st], parity);
+      const float* x_s = ring + st * stage_words + rows;
+      float* x_c = ring + st * stage_words + rows * (1 + ld);
+      const int nr = min(rows, n - k * rows);
+      if (vec) {  // 4 rows x 4 channels a task: four 16-byte loads, four stores
+        const int quads = c / 4;
+        for (int t = h; t < (nr + 3) / 4 * quads; t += 32 * kHelpers) {
+          const int p = t / quads;
+          const int q = t - p * quads;
+          const float* src = x_s + 4 * p * ld + 4 * q;
+          const float4 a = ld4(src), b = ld4(src + ld), e = ld4(src + 2 * ld),
+                       f = ld4(src + 3 * ld);
+          float* dst = x_c + 4 * q * cstride + 4 * p;
+          *reinterpret_cast<float4*>(dst) = make_float4(a.x, b.x, e.x, f.x);
+          *reinterpret_cast<float4*>(dst + cstride) = make_float4(a.y, b.y, e.y, f.y);
+          *reinterpret_cast<float4*>(dst + 2 * cstride) = make_float4(a.z, b.z, e.z, f.z);
+          *reinterpret_cast<float4*>(dst + 3 * cstride) = make_float4(a.w, b.w, e.w, f.w);
+        }
+      } else if (hr < rstep) {
+        for (int r = hr; r < nr; r += rstep) {
+          for (int j = hj; j < cols; j += per_row) x_c[j * cstride + r] = x_s[r * ld + j];
+        }
+      }
+      mbar_arrive(&ready[st]);
+      if (++st == stages) {
+        st = 0;
+        parity ^= 1;
+      }
+    }
+    return;
+  }
+
+  // a chain warp: lane j owns channel j0 + 32 warp + j (a lane past the
+  // block's channels runs column 0's chain and writes nothing). It walks
+  // each chunk's rows in groups of 8, two groups in flight in two register
+  // sets (group g + 1 loads while group g's FMAs run), then the chunk's
+  // last rows one by one. Nothing but loads and FMAs is on the path: with
+  // a chunk test and a bounds test a group the same loop ran at ~15.6
+  // cycles a row on an H100, without them at ~4.6.
+  const int j = warp * 32 + lane;
+  const int jj = j < cols ? j : 0;
+  float acc = 0.0f;
+  auto chain = [&](const float4 (&dd)[2], const float4 (&xx)[2]) {
+    acc = __fmaf_rn(dd[0].x, xx[0].x, acc);
+    acc = __fmaf_rn(dd[0].y, xx[0].y, acc);
+    acc = __fmaf_rn(dd[0].z, xx[0].z, acc);
+    acc = __fmaf_rn(dd[0].w, xx[0].w, acc);
+    acc = __fmaf_rn(dd[1].x, xx[1].x, acc);
+    acc = __fmaf_rn(dd[1].y, xx[1].y, acc);
+    acc = __fmaf_rn(dd[1].z, xx[1].z, acc);
+    acc = __fmaf_rn(dd[1].w, xx[1].w, acc);
+  };
+  int st = 0;           // the stage of chunk k
+  unsigned parity = 0;  // its ready barrier's phase parity
+  for (int k = 0; k < chunks; ++k) {
+    mbar_wait(&ready[st], parity);
+    const float* d_s = ring + st * stage_words;
+    const float* x_c = d_s + rows * (1 + ld) + jj * cstride;
+    const int nr = min(rows, n - k * rows);
+    const int groups = nr / kGroup;
+    // the chunk's whole groups with nothing on the path but loads and
+    // FMAs: the loads of the group after the last one read the stage's
+    // padding, not past it
+    const float* dp = d_s;
+    const float* xp = x_c;
+    auto load = [&](float4 (&dd)[2], float4 (&xx)[2]) {
+      dd[0] = ld4(dp);
+      dd[1] = ld4(dp + 4);
+      xx[0] = ld4(xp);
+      xx[1] = ld4(xp + 4);
+      dp += kGroup;
+      xp += kGroup;
+    };
+    float4 da[2], xa[2], db[2], xb[2];
+    load(da, xa);
+    int g = 0;
+    for (; g + 2 <= groups; g += 2) {
+      load(db, xb);
+      chain(da, xa);
+      load(da, xa);
+      chain(db, xb);
+    }
+    if (g < groups) chain(da, xa);
+    for (int r = groups * kGroup; r < nr; ++r) acc = __fmaf_rn(d_s[r], x_c[r], acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // every load of the chunk is done
+    if (++st == stages) {
+      st = 0;
+      parity ^= 1;
+    }
+  }
+  if (j < cols) out[j0 + j] = acc;
 }
 
 }  // namespace
 
-// d (n,) and xs (n, c) contiguous float32; out (c,) float32.
-extern "C" int fma_rows_launch(const void* d, const void* xs, void* out, int n, int c,
-                               void* stream) {
-  if (n < 0 || c <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(fma_rows_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (1 + kCols) * kMaxRows * 4);
+// d (n,) and xs (n, c) contiguous float32; out (c,) float32. rows (a
+// multiple of 8), stages, cb (channels a block) and flags (bit 0: d by bulk
+// copy, bit 1: xs by bulk copy, bit 2: no word copies at all) from the
+// wrapper's fma_rows_geometry;
+// smem = 384 + stages * (rows * (1 + row words) + cb * (rows + 4) + 8) * 4.
+extern "C" int fma_rows_launch(const void* d, const void* xs, void* out, int n, int c, int rows,
+                               int stages, int cb, int flags, int smem, void* stream) {
+  if (n < 0 || c <= 0 || rows <= 0 || rows % kGroup || stages <= 0 || stages > kMaxStages ||
+      cb <= 0 || cb > kMaxCols || flags < 0 || flags > 7 || smem > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static bool raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tile = n < kMaxRows ? n : kMaxRows;
-  fma_rows_kernel<<<(c + kCols - 1) / kCols, kThreads, (1 + kCols) * tile * 4,
-                    static_cast<cudaStream_t>(stream)>>>(
+  if (dev >= kMaxDevices || !raised[dev]) {
+    err = cudaFuncSetAttribute(fma_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) raised[dev] = true;
+  }
+  const int blocks = (c + cb - 1) / cb;
+  const int threads = 32 * ((min(cb, c) + 31) / 32 + 1 + kHelpers);
+  fma_rows_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(d), static_cast<const float*>(xs), static_cast<float*>(out), n, c,
-      tile);
+      rows, stages, cb, flags);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,8 +12,8 @@
 // Bound: operations for the dense backends (per stream and tick the
 // frontend runs 512 dependent biquad steps for each of 16 channels, ~6 k
 // flops a channel, and the classifier ~47 k operations, against ~1.1 kB of
-// input and state); bytes come close for the ΔGRU backends, whose state is
-// ~3.3 kB a stream read and written each tick.
+// input and state); bytes for the ΔGRU backends, whose state is ~3.3 kB a
+// stream read each tick (and written where it changed).
 // Design: one block of 256 threads owns 16 streams.
 //   * Frontend: one thread per (stream, channel) oversamples the hop
 //     inline (edge-replicated, as _chunk_to_internal), runs the TDF-II
@@ -50,18 +50,29 @@
 //     reads its float32 weights (96.8 kB) through the read-only cache
 //     instead, so a block keeps ~53 kB of shared memory and four blocks fit
 //     on an SM; its gates are expf / tanhf.
-//   * ΔGRU (K4): per layer, threads over (stream, column) form the
-//     thresholded deltas of the input and the state against their
-//     reference memories (|Δ| > θ on the Q6.8 grid) and advance the
-//     memories where a delta fires; warp 0 (input columns) and warp 1
-//     (state columns) build the block's fired-column lists in shared
-//     memory with __ballot_sync and a __popc prefix sum over the columns
-//     that fired for any submitting stream; then each (stream, gate column)
-//     thread adds one rank-1 term per listed column, in ascending column
-//     order, to its accumulator (the contribution is clipped to int24 once
-//     in the code domain, as intgemm clips) and forms the gate
-//     preactivation from the accumulator plus bias. Skipped / total column
-//     counters advance per submitting stream.
+//   * ΔGRU (K4; its own kernel instantiation, `tick_delta_kernel`, so
+//     its registers do not weigh on the dense backends' code): its state
+//     (x_ref, h_ref, acc_x, acc_h of both layers, 2 944 B a stream,
+//     47 104 B a block) and the skipped / total counters are read once a
+//     tick, so the block issues them at the top as eight bulk copies on
+//     one mbarrier (cp.async words where the wrapper's `delta_staging`
+//     found a base off 16 bytes, and for the counters) and they land
+//     while the weights stage and the frontend runs; behind a cascade
+//     only after the gate, and only for a block where a stream woke (a
+//     block that wakes none has no ΔGRU work). Per layer: threads over (stream, column) form the thresholded
+//     deltas against the staged memories (|Δ| > θ on the Q6.8 grid),
+//     advance a memory in device memory only where it fires, store the
+//     deltas column-major ([column][stream], so 4 streams are one 16-byte
+//     load) and ballot each stream's 32-column fire masks; warp 0 takes the
+//     skipped / total counters from their popcounts and ORs them into the
+//     block-union masks. Then the rank-1 terms run on the dense phase's
+//     4 streams x 4 gate columns register tiles: per fired column
+//     (ascending, walked with __ffsll) one 16-byte load of deltas and one
+//     32-bit load of int8 weights feed 16 multiply-adds. Each accumulator
+//     sums from 0 and is added once to its staged state (the contribution
+//     clipped to int24 once in the code domain, as intgemm clips); the
+//     gate preactivation is acc + bias; an accumulator row is written back
+//     only where its stream fired a column of its product.
 //   * Cascade (the reference's gated branch, ref.py:89-112): after the
 //     frontend, one thread per stream scores the block's 16 FV_Norm values
 //     ("energy": relu summed left to right, times 1/16; "linear": a chain
@@ -69,7 +80,7 @@
 //     Cephes exp, flushed below the smallest normal), advances the
 //     detector state {awake, hang, woken, ticks} of a submitting stream
 //     and sets the stream's wake flag (submitted and gated open). The
-//     classifier, K4's fired-column lists, the state write-back and the
+//     classifier, K4's fire masks, the state write-back and the
 //     tail read the wake flag; the frontend carry and the detector read
 //     the submitted flag. A gated stream's classifier work is computed and
 //     discarded, as in the reference (modelled sparsity); its scores are
@@ -99,6 +110,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "biquad.cuh"
 #include "intgemm.cuh"
 
@@ -142,11 +154,28 @@ static_assert(W_TOTAL % 16 == 0, "weights are staged as 16-byte vectors");
 // h1, h2; float bits for float / qat / delta, codes for integer /
 // delta-int), [SB][2][G] gate preactivations, [SB][K] logits, [SB][C]
 // FV_Norm frames (the detector's input), [SB] submitted and [SB] wake
-// flags; the ΔGRU branch adds [SB][H] input and state deltas (codes), the
-// [2][H] fired-column lists and their [2] lengths.
+// flags. The ΔGRU branch (K4) adds its staged state (below), the input and
+// state deltas column-major, [H][SBP] each (float bits d * 2^-8 for delta,
+// codes for delta-int), [SB][3] fire-mask words, [2][SB] row-fired flags,
+// the [2] block-union fire masks, the staging barrier and the staged
+// skipped / total counters, [2 layers][2][SB].
 constexpr int SMEM_BASE = W_TOTAL + 4 * B_TOTAL + 4 * 3 * SB * H +
                           4 * SB * 2 * G + 4 * SB * K + 4 * SB * C + 4 * 2 * SB;
-constexpr int SMEM_DELTA = 4 * 2 * SB * H + 4 * 2 * H + 4 * 2;
+// A delta column's SB streams padded to SBP words: the threshold pass
+// writes a warp's 32 consecutive columns of one stream, which at a row of
+// 16 words would hit 2 banks; at 20 it hits 8 (and a row stays whole
+// 16-byte vectors for the tiles' loads).
+constexpr int SBP = SB + 4;
+constexpr int MASK_WORDS = 3;  // 32-column words of a stream's [x | h] fire mask (<= 96 columns)
+// The staged ΔGRU state, per layer: x_ref [SB][in], h_ref [SB][H], acc_x
+// [SB][G], acc_h [SB][G]; array k of layer l is staged array 4 l + k.
+constexpr int ST_L0 = SB * C + SB * H + 2 * SB * G;
+constexpr int ST_WORDS = ST_L0 + 2 * SB * H + 2 * SB * G;
+constexpr int SMEM_DELTA = 4 * ST_WORDS + 4 * 2 * H * SBP + 4 * SB * MASK_WORDS + 4 * 2 * SB +
+                           8 * 2 + 8 + 4 * 4 * SB;
+static_assert(SMEM_BASE % 16 == 0 && (4 * ST_WORDS) % 16 == 0 && (4 * SBP) % 16 == 0,
+              "bulk copies and 16-byte vectors land on 16-byte boundaries");
+static_assert(C + H == 64 && 2 * H == 96 && C <= 32, "a stream's fire mask: 2 or 3 words");
 
 // Per-layer classifier state. The dense backends use h only; the ΔGRU
 // backends all seven (float32 for delta, int32 for delta-int; the counters
@@ -214,6 +243,7 @@ struct TickArgs {
   const float* wf;
   const float* bf;
   const int32_t* theta;  // per layer (theta_x, theta_h), Q6.8 codes
+  int delta_bulk;        // bit 4 l + k: staged array k of layer l by bulk copy, else by words
   const float* coeffs;
   const float* mu;
   const float* sigma;
@@ -446,31 +476,99 @@ __device__ __forceinline__ void dense_tile(const TickArgs& a, int bk, const int3
   }
 }
 
-// K4's rank-1 terms for one (stream, gate column): sum over the listed
-// columns i, in list order, of d[i] * w[i, col]. Code domain: exact int32
-// sum, clipped once to int24. Float domain: each product is exact
-// (code * code * 2^-15) and the float sum runs in the plain version's order.
-__device__ __forceinline__ int32_t sparse_dot_int(const int32_t* d,
-                                                  const int32_t* list, int n,
-                                                  const int8_t* w, int col) {
-  int32_t acc = 0;
-  for (int k = 0; k < n; ++k) {
-    const int i = list[k];
-    acc += d[i] * static_cast<int32_t>(w[i * G + col]);
-  }
-  return min(max(acc, INTGEMM_ACC_MIN), INTGEMM_ACC_MAX);
+// K4's staged state: offset (words) and row length of staged array k
+// (x_ref, h_ref, acc_x, acc_h) of layer l, in the order of struct GruState.
+__device__ __forceinline__ int st_offset(int l, int k) {
+  const int in_dim = l == 0 ? C : H;
+  const int off[4] = {0, SB * in_dim, SB * (in_dim + H), SB * (in_dim + H + G)};
+  return (l == 0 ? 0 : ST_L0) + off[k];
 }
 
-__device__ __forceinline__ float sparse_dot_float(const int32_t* d,
-                                                  const int32_t* list, int n,
-                                                  const int8_t* w, int col) {
-  float acc = 0.0f;
-  for (int k = 0; k < n; ++k) {
-    const int i = list[k];
-    const int32_t p = d[i] * static_cast<int32_t>(w[i * G + col]);
-    acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(p), ACC_LSB));
+__device__ __forceinline__ int st_row(int l, int k) {
+  return k == 0 ? (l == 0 ? C : H) : k == 1 ? H : G;
+}
+
+__device__ __forceinline__ void* st_source(const GruState& g, int l, int k) {
+  return k == 0 ? g.x_ref[l] : k == 1 ? g.h_ref[l] : k == 2 ? g.acc_x[l] : g.acc_h[l];
+}
+
+// K4's rank-1 terms on a register tile of 4 streams x 4 gate columns: for
+// each fired column i of the block-union mask, in ascending order, one
+// 16-byte load of the 4 streams' deltas (column-major dT) and one 32-bit
+// load of the 4 columns' int8 weights feed 16 multiply-adds. Every
+// accumulator sums its terms from 0 in ascending column order, as the
+// plain version (gather.py) does. A stream that did not fire column i adds
+// a zero term there, as in the plain version: in the float domain the
+// term is +-0.0, and a sum started at +0.0 is never -0.0 (round to nearest
+// gives -0.0 only for -0.0 + -0.0), so adding it leaves the sum unchanged.
+// Float domain (delta): d * 2^-8 times code * 2^-7 is exact in float32
+// (|d| < 2^14, |code| <= 2^7), so the fused multiply-add rounds as
+// multiply-then-add does.
+// The next fired column's operands are loaded before the current
+// column's 16 multiply-adds, so their shared-memory latency hides behind
+// them.
+__device__ __forceinline__ void delta_terms_float(uint64_t m, const int32_t* dT, const int8_t* w,
+                                                  float acc[4][4]) {
+  if (!m) return;
+  int i = __ffsll(static_cast<long long>(m)) - 1;
+  m &= m - 1;
+  float4 dv = *reinterpret_cast<const float4*>(dT + i * SBP);
+  uint32_t wv = *reinterpret_cast<const uint32_t*>(w + i * G);
+  for (;;) {
+    const bool more = m != 0;
+    float4 dn = dv;
+    uint32_t wn = wv;
+    if (more) {
+      i = __ffsll(static_cast<long long>(m)) - 1;
+      m &= m - 1;
+      dn = *reinterpret_cast<const float4*>(dT + i * SBP);
+      wn = *reinterpret_cast<const uint32_t*>(w + i * G);
+    }
+    const uint32_t biased = wv ^ 0x80808080u;
+    const float wk[4] = {w_lsb<0>(biased), w_lsb<1>(biased), w_lsb<2>(biased), w_lsb<3>(biased)};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float ds = float4_lane(dv, s);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[s][c] = __fmaf_rn(ds, wk[c], acc[s][c]);
+    }
+    if (!more) break;
+    dv = dn;
+    wv = wn;
   }
-  return acc;
+}
+
+// Code domain (delta-int): exact int32 sums (products < 2^21, at most 48
+// terms), clipped once to int24 by the caller.
+__device__ __forceinline__ void delta_terms_int(uint64_t m, const int32_t* dT, const int8_t* w,
+                                                int32_t acc[4][4]) {
+  if (!m) return;
+  int i = __ffsll(static_cast<long long>(m)) - 1;
+  m &= m - 1;
+  int4 dv = *reinterpret_cast<const int4*>(dT + i * SBP);
+  uint32_t wv = *reinterpret_cast<const uint32_t*>(w + i * G);
+  for (;;) {
+    const bool more = m != 0;
+    int4 dn = dv;
+    uint32_t wn = wv;
+    if (more) {
+      i = __ffsll(static_cast<long long>(m)) - 1;
+      m &= m - 1;
+      dn = *reinterpret_cast<const int4*>(dT + i * SBP);
+      wn = *reinterpret_cast<const uint32_t*>(w + i * G);
+    }
+    const int32_t wc[4] = {int8_lane<0>(wv), int8_lane<1>(wv), int8_lane<2>(wv),
+                           int8_lane<3>(wv)};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int32_t ds = int4_lane(dv, s);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[s][c] += ds * wc[c];
+    }
+    if (!more) break;
+    dv = dn;
+    wv = wn;
+  }
 }
 
 __device__ __forceinline__ float sigmoid_f(float v) {
@@ -513,7 +611,12 @@ __device__ __forceinline__ float detector_score(const Cascade& cs, const float* 
   return xla_sigmoid(__fadd_rn(acc, cs.b));
 }
 
-__global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
+// The tick's body, compiled twice: without the ΔGRU branch for the dense
+// backends (qat, integer, float) and with it for delta / delta-int, so the
+// ΔGRU's register tiles and staging add no register pressure to the dense
+// backends' code.
+template <bool DELTA>
+__device__ __forceinline__ void tick_body(const TickArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* w_s = reinterpret_cast<int8_t*>(smem);
   int32_t* b_s = reinterpret_cast<int32_t*>(smem + W_TOTAL);
@@ -523,17 +626,74 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   float* fv_s = logit_s + SB * K;                                  // [SB][C]
   int* active_s = reinterpret_cast<int*>(fv_s + SB * C);           // [SB] submitted
   int* wake_s = active_s + SB;             // [SB] submitted and woken
-  int32_t* dx_s = wake_s + SB;             // ΔGRU only: [SB][H]
-  int32_t* dh_s = dx_s + SB * H;           // [SB][H]
-  int32_t* list_s = dh_s + SB * H;         // [2][H] input, state columns
-  int* nlist_s = list_s + 2 * H;           // [2]
+  // ΔGRU only (K4), from SMEM_BASE:
+  int32_t* st_s = reinterpret_cast<int32_t*>(smem + SMEM_BASE);  // staged state
+  int32_t* dx_s = st_s + ST_WORDS;         // [H][SBP] input deltas (columns < in_dim)
+  int32_t* dh_s = dx_s + H * SBP;          // [H][SBP] state deltas
+  uint32_t* mask_s = reinterpret_cast<uint32_t*>(dh_s + H * SBP);  // [SB][MASK_WORDS]
+  int* rowf_s = reinterpret_cast<int*>(mask_s + SB * MASK_WORDS);  // [2][SB] x, h fired
+  uint64_t* fire_s = reinterpret_cast<uint64_t*>(rowf_s + 2 * SB);  // [2] block-union masks
+  uint64_t* bar = fire_s + 2;              // the staging barrier
+  int32_t* cnt_s = reinterpret_cast<int32_t*>(bar + 1);  // [2][2][SB] skipped, total
 
   const int tid = threadIdx.x;
   const int base = blockIdx.x * SB;
   const int bk = a.backend;
   const bool codes = bk == BK_INTEGER || bk == BK_DELTA_INT;
   const bool flt = bk == BK_FLOAT;
-  const bool delta = bk == BK_DELTA || bk == BK_DELTA_INT;
+  constexpr bool delta = DELTA;
+
+  // ---- K4: stage the block's ΔGRU state (x_ref, h_ref, acc_x, acc_h of
+  // both layers, 2 944 B a stream, and the skipped / total counters):
+  // one bulk copy an array (its SB rows are one contiguous run of whole
+  // 16-byte words), or cp.async words where the wrapper found its base
+  // not 16-byte aligned (and for the counters); all complete on one
+  // barrier (one expect-tx arrival and every thread's cp.async arrival).
+  // Without a cascade it is issued here, to land while the weights stage
+  // and the frontend runs; behind a cascade only after the gate, and only
+  // where a stream of the block woke (a block that wakes none has no ΔGRU
+  // work: every delta is zero and no counter advances). ----
+  auto stage_delta = [&]() {
+    const int rows = min(SB, a.n - base);
+    if (tid == 0) {
+      unsigned bytes = 0;
+      for (int k = 0; k < 8; ++k) {
+        if ((a.delta_bulk >> k) & 1) bytes += rows * st_row(k / 4, k % 4) * 4;
+      }
+      mbar_arrive_tx(bar, bytes);
+      for (int k = 0; k < 8; ++k) {
+        if (!((a.delta_bulk >> k) & 1)) continue;
+        const int row = st_row(k / 4, k % 4);
+        bulk_copy(st_s + st_offset(k / 4, k % 4),
+                  static_cast<const int32_t*>(st_source(a.g, k / 4, k % 4)) +
+                      static_cast<int64_t>(base) * row,
+                  rows * row * 4, bar);
+      }
+    }
+    for (int k = 0; k < 8; ++k) {
+      if ((a.delta_bulk >> k) & 1) continue;
+      const int row = st_row(k / 4, k % 4);
+      float* dst = reinterpret_cast<float*>(st_s + st_offset(k / 4, k % 4));
+      const float* src = static_cast<const float*>(st_source(a.g, k / 4, k % 4)) +
+                         static_cast<int64_t>(base) * row;
+      for (int e = tid; e < rows * row; e += THREADS) cp_async4(dst + e, src + e);
+    }
+    if (tid < 4 * SB && tid % SB < rows) {  // skipped[0], total[0], skipped[1], total[1]
+      const int k = tid / SB;
+      const int32_t* src = (k % 2 == 0 ? a.g.skipped : a.g.total)[k / 2];
+      cp_async4(reinterpret_cast<float*>(cnt_s + tid),
+                reinterpret_cast<const float*>(src + base + tid % SB));
+    }
+    cp_async_mbar_arrive(bar);
+  };
+  if (delta) {
+    if (tid == 0) {
+      mbar_init(bar, THREADS + 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+    if (!a.casc.on) stage_delta();
+  }
 
   // ---- stage weights, biases, flags and hidden state ----
   if (!flt) {
@@ -626,6 +786,12 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     }
     __syncthreads();
   }
+  // the ΔGRU's state is staged (block-uniform): always without a cascade
+  bool staged = true;
+  if (delta && a.casc.on) {
+    staged = __syncthreads_or(tid < SB && wake_s[tid]);
+    if (staged) stage_delta();
+  }
 
   // ---- classifier: two GRU layers (woken streams) ----
   for (int layer = 0; layer < 2; ++layer) {
@@ -636,102 +802,146 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
     const int w_h_off = layer == 0 ? W_L1H : W_L2H;
     const int b_i_off = layer == 0 ? B_L1I : B_L2I;
     const int b_h_off = layer == 0 ? B_L1H : B_L2H;
-    const int8_t* wi = w_s + w_i_off;
-    const int8_t* wh = w_s + w_h_off;
-    const int32_t* bi = b_s + b_i_off;
-    const int32_t* bh = b_s + b_h_off;
     if (delta) {
-      // (1-4) thresholded deltas; the memories advance where one fires
+      if (!staged) continue;  // no stream of the block woke: nothing to update
+      // (1) thresholded deltas, one thread a (stream, column) over the
+      // [x | h] columns of a stream (a warp: 32 consecutive columns of one
+      // stream), from the staged memories; a memory that fires advances in
+      // device memory (only there: it is not read again this tick); each
+      // warp's fire mask by ballot
+      if (layer == 0) mbar_wait(bar, 0);
       const int cols = in_dim + H;
       const int tx = a.theta[2 * layer];
       const int th = a.theta[2 * layer + 1];
-      for (int item = tid; item < SB * cols; item += THREADS) {
+      const int32_t* xr_s = st_s + st_offset(layer, 0);
+      const int32_t* hr_s = st_s + st_offset(layer, 1);
+      for (int item = tid; item < SB * cols; item += THREADS) {  // whole warps: cols % 32 == 0
         const int s = item / cols;
         const int col = item % cols;
         const bool is_x = col < in_dim;
         const int i = is_x ? col : col - in_dim;
         int d = 0;
         if (wake_s[s]) {
-          const int64_t off =
-              static_cast<int64_t>(base + s) * (is_x ? in_dim : H) + i;
-          void* ref_p = is_x ? a.g.x_ref[layer] : a.g.h_ref[layer];
           const int32_t cur_bits = (is_x ? x_s : h_s)[s * H + i];
+          const int32_t ref_bits = is_x ? xr_s[s * in_dim + i] : hr_s[s * H + i];
           const int cur = codes ? cur_bits : grid_code(__int_as_float(cur_bits));
-          const int ref = codes ? static_cast<int32_t*>(ref_p)[off]
-                                : grid_code(static_cast<float*>(ref_p)[off]);
+          const int ref = codes ? ref_bits : grid_code(__int_as_float(ref_bits));
           const int diff = cur - ref;
           if (abs(diff) > (is_x ? tx : th)) {
             d = diff;
+            const int64_t off = static_cast<int64_t>(base + s) * (is_x ? in_dim : H) + i;
+            void* ref_p = is_x ? a.g.x_ref[layer] : a.g.h_ref[layer];
             if (codes) {
               static_cast<int32_t*>(ref_p)[off] = ref + diff;
             } else {
-              float* rf = static_cast<float*>(ref_p) + off;
-              *rf = __fadd_rn(*rf, __fmul_rn(static_cast<float>(diff), Q68_LSB));
+              static_cast<float*>(ref_p)[off] =
+                  __fadd_rn(__int_as_float(ref_bits), __fmul_rn(static_cast<float>(diff), Q68_LSB));
             }
           }
         }
-        (is_x ? dx_s : dh_s)[s * H + i] = d;
+        (is_x ? dx_s : dh_s)[i * SBP + s] =
+            codes ? d : __float_as_int(__fmul_rn(static_cast<float>(d), Q68_LSB));
+        const unsigned fired = __ballot_sync(0xffffffffu, d != 0);
+        if ((tid & 31) == 0) mask_s[s * MASK_WORDS + col / 32] = fired;
       }
       __syncthreads();
-      // (5-6) fired-column lists (warp 0: input, warp 1: state) and the
-      // skipped / total counters (one thread per stream)
-      const int warp = tid / 32;
-      const int lane = tid % 32;
-      if (warp < 2) {
-        const int32_t* d_s = warp == 0 ? dx_s : dh_s;
-        const int ncols = warp == 0 ? in_dim : H;
-        int32_t* list = list_s + warp * H;
-        int count = 0;
-        for (int c0 = 0; c0 < ncols; c0 += 32) {
-          const int col = c0 + lane;
-          bool fired = false;
-          if (col < ncols) {
-            for (int s = 0; s < SB; ++s) fired |= d_s[s * H + col] != 0;
+      // (2) warp 0: a stream's input and state fire masks from its words,
+      // the skipped / total counters from their popcounts, the row-fired
+      // flags, and the block-union masks (OR over the streams)
+      if (tid < 32) {
+        uint64_t fx = 0, fh = 0;
+        if (tid < SB) {
+          const uint32_t* mw = mask_s + tid * MASK_WORDS;
+          const uint64_t lo = mw[0] | (static_cast<uint64_t>(mw[1]) << 32);
+          if (layer == 0) {  // [16 x | 48 h]
+            fx = lo & ((1ull << C) - 1);
+            fh = lo >> C;
+          } else {           // [48 x | 48 h]
+            fx = lo & ((1ull << H) - 1);
+            fh = (lo >> H) | (static_cast<uint64_t>(mw[2]) << (64 - H));
           }
-          const unsigned ballot = __ballot_sync(0xffffffffu, fired);
-          if (fired) list[count + __popc(ballot & ((1u << lane) - 1u))] = col;
-          count += __popc(ballot);
+          if (wake_s[tid]) {  // from the staged counters: stores only
+            const int64_t stream = base + tid;
+            a.g.skipped[layer][stream] =
+                wrap_add(cnt_s[2 * layer * SB + tid], cols - __popcll(fx) - __popcll(fh));
+            a.g.total[layer][stream] = wrap_add(cnt_s[(2 * layer + 1) * SB + tid], cols);
+          }
+          rowf_s[tid] = fx != 0;
+          rowf_s[SB + tid] = fh != 0;
         }
-        if (lane == 0) nlist_s[warp] = count;
-      } else if (tid >= 64 && tid < 64 + SB) {
-        const int s = tid - 64;
-        if (wake_s[s]) {
-          int fired = 0;
-          for (int i = 0; i < in_dim; ++i) fired += dx_s[s * H + i] != 0;
-          for (int u = 0; u < H; ++u) fired += dh_s[s * H + u] != 0;
-          const int64_t stream = base + s;
-          a.g.skipped[layer][stream] += cols - fired;
-          a.g.total[layer][stream] += cols;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          fx |= __shfl_xor_sync(0xffffffffu, fx, o);
+          fh |= __shfl_xor_sync(0xffffffffu, fh, o);
+        }
+        if (tid == 0) {
+          fire_s[0] = fx;
+          fire_s[1] = fh;
         }
       }
       __syncthreads();
-      // (7-8) rank-1 terms into the accumulators, then acc + b
-      const int nx = nlist_s[0];
-      const int nh = nlist_s[1];
-      for (int item = tid; item < SB * G; item += THREADS) {
-        const int s = item / G;
-        const int j = item % G;
-        if (!wake_s[s]) continue;
-        const int64_t off = static_cast<int64_t>(base + s) * G + j;
-        int32_t* g = gate_s + s * 2 * G;
+      // (3) rank-1 terms on 4 x 4 register tiles (the dense phase's tile
+      // layout: state product first), summed from 0, added once to the
+      // staged accumulator, then acc + b. An accumulator row goes back to
+      // device memory only where its stream fired a column of its product:
+      // elsewhere every term was zero and the row is unchanged.
+      for (int t = tid; t < 2 * TILES_PER_PRODUCT; t += THREADS) {
+        const bool hp = t < TILES_PER_PRODUCT;
+        const int rem = hp ? t : t - TILES_PER_PRODUCT;
+        const int s0 = 4 * (rem / (G / 4));
+        const int c0 = 4 * (rem % (G / 4));
+        if (!(wake_s[s0] | wake_s[s0 + 1] | wake_s[s0 + 2] | wake_s[s0 + 3])) continue;
+        const uint64_t m = fire_s[hp ? 1 : 0];
+        const int32_t* dT = (hp ? dh_s : dx_s) + s0;
+        const int8_t* w = w_s + (hp ? w_h_off : w_i_off) + c0;
+        const int4 bias = *reinterpret_cast<const int4*>(b_s + (hp ? b_h_off : b_i_off) + c0);
+        const int k = hp ? 3 : 2;
+        const int32_t* acc_s = st_s + st_offset(layer, k) + s0 * G + c0;
+        int32_t* acc_g = static_cast<int32_t*>(st_source(a.g, layer, k)) +
+                         static_cast<int64_t>(base + s0) * G + c0;
+        const bool vec = (a.delta_bulk >> (4 * layer + k)) & 1;  // 16-byte aligned rows
+        int32_t* g = gate_s + s0 * 2 * G + (hp ? G : 0) + c0;
+        // per stream: the new accumulators (written back where the stream
+        // fired a column of this product) and the gate preactivations
+        auto finish = [&](int s, const int32_t nacc[4], const int32_t gate[4]) {
+          *reinterpret_cast<int4*>(g + s * 2 * G) = make_int4(gate[0], gate[1], gate[2], gate[3]);
+          if (!rowf_s[(hp ? SB : 0) + s0 + s]) return;
+          int32_t* dst = acc_g + static_cast<int64_t>(s) * G;
+          if (vec) {
+            *reinterpret_cast<int4*>(dst) = make_int4(nacc[0], nacc[1], nacc[2], nacc[3]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) dst[c] = nacc[c];
+          }
+        };
         if (codes) {
-          int32_t* ax = static_cast<int32_t*>(a.g.acc_x[layer]) + off;
-          int32_t* ah = static_cast<int32_t*>(a.g.acc_h[layer]) + off;
-          const int32_t nax = wrap_add(*ax, sparse_dot_int(dx_s + s * H, list_s, nx, wi, j));
-          const int32_t nah = wrap_add(*ah, sparse_dot_int(dh_s + s * H, list_s + H, nh, wh, j));
-          *ax = nax;
-          *ah = nah;
-          g[j] = clip_act(round_shift_even(wrap_add(nax, bi[j]), 7));
-          g[G + j] = clip_act(round_shift_even(wrap_add(nah, bh[j]), 7));
+          int32_t acc[4][4] = {};
+          delta_terms_int(m, dT, w, acc);
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            int32_t nacc[4], gate[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              nacc[c] = wrap_add(acc_s[s * G + c], intgemm_clip(acc[s][c]));
+              gate[c] = clip_act(round_shift_even(wrap_add(nacc[c], int4_lane(bias, c)), 7));
+            }
+            finish(s, nacc, gate);
+          }
         } else {
-          float* ax = static_cast<float*>(a.g.acc_x[layer]) + off;
-          float* ah = static_cast<float*>(a.g.acc_h[layer]) + off;
-          const float nax = __fadd_rn(*ax, sparse_dot_float(dx_s + s * H, list_s, nx, wi, j));
-          const float nah = __fadd_rn(*ah, sparse_dot_float(dh_s + s * H, list_s + H, nh, wh, j));
-          *ax = nax;
-          *ah = nah;
-          g[j] = q68_code(__fadd_rn(nax, __fmul_rn(static_cast<float>(bi[j]), ACC_LSB)));
-          g[G + j] = q68_code(__fadd_rn(nah, __fmul_rn(static_cast<float>(bh[j]), ACC_LSB)));
+          float acc[4][4] = {};
+          delta_terms_float(m, dT, w, acc);
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            int32_t nacc[4], gate[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float v = __fadd_rn(__int_as_float(acc_s[s * G + c]), acc[s][c]);
+              nacc[c] = __float_as_int(v);
+              gate[c] = q68_code(__fadd_rn(
+                  v, __fmul_rn(static_cast<float>(int4_lane(bias, c)), ACC_LSB)));
+            }
+            finish(s, nacc, gate);
+          }
         }
       }
     } else {
@@ -848,6 +1058,35 @@ __global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) {
   }
 }
 
+__global__ void __launch_bounds__(THREADS) tick_kernel(TickArgs a) { tick_body<false>(a); }
+
+// 256 blocks of 4096 streams need 2 blocks an SM (132 SMs), and 2 blocks
+// of the ΔGRU's 110 920 B of shared memory fit one: up to 128 registers a
+// thread, which its tiles use without spilling.
+__global__ void __launch_bounds__(THREADS, 2) tick_delta_kernel(TickArgs a) {
+  tick_body<true>(a);
+}
+
+bool is_delta(int backend) { return backend == BK_DELTA || backend == BK_DELTA_INT; }
+
+// Dynamic shared memory of a launch of ``backend``.
+int smem_bytes(int backend) { return SMEM_BASE + (is_delta(backend) ? SMEM_DELTA : 0); }
+
+// The backend's kernel, its dynamic shared memory limit raised once a
+// device.
+cudaError_t kernel_for(int backend, void (**kernel)(TickArgs)) {
+  static bool raised[2][64] = {};
+  const int k = is_delta(backend) ? 1 : 0;
+  *kernel = k ? tick_delta_kernel : tick_kernel;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && raised[k][dev])) return e;
+  e = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes(backend));
+  if (e == cudaSuccess && dev < 64) raised[k][dev] = true;
+  return e;
+}
+
 }  // namespace
 
 extern "C" int tick_fused_launch(
@@ -857,8 +1096,8 @@ extern "C" int tick_fused_launch(
     const void* coeffs, const void* mu, const void* sigma,
     const void* log_rom, const void* sig_rom, const void* tanh_rom,
     float q_max, float q_scale, float inv_frame, float smoothing,
-    float one_minus, int raw, int backend, void* stream) {
-  if (backend < BK_QAT || backend > BK_DELTA_INT) {
+    float one_minus, int raw, int backend, int delta_bulk, void* stream) {
+  if (backend < BK_QAT || backend > BK_DELTA_INT || delta_bulk < 0 || delta_bulk > 0xff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   TickArgs a;
@@ -878,6 +1117,7 @@ extern "C" int tick_fused_launch(
   a.wf = static_cast<const float*>(wf);
   a.bf = static_cast<const float*>(bf);
   a.theta = static_cast<const int32_t*>(theta);
+  a.delta_bulk = delta_bulk;
   a.coeffs = static_cast<const float*>(coeffs);
   a.mu = static_cast<const float*>(mu);
   a.sigma = static_cast<const float*>(sigma);
@@ -891,14 +1131,24 @@ extern "C" int tick_fused_launch(
   a.one_minus = one_minus;
   a.raw = raw;
   a.backend = backend;
-  const int smem =
-      SMEM_BASE + ((backend == BK_DELTA || backend == BK_DELTA_INT) ? SMEM_DELTA : 0);
-  const cudaError_t e = cudaFuncSetAttribute(
-      tick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BASE + SMEM_DELTA);
+  void (*kernel)(TickArgs);
+  const cudaError_t e = kernel_for(backend, &kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = (n + SB - 1) / SB;
-  tick_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, THREADS, smem_bytes(backend), static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch's dynamic shared memory and the blocks an SM can hold
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for ``backend``.
+extern "C" int tick_fused_occupancy(int backend, int* smem, int* blocks) {
+  if (backend < BK_QAT || backend > BK_DELTA_INT) return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(TickArgs);
+  cudaError_t e = kernel_for(backend, &kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *smem = smem_bytes(backend);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, *smem);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* tick_fused_error_string(int code) {

@@ -247,6 +247,29 @@ def pack_operands(pipeline, params, frontend_state, device) -> TickOperands:
     )
 
 
+#: Bytes a row of each array the ΔGRU branch stages, in its order (struct
+#: GruState's x_ref, h_ref, acc_x, acc_h, layer 1 then layer 2): whole
+#: 16-byte words, so the rows of a block are one run of them.
+DELTA_ROW_BYTES = (16 * 4, 48 * 4, 144 * 4, 144 * 4, 48 * 4, 48 * 4, 144 * 4, 144 * 4)
+
+
+def delta_staging(addresses) -> int:
+    """How the ΔGRU branch stages its state: bit k set where staged array
+    k (`DELTA_ROW_BYTES`' order) goes by one bulk copy a block, clear
+    where it goes by cp.async words. A bulk copy needs its source on a
+    16-byte boundary: every block's rows start on one where the array's
+    base does, since every row is whole 16-byte words. Raises for
+    anything but eight addresses of 4-byte words."""
+    addresses = tuple(int(a) for a in addresses)
+    if len(addresses) != len(DELTA_ROW_BYTES):
+        raise ValueError(f"delta_staging takes {len(DELTA_ROW_BYTES)} addresses; "
+                         f"got {len(addresses)}")
+    if any(a <= 0 or a % 4 for a in addresses):
+        raise ValueError(f"delta_staging: every address must be a nonzero multiple of 4; "
+                         f"got {addresses}")
+    return sum(1 << k for k, a in enumerate(addresses) if a % 16 == 0)
+
+
 def _require(t: torch.Tensor, name: str, shape, dtype, device) -> None:
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device:
         raise ValueError(
@@ -287,6 +310,16 @@ def _gru_pointers(classifier, gru, n, c, h, dev) -> GruStatePointers:
         _require(t, f"gru[{layer}]", (n, h), dtype, dev)
         ptrs.h[layer] = t.data_ptr()
     return ptrs
+
+
+def occupancy(backend: str):
+    """(dynamic shared bytes, blocks an SM) of a tick launch for
+    ``backend`` on the current card (the CUDA occupancy API)."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    lib = build.library("tick_fused")
+    build.check("tick_fused", lib.tick_fused_occupancy(
+        _BACKENDS[backend], ctypes.addressof(smem), ctypes.addressof(blocks)))
+    return smem.value, blocks.value
 
 
 def tick_fused(
@@ -375,6 +408,10 @@ def tick_fused(
     if n == 0:
         return (gru, carry, scores, det), scores, top
     s, one_minus = smoothing_weights(smoothing)
+    delta_bulk = 0
+    if pipeline.classifier.is_delta:
+        delta_bulk = delta_staging(getattr(ptrs, key)[layer] for layer in range(2)
+                                   for key in ("x_ref", "h_ref", "acc_x", "acc_h"))
     op = operands
     lib = build.library("tick_fused")
     with torch.cuda.device(dev):
@@ -389,7 +426,7 @@ def tick_fused(
             op.mu.data_ptr(), op.sigma.data_ptr(), op.log_rom.data_ptr(),
             op.sig_rom.data_ptr(), op.tanh_rom.data_ptr(),
             op.q_max, op.q_scale, 1.0 / cfg.fex.frame_len, s, one_minus,
-            int(raw_audio), _BACKENDS[op.backend],
+            int(raw_audio), _BACKENDS[op.backend], delta_bulk,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check("tick_fused", rc)

@@ -279,22 +279,32 @@ def _xla_sum(v: torch.Tensor) -> torch.Tensor:
 def _fit_grad(xs: torch.Tensor, ys: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     """(dL/dw, dL/db) of mean(softplus(xs @ w + b) - ys * (xs @ w + b)) as
     the reference's compiled ``jit(grad(loss))`` computes it (jax 0.9.0,
-    the CPU): z = xs @ w summed in 8 lanes (column j in lane j mod 8, fused
-    multiply-adds from 0, the lanes added as an adjacent pairwise tree),
-    then + b; dz = fma(exp(z - softplus(z)), 1/N, -y/N), softplus as
-    max(z, 0) + log1p(exp(-|z|)); dL/dw a chain of fused multiply-adds over
-    the rows from 0 (`kernels.fma_rows`); dL/db `_xla_sum` of dz.
-    Array-equal to the reference at C = 16, the FV width; XLA tiles other
-    widths' dots otherwise."""
+    the CPU), at every width C >= 2 (at C = 1 XLA folds the dot into the
+    elementwise fusion, an order not followed here). z = xs @ w is XLA's
+    row-major GEMV with 8-column tiles: the first C - C % 8 columns summed
+    in 8 lanes (column j in lane j mod 8, fused multiply-adds from 0, the
+    lanes added as an adjacent pairwise tree), the last C % 8 columns a
+    chain of fused multiply-adds from 0, and the two parts added (+ 0.0
+    where one is absent); then + b. dz = fma(exp(z - softplus(z)), 1/N,
+    -y/N), softplus as max(z, 0) + log1p(exp(-|z|)); dL/dw a chain of
+    fused multiply-adds over the rows from 0 (`kernels.fma_rows`); dL/db
+    `_xla_sum` of dz."""
     n, c = xs.shape
-    lanes = torch.zeros((n, 8), dtype=xs.dtype, device=xs.device)
-    for c0 in range(0, c, 8):
-        cols = min(8, c - c0)
-        lanes[:, :cols] = fma_f32(xs[:, c0:c0 + cols], w[c0:c0 + cols].expand(n, cols),
-                                  lanes[:, :cols])
-    while lanes.shape[1] > 1:
-        lanes = lanes[:, 0::2] + lanes[:, 1::2]
-    z = (lanes[:, 0] + 0.0) + b
+    tiled = c - c % 8
+    parts = []
+    if tiled:
+        lanes = torch.zeros((n, 8), dtype=xs.dtype, device=xs.device)
+        for c0 in range(0, tiled, 8):
+            lanes = fma_f32(xs[:, c0:c0 + 8], w[c0:c0 + 8].expand(n, 8), lanes)
+        while lanes.shape[1] > 1:
+            lanes = lanes[:, 0::2] + lanes[:, 1::2]
+        parts.append(lanes[:, 0])
+    if tiled < c:
+        tail = torch.zeros(n, dtype=xs.dtype, device=xs.device)
+        for j in range(tiled, c):
+            tail = fma_f32(xs[:, j], w[j].expand(n), tail)
+        parts.append(tail)
+    z = (parts[0] + (parts[1] if len(parts) == 2 else 0.0)) + b
     y, pow2n = _exp_parts(-z.abs())
     softplus = torch.clamp_min(z, 0.0) + _xla_log1p(y * pow2n)
     y, pow2n = _exp_parts(z - softplus)

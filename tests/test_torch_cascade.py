@@ -10,7 +10,8 @@ branch of the serving tick) against the reference's XLA tier.
 - `gate_step` and `wake_rate` array-equal on seeded score trajectories;
   `fit_linear_detector` array-equal to the reference's fit (the port's
   gradient in the order of the reference's compiled jit(grad)) over
-  seeds 0-4 at 100 and 200 full-batch steps, both separating.
+  seeds 0-4 at 100 and 200 full-batch steps and 5, 12, 16 and 20
+  channels, both separating.
 - Servers against the reference's ``tick_impl="xla"`` servers:
   `always_on()` against the ungated server for every backend, the
   reference's LOUD / SILENCE cases, and energy / linear gates on
@@ -210,17 +211,20 @@ FIT_W_ATOL = 0.0
 FIT_B_ATOL = 0.0
 
 
-def _detector_frames(seed):
+def _detector_frames(seed, channels=16):
     rng = np.random.default_rng(seed)
-    speech = rng.normal(0.8, 0.4, (300, 16)).astype(np.float32)
-    silence = rng.normal(-0.8, 0.4, (300, 16)).astype(np.float32)
+    speech = rng.normal(0.8, 0.4, (300, channels)).astype(np.float32)
+    silence = rng.normal(-0.8, 0.4, (300, channels)).astype(np.float32)
     return speech, silence
 
 
+# Widths on both sides of XLA's 8-column GEMV tiles: no tail (16), a tail
+# alone (5), one tile and a tail (12), two tiles and a tail (20).
+@pytest.mark.parametrize("channels", [5, 12, 16, 20])
 @pytest.mark.parametrize("steps", [100, 200])
 @pytest.mark.parametrize("seed", range(5))
-def test_fit_linear_detector_over_seeds(seed, steps):
-    speech, silence = _detector_frames(seed)
+def test_fit_linear_detector_over_seeds(seed, steps, channels):
+    speech, silence = _detector_frames(seed, channels)
     jw, jb = jc.fit_linear_detector(speech, silence, steps=steps)
     tw, tb = tc.fit_linear_detector(speech, silence, steps=steps)
     np.testing.assert_allclose(tw, jw, rtol=0, atol=FIT_W_ATOL)

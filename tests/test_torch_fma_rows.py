@@ -2,8 +2,10 @@
 its plain version against the chain of single-rounded fused multiply-adds
 taken step by step (`core.fex.fma_f32`), on seeded rows (also rows whose
 sums fall below the smallest normal) and where float64 lands on a
-float32 midpoint; and the devices its wrapper refuses. The kernel against
-the plain version is in tests/test_torch_kernels_gpu.py."""
+float32 midpoint; the devices its wrapper refuses; and the kernel's launch
+geometry (`fma_rows_geometry`: rows a chunk, chunks in flight, channels a
+block, which inputs go by bulk copy, what raises). The kernel against the
+plain version is in tests/test_torch_kernels_gpu.py."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,8 @@ import torch
 
 from repro_torch.core.fex import fma_f32
 from repro_torch.kernels.fma_rows import fma_rows
+from repro_torch.kernels.fma_rows import ops as fma_ops
+from repro_torch.kernels.fma_rows.ops import fma_rows_geometry
 
 # acc, then p = d1 * x1: float64 rounds acc + p onto a float32 midpoint,
 # which float32 rounds to even (the last value) while the fused step
@@ -62,3 +66,51 @@ def test_wrapper_refuses_a_device_without_kernel_or_plain_version():
     xs = torch.zeros((4, 2), device="meta")
     with pytest.raises(ValueError, match="no kernel or plain version"):
         fma_rows(d, xs)
+
+
+def test_the_fits_geometry():
+    """(992, 16): chunks of 256 rows, all 4 in flight at once, one block,
+    both inputs by bulk copies only."""
+    g = fma_rows_geometry(992, 16)
+    assert (g.rows, g.stages, g.cols, g.blocks, g.bulk_d, g.bulk_x, g.bulk_only) == (
+        256, 4, 16, 1, True, True, True)
+    assert fma_ops.stage_bytes(256, 16) == 4 * (256 * 17 + 16 * 260 + 8)
+    assert g.smem == fma_ops.BARRIER_BYTES + 4 * fma_ops.stage_bytes(256, 16) and g.flags == 7
+    assert g.threads == 32 * (1 + 1 + fma_ops.HELPERS)
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 992, 3000])
+@pytest.mark.parametrize("c", [1, 5, 12, 16, 20, 33, 200, 256, 257, 1000])
+def test_geometry_fits_the_kernels_limits(n, c):
+    """Whole groups of 8 rows a chunk (so every chunk of an aligned input
+    starts on a 16-byte boundary, C = 5's 20-byte rows too, and the
+    column-major copy's columns are whole 16-byte words), at most 16
+    chunks in flight and no more than the input has, the ring within
+    192 KiB, at most 256 channels a block covering all C."""
+    g = fma_rows_geometry(n, c)
+    assert g.rows % fma_ops.GROUP == 0 and (4 * g.rows * c) % 16 == 0 and (g.rows + 4) % 4 == 0
+    assert 1 <= g.stages <= min(fma_ops.MAX_STAGES, max(1, -(-n // g.rows)))
+    assert g.cols == min(c, fma_ops.MAX_COLS) and g.blocks * g.cols >= c > (g.blocks - 1) * g.cols
+    assert g.smem == fma_ops.BARRIER_BYTES + g.stages * fma_ops.stage_bytes(g.rows, c)
+    assert g.smem - fma_ops.BARRIER_BYTES <= fma_ops.RING_BYTES
+
+
+@pytest.mark.parametrize("n,d_aligned,x_aligned,c,bulk", [
+    (100, True, True, 16, (True, True, True)), (100, False, True, 16, (False, True, False)),
+    (100, True, False, 5, (True, False, False)), (100, False, False, 5, (False, False, False)),
+    (100, True, True, 257, (True, False, False)), (101, True, True, 16, (True, True, False)),
+    (100, True, True, 5, (True, True, True)), (99, True, True, 4, (True, True, False)),
+    (98, True, True, 6, (True, True, False))])
+def test_bulk_copies_need_an_aligned_base_and_whole_rows(n, d_aligned, x_aligned, c, bulk):
+    """An input off 16 bytes goes by cp.async words; so do the rows of a
+    block that owns a slice of them (C > 256); a ragged last chunk's words
+    past its whole 16-byte words (N or N C not a multiple of 4) go by words
+    too, so only a launch with none of these is bulk copies only."""
+    g = fma_rows_geometry(n, c, d_aligned, x_aligned)
+    assert (g.bulk_d, g.bulk_x, g.bulk_only) == bulk
+
+
+@pytest.mark.parametrize("n,c", [(-1, 4), (4, 0), (4, -3)])
+def test_geometry_raises_where_nothing_can_be_launched(n, c):
+    with pytest.raises(ValueError, match="fma_rows geometry"):
+        fma_rows_geometry(n, c)

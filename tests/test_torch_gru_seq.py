@@ -141,13 +141,27 @@ def test_gru_layer_matches_the_reference(quantized, with_h0):
 
 
 def test_gru_layer_zero_length_returns_h0():
-    tp = tgru.init_gru_classifier(tgru.GRUConfig(), torch.Generator().manual_seed(0))["gru"][0]
+    tp = tgru.init_gru_classifier(tgru.GRUConfig(), torch.Generator().manual_seed(0),
+                                  device="cpu")["gru"][0]
     h0 = torch.ones((2, 48))
     hs, h = tgru.gru_layer(tp, torch.zeros((2, 0, 16)), tgru.GRUConfig(), h0=h0)
     assert hs.shape == (2, 0, 48) and torch.equal(h, h0)
 
 
 # ---------------- weights carried across, and the library's layout ----------------
+
+def test_init_gru_classifier_defaults_to_the_card():
+    """No device means the card, as at every entry point of the port: it
+    raises where there is none rather than drawing onto the CPU."""
+    gen = torch.Generator().manual_seed(0)
+    if torch.cuda.is_available():
+        params = tgru.init_gru_classifier(tgru.GRUConfig(), gen)
+        assert params["fc"]["w"].device.type == "cuda"
+        assert all(t.device.type == "cuda" for layer in params["gru"] for t in layer.values())
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tgru.init_gru_classifier(tgru.GRUConfig(), gen)
+
 
 def test_gru_layer_from_numpy_gives_the_same_sequence():
     """A reference layer's params, through numpy, drive the port's entry

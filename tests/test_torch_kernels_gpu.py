@@ -286,6 +286,112 @@ def test_qat_fv_tick_off_grid_input_multiplies_then_adds(dev, monkeypatch):
     assert float((ks - ps).abs().max()) <= 1e-6
 
 
+# ---------------- K4, the ΔGRU branch of the tick ----------------
+
+
+def _unaligned(states):
+    """The same ΔGRU state with every staged leaf one word into a buffer of
+    its own: the kernel stages it by cp.async words, not bulk copies."""
+    out = []
+    for st in states:
+        moved = dict(st)
+        for key in ("x_ref", "h_ref", "acc_x", "acc_h"):
+            buf = torch.zeros(st[key].numel() + 1, dtype=st[key].dtype, device=st[key].device)
+            moved[key] = buf[1:].view(st[key].shape)
+            moved[key].copy_(st[key])
+            assert moved[key].data_ptr() % 16 == 4
+        out.append(moved)
+    return tuple(out)
+
+
+def _delta_ticks(pipe, params, n, dev, inputs, masks, raw=False, unaligned=False):
+    """Kernel against the plain sparse tick over ``inputs`` / ``masks``,
+    each tick from the kernel's state: every leaf array-equal, top equal,
+    scores within 1e-6. Returns the (before, after) ΔGRU states a tick."""
+    ops = pack_operands(pipe, params, pipe.state, dev)
+    step_fn = make_sparse_step(pipe)
+    gru = tuple(pipe.streaming_init(n, dev))
+    state = (_unaligned(gru) if unaligned else gru, pipe.streaming_features_init(n, dev),
+             torch.zeros((n, 12), device=dev), None)
+    history = []
+    for t, (inp, mask) in enumerate(zip(inputs, masks)):
+        before = tree_clone(state[0])
+        (pg, pc, ps, _), _, ptop = tick_reference(pipe, raw, params, tree_clone(state), inp,
+                                                  mask, pipe.state, 0.7, step_fn=step_fn)
+        (kg, kc, ks, _), _, ktop = tick_fused(pipe, raw, params, state, inp, mask, pipe.state,
+                                              0.7, operands=ops)
+        for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
+            assert torch.equal(a, b), f"tick {t}"
+        assert torch.equal(ktop, ptop) and float((ks - ps).abs().max()) <= 1e-6
+        history.append((before, tree_clone(kg)))
+        state = (kg, kc, ks, None)
+    return history
+
+
+def _fv(dev, n, t, scale=512):
+    g = torch.Generator(device=dev).manual_seed(40 + t)
+    return torch.round(torch.randn((n, 16), generator=g, device=dev) * scale) / 256
+
+
+@pytest.mark.parametrize("classifier", ["delta", "delta-int"])
+@pytest.mark.parametrize("theta", [0.0, 0.15, 64.0])
+@pytest.mark.parametrize("case", ["ragged", "unaligned"])
+def test_delta_tick_edges_equal_plain(dev, classifier, theta, case):
+    """4 099 streams (a last block of 3) with non-submitting streams in
+    every tick but the first, raw audio and FV input; and a state whose
+    staged arrays are off 16 bytes (staged by words, written back by
+    words)."""
+    pipe = _pipe(dev, classifier, theta)
+    params = pipe.prepare_params(pipe.init_params(torch.Generator().manual_seed(1), device=dev))
+    n = 4099 if case == "ragged" else 37
+    g = torch.Generator(device=dev).manual_seed(3)
+    masks = [torch.ones(n, dtype=torch.bool, device=dev)] + [
+        torch.rand(n, generator=g, device=dev) < f for f in (0.7, 0.0, 0.5)]
+    unaligned = case == "unaligned"
+    _delta_ticks(pipe, params, n, dev, [_fv(dev, n, t) for t in range(4)], masks,
+                 unaligned=unaligned)
+    audio = [torch.randn((n, 256), generator=g, device=dev) * 0.1 for _ in range(4)]
+    _delta_ticks(pipe, params, n, dev, audio, masks, raw=True, unaligned=unaligned)
+
+
+@pytest.mark.parametrize("classifier", ["delta", "delta-int"])
+def test_delta_tick_where_every_column_fires(dev, classifier):
+    """θ = 0 and loud FV input swinging each tick: in the first block every
+    input and state column of both layers fires for some stream, so the
+    tiles walk all 64 and 96 columns."""
+    pipe = _pipe(dev, classifier, 0.0)
+    params = pipe.prepare_params(pipe.init_params(torch.Generator().manual_seed(1), device=dev))
+    n = 64
+    inputs = [(-1) ** t * _fv(dev, n, t, scale=2048) for t in range(4)]
+    history = _delta_ticks(pipe, params, n, dev, inputs,
+                           [torch.ones(n, dtype=torch.bool, device=dev)] * 4)
+    before, after = history[-1]
+    for old, new in zip(before, after):
+        for key in ("x_ref", "h_ref"):
+            fired = (new[key][:16] != old[key][:16]).any(dim=0)
+            assert bool(fired.all()), key
+
+
+def test_delta_int_tick_contributions_at_the_int24_clip(dev):
+    """Layer 1's input product at its extremes: FV codes swinging between
+    +-8189 against weight codes of +-127 give 16-term contributions of
+    +-1.66e7 and +-3.3e7, past int24, so the accumulators tell a
+    contribution clipped once to int24 (intgemm's rule, gather.py's) from
+    an unclipped one."""
+    pipe = _pipe(dev, "delta-int", 0.15)
+    params = pipe.init_params(torch.Generator().manual_seed(1), device=dev)
+    even = torch.arange(144, device=dev) % 2 == 0
+    params["gru"][0]["w_i"] = torch.where(even, 127.0, -127.0).expand(16, 144) / 128
+    q = pipe.prepare_params(params)
+    n = 37
+    rows = (torch.arange(n, device=dev)[:, None] % 3 - 1).float()  # -1, 0, +1
+    inputs = [((-1) ** t * rows * 8189 / 256).expand(n, 16).contiguous() for t in range(3)]
+    codes = torch.round(inputs[1] * 256) - torch.round(inputs[0] * 256)
+    raw_contrib = codes.to(torch.int64).cpu() @ q.gru[0]["w_i"].to(torch.int64).cpu()
+    assert bool((raw_contrib.abs() > 2**23).any())  # the contributions do clip
+    _delta_ticks(pipe, q, n, dev, inputs, [torch.ones(n, dtype=torch.bool, device=dev)] * 3)
+
+
 SERVERS = [(c, t, "software") for c, t in BACKENDS[:5]] + [
     ("qat", None, "hardware"), ("delta-int", 0.15, "hardware-pallas")]
 
@@ -1008,9 +1114,10 @@ def test_wkv6_wrapper_rejects_dtypes_and_head_sizes(dev):
     assert build.launches["wkv6"] == before
 
 
-# the fit's (992, 16); a row group's tail (1001, 5 rows); several tiles of
-# 1536 rows and channel blocks of 32 (4000, 33); no rows
-@pytest.mark.parametrize("n,c", [(1, 1), (992, 16), (5, 200), (1001, 7), (4000, 33), (0, 4)])
+# the fit's (992, 16); a row group's tail (1001, 5 rows); more chunks than
+# stages (4000, 33); slices of rows by words (10, 300); no rows
+@pytest.mark.parametrize("n,c", [(1, 1), (992, 16), (5, 200), (1001, 7), (4000, 33), (0, 4),
+                                 (10, 300), (600, 5)])
 def test_fma_rows_kernel_equals_plain(dev, n, c):
     g = torch.Generator(device=dev).manual_seed(n + c)
     d = torch.randn(n, generator=g, device=dev) * 1e-3
@@ -1019,6 +1126,23 @@ def test_fma_rows_kernel_equals_plain(dev, n, c):
     got = fma_rows(d, xs)
     assert build.launches["fma_rows"] == before + 1
     assert got.device == xs.device and torch.equal(got, fma_rows_ref(d, xs))
+
+
+@pytest.mark.parametrize("n", [1, 7, 992, 3000])
+@pytest.mark.parametrize("c", [1, 5, 12, 16, 20, 33])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "word-off"])
+def test_fma_rows_kernel_widths_equal_plain(dev, n, c, offset):
+    """Every tested width and row count bit-equal, from 16-byte aligned
+    inputs (bulk copies and the words past them) and from inputs one word
+    off (cp.async words)."""
+    g = torch.Generator(device=dev).manual_seed(7 * n + c)
+    d = (torch.randn(n + offset, generator=g, device=dev) * 1e-3)[offset:]
+    xs = torch.randn(n * c + offset, generator=g, device=dev)[offset:].view(n, c)
+    assert (d.data_ptr() % 16 == 0) == (offset == 0) or n == 0
+    before = build.launches["fma_rows"]
+    got = fma_rows(d, xs)
+    assert build.launches["fma_rows"] == before + 1
+    assert torch.equal(got, fma_rows_ref(d, xs))
 
 
 @pytest.mark.parametrize("case", ["midpoint", "subnormal"])
