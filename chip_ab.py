@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Times the batch filterbank (K1 and its scan entry), intgemm (K2), the
-tick's branches (K3, with K4 inside for the ΔGRU), the TDC (K5), WKV6 (K7)
-and the fit's row chain (fma_rows) of two source trees in one call on one
-card, in turns: first, second, second, first.
+tick's branches (K3, with K4 inside for the ΔGRU), the TDC (K5), the GRU
+sequence (K6), WKV6 (K7) and the fit's row chain (fma_rows) of two source
+trees in one call on one card, in turns: first, second, second, first.
 
     python3 chip_ab.py FIRST_ROOT [SECOND_ROOT]
 
@@ -19,7 +19,9 @@ qat, integer, delta and delta-int FV ticks with the gate shut
 (`chip_smoke.phase_split`), fma_rows at (992, 16) beside torch.mv
 (`chip_smoke.fma_rows_times`), K5
 at (64, 31 744, 16) (`chip_smoke.tdc_times`: also with every chunk
-floored by floorf, and as one block alone) and K7 at (8, 4096, 64, 64)
+floored by floorf, and as one block alone), K6 over 4096 clips of 62
+frames (`chip_smoke.gru_seq_times`: both float layers, layer 1, layer 1
+in bf16, cuDNN's GRU beside them), K7 at (8, 4096, 64, 64)
 (`chip_smoke.wkv6_times`), and `record_features` of 128 clips on each
 frontend, warm (`chip_smoke.record_times`). Prints the card's name and
 power limit, one JSON line a turn, then each key's times, first root
@@ -32,9 +34,16 @@ the |y| sum) and the fit's FMA chain, and reports cycles a tick, sample
 or FMA (clock64) and the SM clock (clock64 over %globaltimer, and
 nvidia-smi's clocks.sm just after); it times an empty launch on
 fma_rows' grid, whose sum with 992 FMAs is fma_rows' floor at the fit's
-shape; the probe's and the built tdc, fex_fused, fma_rows and tick_fused
-libraries' SASS go to ``chain/`` in the kernels' build directory. Needs
-a CUDA device.
+shape; the probe's and the built tdc, fex_fused, fma_rows, gru_seq and
+tick_fused libraries' SASS go to ``chain/`` in the kernels' build
+directory. Needs a CUDA device.
+
+    python3 chip_ab.py --k6
+
+builds variants of this checkout's K6 source (`k6`: 4 x 2 and 1 x 2
+register tiles beside the 2 x 2 one, the gates replaced by sums, the
+threads ordered units first) and prints each one's registers, spills and
+ms for both float layers and the bf16 layer 1 at (4096, 62).
 """
 
 from __future__ import annotations
@@ -62,8 +71,6 @@ def turn(src: str) -> None:
     if not build.__file__.startswith(src):
         raise SystemExit(f"chip_ab: imported {build.__file__}, not the tree under {src}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.SOURCES = {k: build.SOURCES[k]
-                     for k in ("fex_fused", "fma_rows", "intgemm", "tick_fused", "tdc", "wkv6")}
     for name, report in build.build_all().items():
         print(f"  {name}: {report.strip()}", file=sys.stderr)
     dev = torch.device("cuda")
@@ -75,6 +82,7 @@ def turn(src: str) -> None:
     times.update(chip_smoke.phase_split(dev, times))
     times.update(chip_smoke.fma_rows_times(dev))
     times.update(chip_smoke.tdc_times(dev))
+    times.update(chip_smoke.gru_seq_times(dev))
     times.update(chip_smoke.wkv6_times(dev))
     times.update(chip_smoke.record_times(dev))
     print(json.dumps({"src": src, "times": times}))
@@ -279,16 +287,135 @@ def chain() -> None:
                          timeout=60).stdout.strip()
     print(json.dumps({"chain": result, "nvidia-smi clocks.sm, clocks.max.sm, power.limit": smi}))
     cuobjdump = Path(nvcc).with_name("cuobjdump")
-    build.SOURCES = {k: build.SOURCES[k] for k in ("fex_fused", "fma_rows", "tdc", "tick_fused")}
+    build.SOURCES = {k: build.SOURCES[k]
+                     for k in ("fex_fused", "fma_rows", "gru_seq", "tdc", "tick_fused")}
     build.build_all()
     for name, path in (("chain_probe", lib_path), ("tdc", build._lib_path("tdc")),
                        ("fex_fused", build._lib_path("fex_fused")),
                        ("fma_rows", build._lib_path("fma_rows")),
+                       ("gru_seq", build._lib_path("gru_seq")),
                        ("tick_fused", build._lib_path("tick_fused"))):
         sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                               text=True, timeout=300).stdout
         (out_dir / f"{name}.sass").write_text(sass)
         print(f"{name}: {len(sass.splitlines())} lines of SASS in {out_dir / (name + '.sass')}")
+
+
+# K6's probes: variants of csrc/gru_seq.cu, each an edit of this checkout's
+# source (rows a thread R; the gates replaced by sums, so their share shows;
+# the threads ordered units first, 16 units to a half-warp), built with
+# this checkout's flags and timed at chip_smoke's K6 shapes
+K6_GATES = (
+    """        gr[q][v] = expf(-((si[q][v][0] + b_ir[v]) + (sh[q][v][0] + b_hr[v])));
+        gz[q][v] = expf(-((si[q][v][1] + b_iz[v]) + (sh[q][v][1] + b_hz[v])));""",
+    """        gr[q][v] = (si[q][v][0] + b_ir[v]) + (sh[q][v][0] + b_hr[v]);
+        gz[q][v] = ((si[q][v][1] + b_iz[v]) + (sh[q][v][1] + b_hz[v])) * 1e-3f;""",
+    """        gr[q][v] = 1.0f / (1.0f + gr[q][v]);
+        gz[q][v] = 1.0f / (1.0f + gz[q][v]);""", "",
+    """        hv[q][v] = tanhf((si[q][v][2] + b_in[v]) + gr[q][v] * (sh[q][v][2] + b_hn[v]));""",
+    """        hv[q][v] = ((si[q][v][2] + b_in[v]) + gr[q][v] * (sh[q][v][2] + b_hn[v]))"""
+    """ * 1e-3f;""",
+)
+K6_ORDER = (
+    """  const int rg = tid % NRG;       // rows rg, rg + NRG, ...
+  const int ug = tid / NRG;       // units U ug, U ug + 1
+""",
+    """  const int nug = (h + U - 1) / U, full = nug / 16 * 16 * NRG, rem = nug % 16;
+  const int rg = tid < full ? tid % (16 * NRG) / 16 : (tid - full) / rem;
+  const int ug = tid < full ? 16 * (tid / (16 * NRG)) + tid % 16
+                            : nug / 16 * 16 + (tid - full) % rem;
+""",
+)
+
+
+def _k6_variant(src: str, rows_a_thread: int, edits=()) -> str:
+    import re
+
+    out, n = re.subn(r"constexpr int R = \d+;", f"constexpr int R = {rows_a_thread};", src)
+    if n != 1:
+        raise SystemExit("chip_ab: gru_seq.cu no longer declares R")
+    for old, new in zip(edits[::2], edits[1::2]):
+        if old not in out:
+            raise SystemExit(f"chip_ab: the K6 probe's edit no longer applies:\n{old}")
+        out = out.replace(old, new)
+    return out
+
+
+def k6() -> None:
+    """K6's probes: each variant's registers and spills (ptxas) and its ms
+    for layer 1, layer 2 and layer 1 in bf16 at (4096, 62), beside this
+    tree's kernel, and the largest difference to it (0: the same sums)."""
+    import ctypes
+    import re
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels import build, gru_sequence
+    from repro_torch.kernels.gru import ops
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab: no CUDA device")
+    src = (build.CSRC / "gru_seq.cu").read_text()
+    variants = {
+        "this tree (2 x 2 tiles)": (ops.R, _k6_variant(src, ops.R)),
+        "no gates": (ops.R, _k6_variant(src, ops.R, K6_GATES)),
+        "4 x 2 tiles": (4, _k6_variant(src, 4)),
+        "1 x 2 tiles": (1, _k6_variant(src, 1)),
+        "units first": (ops.R, _k6_variant(src, ops.R, K6_ORDER)),
+    }
+    out_dir = build.BUILD_DIR / "k6"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, (_, text)) in enumerate(variants.items()):
+        path = out_dir / f"gru_seq_{i}.cu"
+        path.write_text(text)
+        procs[name] = (out_dir / f"libgru_seq_{i}.so", subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
+             str(out_dir / f"libgru_seq_{i}.so"), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    dev = torch.device("cuda")
+    layers, fv, fv16 = chip_smoke._gru_inputs(dev)
+    layers = [[a.float().contiguous() for a in layer] for layer in layers]
+    h1 = gru_sequence(fv, *layers[0])
+    want = {"layer 1": h1, "layer 2": gru_sequence(h1, *layers[1]),
+            "bf16 layer 1": gru_sequence(fv16, *layers[0])}
+    h0 = torch.zeros((fv.shape[0], chip_smoke.H), device=dev)
+    result = {}
+    for name, (lib_path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_ab: K6 probe {name} did not build:\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(lib_path))
+        lib.gru_seq_launch.argtypes = build._SIGNATURES["gru_seq"]["gru_seq_launch"][0]
+        r = variants[name][0]
+
+        def run(x, layer, lib=lib, r=r):
+            geo = ops.gru_seq_geometry(x.shape[0], x.shape[2], chip_smoke.H,
+                                       x.dtype == torch.bfloat16)
+            threads = ops.ROWS // r * -(-chip_smoke.H // ops.U)
+            y = torch.empty(x.shape[:2] + (chip_smoke.H,), dtype=x.dtype, device=dev)
+            rc = lib.gru_seq_launch(
+                x.data_ptr(), int(x.dtype == torch.bfloat16), *(a.data_ptr() for a in layer),
+                h0.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1], x.shape[2], chip_smoke.H,
+                geo.inst, geo.copy, threads, geo.smem, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise SystemExit(f"chip_ab: K6 probe {name} failed to launch (cudaError {rc})")
+            return y
+
+        entry = {"registers": [int(n) for n in re.findall(r"Used (\d+) registers", log)],
+                 "spill_stores": sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", log))}
+        for key, x, layer in (("layer 1", fv, layers[0]), ("layer 2", h1, layers[1]),
+                              ("bf16 layer 1", fv16, layers[0])):
+            y = run(x, layer)
+            entry[f"{key} diff"] = float((y.float() - want[key].float()).abs().max())
+            entry[f"{key} ms"], _ = chip_smoke._cuda_ms(lambda: run(x, layer), reps=20, hold=True)
+        result[name] = entry
+        print(json.dumps({"k6 probe": name, **entry}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"k6": result, "nvidia-smi name, power.limit": smi}))
 
 
 def main() -> int:
@@ -297,6 +424,9 @@ def main() -> int:
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--chain":
         chain()
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--k6":
+        k6()
         return 0
     if len(sys.argv) not in (2, 3):
         print(__doc__, file=sys.stderr)

@@ -62,7 +62,8 @@ plain PyTorch version on the card:
  11. K6 through `kernels.gru_sequence`: the paper's classifier at full
      width in float (layer 1 16 -> 48 feeding layer 2 48 -> 48) over 4096
      clips of 62 frames, float32 and one bf16 pass of layer 1, one launch
-     a layer, each held against the plain version on the card; cuDNN's
+     a layer, each held against the plain version on the card, each
+     launch's geometry and blocks an SM (occupancy API); cuDNN's
      `torch.nn.GRU` on the same weights as the library yardstick;
  12. K7 through `kernels.wkv6` at rwkv6-7b's head layout and train_4k
      length (8, 4096, 64, 64) in float32, one launch, against the plain
@@ -1109,24 +1110,81 @@ def wkv6_bound(b: int, t: int, h: int, p: int):
     return _bound(5 * b * t * h * p * 4 + h * p * 4, (5 * p * p + 6 * p) * b * t * h)
 
 
-def phase_gru_seq(dev):
-    """K6 on the paper's classifier at full width: a float GRU classifier
-    from `init_gru_classifier` (torch.Generator seed SEED), layer 1
-    (16 -> 48) feeding layer 2 (48 -> 48) through `gru_sequence` over
-    GRU_STREAMS clips of GRU_FRAMES FV-like frames, then one bf16 pass of
-    layer 1; each output against the plain version on the card, cuDNN's
-    GRU on the same weights as the library yardstick."""
+def _gru_inputs(dev):
+    """The float GRU classifier's two layers from `init_gru_classifier`
+    (torch.Generator seed SEED) as (w, u, b_i, b_h), and GRU_STREAMS clips
+    of GRU_FRAMES N(0, 1) FV-like frames in float32 and bf16."""
     import torch
 
     from repro_torch.core.gru import GRUConfig, init_gru_classifier
-    from repro_torch.kernels import build, gru_sequence, gru_sequence_plain
 
     params = init_gru_classifier(GRUConfig(quantized=False), torch.Generator().manual_seed(SEED),
                                  device=dev)
     layers = [tuple(layer[k] for k in ("w_i", "w_h", "b_i", "b_h")) for layer in params["gru"]]
     g = torch.Generator(device=dev).manual_seed(SEED + 16)
     fv = torch.randn((GRU_STREAMS, GRU_FRAMES, C), generator=g, device=dev)
-    fv16 = fv.to(torch.bfloat16)
+    return layers, fv, fv.to(torch.bfloat16)
+
+
+def _cudnn_grus(dev, layers):
+    """cuDNN's `torch.nn.GRU` loaded with each layer's weights (the
+    library yardstick; the port never calls it)."""
+    import torch
+
+    grus = []
+    for (w, u, bi, bh), i in zip(layers, (C, H)):
+        m = torch.nn.GRU(i, H, batch_first=True).to(dev)
+        with torch.no_grad():
+            m.weight_ih_l0.copy_(w.T)
+            m.weight_hh_l0.copy_(u.T)
+            m.bias_ih_l0.copy_(bi)
+            m.bias_hh_l0.copy_(bh)
+        m.flatten_parameters()
+        grus.append(m)
+    return grus
+
+
+def gru_seq_times(dev):
+    """K6's ms on the inputs of `phase_gru_seq`: both layers chained, layer
+    1 alone and in bf16, cuDNN's GRU over both layers beside them, and
+    the bound of both layers."""
+    import torch
+
+    from repro_torch.kernels import gru_sequence
+
+    layers, fv, fv16 = _gru_inputs(dev)
+    grus = _cudnn_grus(dev, layers)
+
+    def library():
+        with torch.no_grad():
+            return grus[1](grus[0](fv)[0])[0]
+
+    out = {}
+    out["gru_sequence ms"], _ = _cuda_ms(
+        lambda: gru_sequence(gru_sequence(fv, *layers[0]), *layers[1]), reps=20, hold=True)
+    out["gru_sequence layer 1 ms"], _ = _cuda_ms(lambda: gru_sequence(fv, *layers[0]),
+                                                 reps=20, hold=True)
+    out["gru_sequence bf16 layer 1 ms"], _ = _cuda_ms(lambda: gru_sequence(fv16, *layers[0]),
+                                                      reps=20, hold=True)
+    out["gru_sequence library_ms"], _ = _cuda_ms(library, reps=20, hold=True)
+    out["gru_sequence bound_ms"], out["gru_sequence bound_by"] = gru_seq_bound(
+        GRU_STREAMS, GRU_FRAMES, ((C, H), (H, H)))
+    return out
+
+
+def phase_gru_seq(dev):
+    """K6 on the paper's classifier at full width (`_gru_inputs`): layer 1
+    (16 -> 48) feeding layer 2 (48 -> 48) through `gru_sequence`, then one
+    bf16 pass of layer 1; each output against the plain version on the
+    card, cuDNN's GRU on the same weights as the library yardstick; each
+    launch's geometry and blocks an SM (occupancy API); the times by
+    `gru_seq_times`."""
+    import torch
+
+    from repro_torch.kernels import build, gru_sequence, gru_sequence_plain
+    from repro_torch.kernels.gru.ops import gru_seq_geometry, occupancy
+
+    layers, fv, fv16 = _gru_inputs(dev)
     build.launches.clear()
     h1 = gru_sequence(fv, *layers[0])
     h2 = gru_sequence(h1, *layers[1])
@@ -1141,6 +1199,12 @@ def phase_gru_seq(dev):
             raise AssertionError(f"gru_sequence {name}: {tuple(out.shape)} {out.dtype}")
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"gru_sequence {name}: not finite")
+    for name, x, i in (("layer 1", fv, C), ("layer 2", h1, H), ("layer 1 bf16", fv16, C)):
+        bf16 = x.dtype == torch.bfloat16
+        geo = gru_seq_geometry(GRU_STREAMS, i, H, bf16, x.data_ptr() % 16)
+        print(f"gru_sequence {name}: {geo.blocks} blocks of {geo.rows} rows, {geo.threads} "
+              f"threads, {geo.smem} B dynamic shared, instantiation {geo.inst}, copy mode "
+              f"{geo.copy}; {occupancy(geo, bf16)} blocks an SM (occupancy API)")
     zeros = torch.zeros((GRU_STREAMS, H), device=dev)
 
     def plain(x, layer):
@@ -1157,36 +1221,13 @@ def phase_gru_seq(dev):
         raise AssertionError(f"gru_sequence differs from its plain version by {err:.3g} (float32, "
                              f"limit {FLOAT_TOL}) / {err16:.3g} (bf16, limit {BF16_TOL})")
     chain = float((h2 - plain(p1, layers[1])).abs().max())
-
-    grus = []
-    for (w, u, bi, bh), i in zip(layers, (C, H)):
-        m = torch.nn.GRU(i, H, batch_first=True).to(dev)
-        with torch.no_grad():
-            m.weight_ih_l0.copy_(w.T)
-            m.weight_hh_l0.copy_(u.T)
-            m.bias_ih_l0.copy_(bi)
-            m.bias_hh_l0.copy_(bh)
-        m.flatten_parameters()
-        grus.append(m)
-
-    def library():
-        with torch.no_grad():
-            return grus[1](grus[0](fv)[0])[0]
-
+    grus = _cudnn_grus(dev, layers)
     with torch.no_grad():
         lib_err = max(float((grus[0](fv)[0] - p1).abs().max()),
                       float((grus[1](h1)[0] - p2).abs().max()))
     if lib_err > LIBRARY_TOL:
         raise AssertionError(f"cuDNN's GRU differs from the plain version by {lib_err:.3g}")
-    out["gru_sequence ms"], _ = _cuda_ms(
-        lambda: gru_sequence(gru_sequence(fv, *layers[0]), *layers[1]), reps=20, hold=True)
-    out["gru_sequence layer 1 ms"], _ = _cuda_ms(lambda: gru_sequence(fv, *layers[0]),
-                                                 reps=20, hold=True)
-    out["gru_sequence bf16 layer 1 ms"], _ = _cuda_ms(lambda: gru_sequence(fv16, *layers[0]),
-                                                      reps=20, hold=True)
-    out["gru_sequence library_ms"], _ = _cuda_ms(library, reps=20, hold=True)
-    out["gru_sequence bound_ms"], out["gru_sequence bound_by"] = gru_seq_bound(
-        GRU_STREAMS, GRU_FRAMES, ((C, H), (H, H)))
+    out.update(gru_seq_times(dev))
     out["gru_sequence bf16 err"] = err16
     print(f"gru_sequence ({GRU_STREAMS}, {GRU_FRAMES}, {C}) -> 48 -> 48: launches {launches}; "
           f"within {err:.3g} of the plain version per layer (float32, limit {FLOAT_TOL}), "

@@ -77,8 +77,11 @@ _SIGNATURES = {
         "fma_rows_error_string": ([_I], ctypes.c_char_p),
     },
     "gru_seq": {
-        # x, x_bf16, w, u, b_i, b_h, h0, out, b, t, i, h, smem bytes, stream
-        "gru_seq_launch": ([_P, _I] + [_P] * 6 + [_I] * 5 + [_P], _I),
+        # x, x_bf16, w, u, b_i, b_h, h0, out, b, t, i, h, instantiation,
+        # copy mode, threads, smem bytes, stream
+        "gru_seq_launch": ([_P, _I] + [_P] * 6 + [_I] * 8 + [_P], _I),
+        # instantiation, x_bf16, threads, smem bytes, &blocks an SM
+        "gru_seq_occupancy": ([_I] * 4 + [_P], _I),
         "gru_seq_error_string": ([_I], ctypes.c_char_p),
     },
     "wkv6": {

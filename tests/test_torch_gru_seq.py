@@ -95,12 +95,14 @@ def test_plain_version_is_time_major():
 
 
 def test_gru_sequence_shared_memory_size():
-    """The kernel's block holds the layer and two h / x tiles: 38 KB at
-    the paper's layer 1, 56 KB at layer 2 (both above the 48 KB default,
-    so the launch raises the block's limit)."""
-    assert gru_ops.smem_bytes(16, 48) == 4 * (64 * 144 + 288 + 32 * 64)
-    assert gru_ops.smem_bytes(48, 48) == 4 * (96 * 144 + 288 + 32 * 96)
+    """The kernel's block holds the layer, two h tiles and a ring of four
+    x tiles, 16 rows each padded to 16 mod 32 bytes: 47.5 KB at the
+    paper's layer 1, 73.5 KB at layer 2 (above the 48 KB default, so the
+    launch raises the block's limit); two blocks of layer 2 fit an SM."""
+    assert gru_ops.smem_bytes(16, 48) == 4 * (64 * 144) + 2 * 16 * 208 + 4 * 16 * 80
+    assert gru_ops.smem_bytes(48, 48) == 4 * (96 * 144) + 2 * 16 * 208 + 4 * 16 * 208
     assert gru_ops.smem_bytes(48, 48) > 48 * 1024 > gru_ops.smem_bytes(16, 48)
+    assert 2 * gru_ops.smem_bytes(48, 48) < 232448
 
 
 def test_gru_sequence_rejects_other_devices():

@@ -978,12 +978,27 @@ def _gru_operands(dev, b, t, i, h, seed):
 
 
 # the paper's two layers at the main path's 4096 streams, a ragged last
-# tile, the reference's non-square sweep shapes, T = 1
+# tile, the reference's non-square sweep shapes, T = 1; then the edges of
+# the 16-row, 4 x 2 tiles: ragged batches, I off the 4-wide x loads (words
+# or, in bf16, elements staged), an odd H (a last unit pair half masked),
+# xs a contiguous view ``off`` elements past a 16-byte boundary (4 or 8
+# bytes in float32; 2 or 4 in bf16), T = 1 at full width (h0 is nonzero
+# in every case)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,t,i,h", [(N, 62, 16, 48), (N, 62, 48, 48), (37, 62, 16, 48),
-                                     (9, 7, 32, 64), (2, 62, 16, 48), (5, 1, 8, 16)])
-def test_gru_seq_kernel_equals_plain(dev, dtype, b, t, i, h):
+@pytest.mark.parametrize("b,t,i,h,off", [
+    (N, 62, 16, 48, 0), (N, 62, 48, 48, 0), (37, 62, 16, 48, 0), (9, 7, 32, 64, 0),
+    (2, 62, 16, 48, 0), (5, 1, 8, 16, 0),
+    (4099, 62, 16, 48, 0), (33, 62, 48, 48, 0), (4099, 5, 48, 48, 0), (33, 20, 5, 48, 0),
+    (33, 20, 17, 48, 0), (40, 20, 16, 47, 0), (17, 9, 5, 47, 0), (N, 62, 16, 48, 1),
+    (33, 20, 48, 48, 2), (35, 20, 17, 48, 1), (N, 1, 16, 48, 0), (N, 1, 48, 48, 0),
+])
+def test_gru_seq_kernel_equals_plain(dev, dtype, b, t, i, h, off):
     xs, w, u, bi, bh, h0 = _gru_operands(dev, b, t, i, h, seed=b + t + i + h)
+    if off:
+        flat = torch.zeros(b * t * i + off, dtype=dtype, device=dev)
+        flat[off:].copy_(xs.reshape(-1))
+        xs = flat[off:].view(b, t, i)
+        assert xs.is_contiguous() and xs.data_ptr() % 16 == off * xs.element_size()
     xs = xs.to(dtype)
     before = build.launches["gru_seq"]
     got = gru_sequence(xs, w, u, bi, bh, h0)
