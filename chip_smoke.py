@@ -59,17 +59,28 @@ plain PyTorch version on the card:
      step_batch, PipelinedIngress(depth=2, window=1) and (window=4), 8
      through TickCoalescer, each equal to the step_batch sequence, with
      its launches and ms per tick (host clock); metrics on against off;
- 11. K6 through `kernels.gru_sequence`: the paper's classifier at full
+ 11. the fleet at 4096 slots with 3072 streams open (qat and delta-int,
+     raw audio): a server resized 4096 -> 8192 -> 4096 between ticks, a
+     server of four shards on the one card (one tick_fused launch a shard
+     a tick) that then loses shard 1 (`recover_shard_loss`: the survivors
+     unchanged, the lost streams reopened zeroed), and an Autoscaler over
+     a seeded ramp / peak / drain trace that grows and shrinks, each equal
+     per stream id to an unsharded fixed-capacity twin (state and scores);
+     the host ms of each resize and recovery and of the first and second
+     step_batch after it, the qat tick on 1 and on 4 shards (device ms, launches a tick);
+     `logits_all_frames` and `predict` (integer: K2, and K1 for predict's
+     features) equal to the CPU plain path;
+ 12. K6 through `kernels.gru_sequence`: the paper's classifier at full
      width in float (layer 1 16 -> 48 feeding layer 2 48 -> 48) over 4096
      clips of 62 frames, float32 and one bf16 pass of layer 1, one launch
      a layer, each held against the plain version on the card, each
      launch's geometry and blocks an SM (occupancy API); cuDNN's
      `torch.nn.GRU` on the same weights as the library yardstick;
- 12. K7 through `kernels.wkv6` at rwkv6-7b's head layout and train_4k
+ 13. K7 through `kernels.wkv6` at rwkv6-7b's head layout and train_4k
      length (8, 4096, 64, 64) in float32, one launch, against the plain
      sequential form (relative to max |y|), strong decay and bf16 at small
      sizes, and the chunked training form at B = 1 timed as information;
- 13. times on CUDA events after warm-up: ms per step_batch tick and each
+ 14. times on CUDA events after warm-up: ms per step_batch tick and each
      kernel's time beside its plain version's, its bound and a library
      yardstick where one exists (the qat, integer and ΔGRU ticks on raw
      audio and on the reference's sparsity traffic as FV input, the ΔGRU
@@ -86,7 +97,7 @@ plain PyTorch version on the card:
      tick kernels' dynamic shared memory and blocks an SM (occupancy
      API); one JSON line per kernel (K4's `delta_gather` with its phase's
      time, plain time and bound), then all kernels in one JSON line;
- 14. the result line ``{"ok": true, "device": {...}}``.
+ 15. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
@@ -1852,6 +1863,322 @@ def phase_ingress(dev):
     return out, launches
 
 
+FLEET_OPEN = 3072  # open streams of the fleet's 4096-slot servers
+FLEET_SHARDS = 4  # shards of the sharded server, all on the one card
+FLEET_RUNS = (("qat", None), ("delta-int", THETA))
+AUTOSCALE_STEPS = 24  # the autoscaler's ramp / peak / drain trace
+ENTRY_CLIPS = 8  # logits_all_frames / predict: 0.5 s clips on the card
+
+
+def _fleet_hops(t: int, n_sids: int):
+    """Tick ``t``'s raw hop for stream ids 0 .. n_sids - 1 (gains from -40
+    dB to -6 dB full scale) and which of them submit (85 %)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 20 + t)
+    gains = np.logspace(-2, -0.3, n_sids).astype(np.float32)[:, None]
+    return (rng.standard_normal((n_sids, HOP)).astype(np.float32) * gains,
+            rng.random(n_sids) < 0.85)
+
+
+def _fleet_tick(srv, hops, submit, timed=None):
+    """One step_batch of the server's open streams, each fed its own
+    stream id's hop; returns {sid: (scores row, top)}. With ``timed`` (a
+    dict and a key), the host ms of the step_batch alone go there."""
+    import numpy as np
+
+    sids = np.fromiter(srv.active.keys(), dtype=np.int64, count=len(srv.active))
+    slots = np.fromiter(srv.active.values(), dtype=np.int64, count=len(srv.active))
+    sub = submit[sids]
+    slab = np.zeros((srv.max_streams, HOP), np.float32)
+    mask = np.zeros(srv.max_streams, bool)
+    slab[slots[sub]] = hops[sids[sub]]
+    mask[slots[sub]] = True
+    if timed is None:
+        scores, top = srv.step_batch(slab, mask)
+    else:
+        ms, (scores, top) = _host_ms(lambda: srv.step_batch(slab, mask))
+        timed[0][timed[1]] = ms
+    return {int(s): (scores[k], int(top[k])) for s, k in zip(sids, slots)}
+
+
+def _sid_rows(srv, sids):
+    """Every state leaf's rows of ``sids``, in that order."""
+    import torch
+
+    idx = torch.tensor([srv.active[s] for s in sids], device=srv.device)
+    return [t.index_select(0, idx.to(t.device)) for t in srv.state.leaves()]
+
+
+def _assert_fleet_equal(where, srv, twin, sids, outs=None):
+    """``srv``'s state rows (and the tick outputs ``outs`` = (srv's,
+    twin's)) equal the twin's per stream id."""
+    import numpy as np
+    import torch
+
+    for a, b in zip(_sid_rows(srv, sids), _sid_rows(twin, sids), strict=True):
+        if not torch.equal(a.to(b.device), b):
+            raise AssertionError(f"{where}: state differs from the twin")
+    if outs is not None:
+        got, want = outs
+        for s in sids:
+            if got[s][1] != want[s][1] or not np.array_equal(got[s][0], want[s][0]):
+                raise AssertionError(f"{where}: stream {s}'s scores differ from the twin")
+
+
+def _host_ms(fn):
+    """(host ms of ``fn``, its result), the card idle before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, result
+
+
+def phase_fleet(dev):
+    """The elastic fleet at N_STREAMS slots with FLEET_OPEN streams open,
+    raw audio, for qat and delta-int (θ = 0.15): a server resized
+    N_STREAMS -> 2 * N_STREAMS -> N_STREAMS between ticks, a server of
+    FLEET_SHARDS shards on the one card (one tick_fused launch a shard a
+    tick) that then loses shard 1, and an Autoscaler over a seeded ramp /
+    peak / drain trace; each equal per stream id to an unsharded,
+    fixed-capacity twin fed the same traffic (state and scores), the
+    recovered shard's streams reopened zeroed. Then logits_all_frames
+    (integer) and predict on the card against the CPU plain path. Times:
+    host ms of each resize and the recovery and of the step_batch of the
+    first and second tick after each; the qat tick at 1 and at FLEET_SHARDS shards (device ms of the
+    launches on staged inputs, host ms of a step_batch). Returns (times,
+    {kernel key: launches on these paths}, {classifier: 0 max
+    difference})."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.serving.autoscale import shard_of_slot
+    from repro_torch.serving.serve_loop import StreamingKWSServer
+
+    times, launches = {}, {}
+    sids = list(range(FLEET_OPEN))
+    for classifier, theta in FLEET_RUNS:
+        label = _label(classifier, theta)
+        pipe, params = _setup(dev, classifier, theta)
+
+        def server(**kw):
+            kw.setdefault("devices", [dev])
+            srv = StreamingKWSServer(pipe, params, max_streams=N_STREAMS, smoothing=SMOOTHING,
+                                     **kw)
+            for sid in sids:
+                srv.open_stream(sid)
+            return srv
+
+        twin, elastic = server(), server()
+        sharded = server(devices=[dev] * FLEET_SHARDS)
+        build.launches.clear()
+        t = 0
+
+        def tick(*servers, timed=None, after=None):
+            """One tick of the servers; with ``timed``, that server's
+            step_batch alone is timed as the ``after`` tick."""
+            nonlocal t
+            hops, submit = _fleet_hops(t, N_STREAMS)
+            t += 1
+            return [_fleet_tick(srv, hops, submit, None if srv is not timed else
+                                (times, f"fleet {label} {after} step_batch host_ms"))
+                    for srv in servers]
+
+        for _ in range(2):
+            want, got, got_sh = tick(twin, elastic, sharded)
+            _assert_fleet_equal(f"fleet {label} sharded", sharded, twin, sids, (got_sh, want))
+        moves = ("resize grow", "resize shrink", "recover_shard_loss")
+        for what, cap in zip(moves, (2 * N_STREAMS, N_STREAMS)):
+            ms, _ = _host_ms(lambda: elastic.resize(cap))
+            times[f"fleet {label} {what} host_ms"] = ms
+            for nth in ("first", "second"):
+                want, got, got_sh = tick(twin, elastic, sharded, timed=elastic,
+                                         after=f"{nth} after {what}")
+                _assert_fleet_equal(f"fleet {label} after {what}", elastic, twin, sids,
+                                    (got, want))
+            _assert_fleet_equal(f"fleet {label} sharded", sharded, twin, sids, (got_sh, want))
+        if elastic.compile_count != 1:
+            raise AssertionError(f"fleet {label}: a resize rebuilt the operands")
+        # shard loss: shard 1's streams reopen zeroed, the others keep state
+        lost = [s for s in sids
+                if shard_of_slot(sharded.active[s], N_STREAMS, FLEET_SHARDS) == 1]
+        kept = [s for s in sids if s not in set(lost)]
+        before = _sid_rows(sharded, kept)
+        ms, info = _host_ms(lambda: sharded.recover_shard_loss(1))
+        times[f"fleet {label} recover_shard_loss host_ms"] = ms
+        if (info["n_devices"], sorted(info["reopened"]), info["survivors"]) != (
+                FLEET_SHARDS // 2, lost, kept):
+            raise AssertionError(f"fleet {label}: recovery summary {info}")
+        for a, b in zip(_sid_rows(sharded, kept), before, strict=True):
+            if not torch.equal(a, b):
+                raise AssertionError(f"fleet {label}: a survivor's state changed in the recovery")
+        if any(bool(x.any()) for x in _sid_rows(sharded, lost)):
+            raise AssertionError(f"fleet {label}: a reopened stream is not zeroed")
+        for nth in ("first", "second"):
+            want, got, got_sh = tick(twin, elastic, sharded, timed=sharded,
+                                     after=f"{nth} after recover_shard_loss")
+            _assert_fleet_equal(f"fleet {label} recovered", sharded, twin, kept, (got_sh, want))
+        counts = dict(build.launches)
+        n_ticks = t
+        # twin and elastic one launch a tick; the sharded server one a shard,
+        # then one a surviving shard for the two ticks after the recovery
+        want_launches = 2 * n_ticks + FLEET_SHARDS * (n_ticks - 2) + 2 * (FLEET_SHARDS // 2)
+        if counts != {"tick_fused": want_launches}:
+            raise AssertionError(f"fleet {label}: launches {counts}, want only "
+                                 f"tick_fused={want_launches}")
+        launches[label] = counts["tick_fused"]
+        after = ", ".join(
+            f"{times[f'fleet {label} first after {w} step_batch host_ms']:.3f} / "
+            f"{times[f'fleet {label} second after {w} step_batch host_ms']:.3f}" for w in moves)
+        print(f"fleet {label}: {n_ticks} ticks of {FLEET_OPEN} open streams; resize "
+              f"{N_STREAMS} -> {2 * N_STREAMS} -> {N_STREAMS} and {FLEET_SHARDS} shards on one "
+              f"card equal to the unsharded twin; recover_shard_loss(1) kept {len(kept)}, "
+              f"reopened {len(lost)} zeroed; launches {counts}; resize "
+              f"{times[f'fleet {label} resize grow host_ms']:.2f} / "
+              f"{times[f'fleet {label} resize shrink host_ms']:.2f} ms, recovery "
+              f"{times[f'fleet {label} recover_shard_loss host_ms']:.2f} ms; the first / second "
+              f"step_batch after each {after} ms (host)")
+        if classifier == "qat":
+            times.update(_fleet_tick_times(pipe, params, twin, sharded))
+    launches.update(_autoscale_run(dev))
+    entry_launches, entry_err = _entry_points(dev)
+    launches.update(entry_launches)
+    return times, launches, entry_err
+
+
+def _fleet_tick_times(pipe, params, one, sharded):
+    """The qat raw tick at N_STREAMS slots on 1 and on FLEET_SHARDS shards
+    of one card: device ms of the server's launches on staged inputs
+    (CUDA events, back to back after a stream hold) and launches a tick;
+    host ms of a step_batch (20 calls)."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.serving.serve_loop import StreamingKWSServer
+
+    out = {}
+    hops, _ = _fleet_hops(99, N_STREAMS)
+    mask = np.ones(N_STREAMS, bool)
+    for n, srv in ((1, one), (FLEET_SHARDS, None)):
+        if srv is None:  # the recovered server has 2 shards: a fresh 4-shard one
+            srv = StreamingKWSServer(pipe, params, max_streams=N_STREAMS, smoothing=SMOOTHING,
+                                     devices=[one.device] * n)
+            for sid in range(N_STREAMS):
+                srv.open_stream(sid)
+        inputs = srv._inputs(hops, mask, ())
+        build.launches.clear()
+        srv._tick(inputs, True)
+        per_tick = build.launches["tick_fused"]
+        if per_tick != n:
+            raise AssertionError(f"a tick of {n} shards launched {per_tick} kernels")
+        ms, _ = _cuda_ms(lambda: srv._tick(inputs, True), reps=50, hold=True)
+        for _ in range(3):
+            srv.step_batch(hops, mask)
+        host_ms, _ = _host_ms(lambda: [srv.step_batch(hops, mask) for _ in range(20)])
+        out[f"fleet qat tick {n} shard ms"] = ms
+        out[f"fleet qat tick {n} shard launches"] = per_tick
+        out[f"fleet qat step_batch {n} shard host_ms"] = host_ms / 20
+        print(f"fleet qat tick at {N_STREAMS} streams on {n} shard(s) of one card: {ms:.5f} ms "
+              f"(device, {per_tick} launch(es) a tick), step_batch {host_ms / 20:.4f} ms (host)")
+    return out
+
+
+def _autoscale_run(dev):
+    """An Autoscaler over a seeded trace: ramp (opens, some refused at
+    capacity), peak, drain (closes); every tick's scores and the final
+    state equal per stream id to a fixed-capacity twin. Returns the
+    launches of the run."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.serving.autoscale import AutoscalePolicy, Autoscaler
+    from repro_torch.serving.serve_loop import StreamingKWSServer
+
+    pipe, params = _setup(dev, "qat")
+    srv = StreamingKWSServer(pipe, params, max_streams=N_STREAMS // 8, smoothing=SMOOTHING,
+                             device=dev)
+    twin = StreamingKWSServer(pipe, params, max_streams=N_STREAMS, smoothing=SMOOTHING,
+                              device=dev)
+    auto = Autoscaler(srv, AutoscalePolicy(min_streams=N_STREAMS // 8, max_streams=N_STREAMS,
+                                           grow_at=0.8, shrink_at=0.3, hysteresis_ticks=2,
+                                           cooldown_ticks=2))
+    rng = np.random.default_rng(SEED + 30)
+    nxt = 0
+    build.launches.clear()
+    for step in range(AUTOSCALE_STEPS):
+        if step < 10:  # ramp
+            for _ in range(N_STREAMS * 5 // 64):
+                try:
+                    srv.open_stream(nxt)
+                except RuntimeError:
+                    auto.note_rejection()
+                    continue
+                twin.open_stream(nxt)
+                nxt += 1
+        elif step >= 14:  # drain
+            for sid in sorted(srv.active)[: min(len(srv.active) - N_STREAMS // 64,
+                                                N_STREAMS * 3 // 32)]:
+                srv.close_stream(sid)
+                twin.close_stream(sid)
+        hops, submit = _fleet_hops(100 + step, nxt)
+        t0 = time.perf_counter()
+        got = _fleet_tick(srv, hops, submit)
+        tick_s = time.perf_counter() - t0
+        want = _fleet_tick(twin, hops, submit)
+        _assert_fleet_equal(f"autoscaler step {step}", srv, twin, sorted(srv.active), (got, want))
+        auto.observe(tick_s)
+    counts = dict(build.launches)
+    actions = [e["action"] for e in auto.events]
+    if "grow" not in actions or "shrink" not in actions:
+        raise AssertionError(f"the autoscaler did not grow and shrink: {auto.events}")
+    if counts != {"tick_fused": 2 * AUTOSCALE_STEPS}:
+        raise AssertionError(f"autoscaler run: launches {counts}")
+    print(f"autoscaler: {AUTOSCALE_STEPS} steps, {nxt} streams opened, decisions "
+          f"{[(e['action'], e['from'], e['to'], e['reason']) for e in auto.events]}, every "
+          f"tick equal per stream id to a {N_STREAMS}-slot twin; launches {counts}")
+    return {"autoscale": counts["tick_fused"]}
+
+
+def _entry_points(dev):
+    """logits_all_frames (integer: K2) and predict (integer: K1 and K2) on
+    seeded clips on the card, each equal to the same call on the CPU.
+    Returns ({kernel key: launches}, max difference)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    pipe, params = _setup(dev, "integer")
+    cpu_pipe = pipe.with_state(_state_to(pipe.state, "cpu"))
+    cpu_params = {"gru": [{k: v.cpu() for k, v in layer.items()} for layer in params["gru"]],
+                  "fc": {k: v.cpu() for k, v in params["fc"].items()}}
+    audio = torch.as_tensor(_clips(ENTRY_CLIPS, CLIP_SAMPLES // 2), device=dev)
+    fv, _ = pipe.features(audio)
+    build.launches.clear()
+    logits = pipe.logits_all_frames(params, fv)
+    top = pipe.predict(params, audio)
+    torch.cuda.synchronize()
+    counts = dict(build.launches)
+    # the integer classifier's forward: 4 intgemm launches a frame (each
+    # layer's input and hidden products), then one for the FC over every
+    # frame; once in each call
+    frames = fv.shape[1]
+    want = {"intgemm": 2 * (4 * frames + 1), "fex_fused": 1}
+    if counts != want:
+        raise AssertionError(f"logits_all_frames / predict launches {counts}, want {want}")
+    cpu_logits = cpu_pipe.logits_all_frames(cpu_params, fv.cpu())
+    cpu_top = cpu_pipe.predict(cpu_params, audio.cpu())
+    if not torch.equal(logits.cpu(), cpu_logits):
+        raise AssertionError("logits_all_frames (integer) differs from the CPU plain path")
+    if not torch.equal(top.cpu(), cpu_top):
+        raise AssertionError("predict (integer) differs from the CPU plain path")
+    print(f"logits_all_frames / predict (integer) on {ENTRY_CLIPS} clips x {frames} frames: "
+          f"equal to the CPU plain path; launches {counts}")
+    return {"entry intgemm": counts["intgemm"], "entry fex_fused": counts["fex_fused"]}, 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1917,6 +2244,7 @@ def main() -> int:
     casc_err, casc_launches, _, linear, (fit_launches, fit_err, fit_times) = phase_cascade(
         dev, hw_state)
     ingress_times, _ = phase_ingress(dev)
+    fleet_times, fleet_launches, entry_err = phase_fleet(dev)
     gru_err, gru_launches, gru_times = phase_gru_seq(dev)
     wkv_err, wkv_launches, wkv_times = phase_wkv6(dev)
 
@@ -1925,6 +2253,7 @@ def main() -> int:
     times.update(cascade_times(dev, hw_state, linear))
     times.update(fit_times)
     times.update(ingress_times)
+    times.update(fleet_times)
     times.update(gru_times)
     times.update(wkv_times)
     print(f"step_batch at {N_STREAMS} streams (qat, raw audio, host slab in, host "
@@ -1954,15 +2283,19 @@ def main() -> int:
     d_key = f"{_label('delta', THETA)} raw"
     k4 = _label("delta", THETA)
     kernels = [
+        # the server runs, then the fleet's (resized, sharded, recovered and
+        # autoscaled servers with their twins)
         tick_entry("tick_fused", "qat raw",
-                   launches["qat"]["tick_fused"] + launches["integer"]["tick_fused"],
+                   launches["qat"]["tick_fused"] + launches["integer"]["tick_fused"]
+                   + fleet_launches["qat"] + fleet_launches["autoscale"],
                    max(tick_err["qat"], tick_err["integer"])),
         tick_entry("tick_fused[float]", "float raw", launches["float"]["tick_fused"],
                    tick_err["float"]),
         tick_entry("tick_fused[delta]", d_key, launches["delta"]["tick_fused"],
                    tick_err["delta"]),
         tick_entry("tick_fused[delta-int]", f"{_label('delta-int', THETA)} raw",
-                   launches["delta-int"]["tick_fused"], tick_err["delta-int"]),
+                   launches["delta-int"]["tick_fused"]
+                   + fleet_launches[_label("delta-int", THETA)], tick_err["delta-int"]),
         # K4 runs inside the ΔGRU tick: one per delta / delta-int tick_fused
         # launch; its time is the phase's (the FV tick less the gate-shut FV
         # tick, both measured in this run), its plain time the sparse step's
@@ -1970,7 +2303,8 @@ def main() -> int:
             "name": "delta_gather", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/tick_fused.cu",
             "replaces": "src/repro/kernels/tick_fused/kernel.py:76",
-            "launches": launches["delta"]["tick_fused"] + launches["delta-int"]["tick_fused"],
+            "launches": launches["delta"]["tick_fused"] + launches["delta-int"]["tick_fused"]
+            + fleet_launches[_label("delta-int", THETA)],
             "max_abs_err": max(tick_err["delta"], tick_err["delta-int"]),
             "ms": times[f"{k4} split classifier_ms"],
             "plain_ms": times[f"{k4} split classifier plain_ms"],
@@ -1983,7 +2317,9 @@ def main() -> int:
                    max(hw_tick_err.values())),
         # the gated branch (detector, gate, decay) inside the same launch
         tick_entry("tick_fused[cascade]", "cascade qat energy 0.15", casc_launches, casc_err),
-        feature_entry("fex_fused", "fex_fused", feat_launches["software"]["fex_fused"],
+        # record_features (software), then predict
+        feature_entry("fex_fused", "fex_fused",
+                      feat_launches["software"]["fex_fused"] + fleet_launches["entry fex_fused"],
                       feat_errs["fex_fused"]),
         # the K1 kernel's per-sample entry: the hardware frontends' Rec-BPF scan
         feature_entry("fex_fused[scan]", "scan",
@@ -1996,7 +2332,9 @@ def main() -> int:
             "name": "intgemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/intgemm.cu",
             "replaces": "src/repro/kernels/intgemm/kernel.py:46",
-            "launches": intgemm_launches, "max_abs_err": intgemm_err,
+            # streaming_step, then logits_all_frames and predict
+            "launches": intgemm_launches + fleet_launches["entry intgemm"],
+            "max_abs_err": max(intgemm_err, entry_err),
             "ms": times["intgemm_ms"], "plain_ms": times["intgemm_plain_ms"],
             "bound_ms": times["intgemm_bound_ms"], "bound_by": times["intgemm_bound_by"],
             "library_ms": times["intgemm_library_ms"],

@@ -1,8 +1,8 @@
 """Weights carried across from the reference, through numpy.
 
 The reference's float parameter pytree, `QuantizedClassifier` codes,
-norm stats, ΔGRU states, cascade detector states and hardware-frontend
-states (a die drawn with ``jax.random`` and its calibration) arrive as numpy arrays (for example through
+norm stats, ΔGRU states, cascade detector states, whole serving states
+and hardware-frontend states (a die drawn with ``jax.random`` and its calibration) arrive as numpy arrays (for example through
 ``jax.tree_util.tree_map(np.asarray, tree)``) and leave as the port's
 tensors on ``device``, in the same layouts: ``w_i`` (I, 3H), ``w_h``
 (H, 3H), ``fc.w`` (H, K). This module takes numpy only.
@@ -19,6 +19,7 @@ from repro_torch.core.fex import FExNormStats
 from repro_torch.core.frontend import FrontendState
 from repro_torch.core.gru_int import QuantizedClassifier
 from repro_torch.core.tdfex import TDFExState
+from repro_torch.serving.serve_loop import ServerState
 
 __all__ = [
     "params_from_numpy",
@@ -28,6 +29,7 @@ __all__ = [
     "delta_states_from_numpy",
     "cascade_state_from_numpy",
     "frontend_state_from_numpy",
+    "server_state_from_numpy",
 ]
 
 
@@ -135,3 +137,24 @@ def frontend_state_from_numpy(
     stats = None if mu is None else norm_stats_from_numpy(mu, sigma, device)
     return FrontendState(norm_stats=stats, chip=chip, beta=f(beta), alpha=f(alpha),
                          coeffs=f(coeffs))
+
+
+def server_state_from_numpy(gru, carry, scores, det, device):
+    """A reference `ServerState`'s leaves as numpy arrays (on a sharded
+    reference server, gathered from its mesh in global slot order) -> the
+    port's `repro_torch.serving.serve_loop.ServerState` on ``device``,
+    every dtype kept: ``gru`` per-layer arrays (float32 or int32 codes) or
+    ΔGRU dicts, ``carry`` a dict of float32 arrays, ``scores`` float32,
+    ``det`` a detector state or None. Lets a test hold a port server's
+    state against the reference's leaf by leaf (`ServerState.leaves`)."""
+    layers = tuple(gru)
+    if layers and isinstance(layers[0], dict):
+        layers = tuple(delta_states_from_numpy(layers, device))
+    else:
+        layers = tuple(torch.tensor(np.array(h), device=device) for h in layers)
+    return ServerState(
+        gru=layers,
+        carry={k: _t(v, device, torch.float32) for k, v in carry.items()},
+        scores=_t(scores, device, torch.float32),
+        det=None if det is None else cascade_state_from_numpy(det, device),
+    )

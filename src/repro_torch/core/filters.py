@@ -33,6 +33,7 @@ __all__ = [
     "mel_center_frequencies",
     "design_bandpass_biquad",
     "design_filterbank",
+    "biquad_frequency_response",
 ]
 
 
@@ -57,6 +58,14 @@ class BiquadCoeffs:
     @property
     def num_channels(self) -> int:
         return int(self.b0.shape[0])
+
+    def as_arrays(self, dtype=torch.float32, device=None):
+        """(b0, b1, b2, a1, a2) as tensors of shape (C,) on ``device``
+        (the host when None, as `stacked`)."""
+        return tuple(
+            torch.as_tensor(v, dtype=dtype, device=device)
+            for v in (self.b0, self.b1, self.b2, self.a1, self.a2)
+        )
 
     def stacked(self, dtype=torch.float32, device=None) -> torch.Tensor:
         """Shape (5, C): rows are b0, b1, b2, a1, a2."""
@@ -115,3 +124,17 @@ def design_filterbank(
     return design_bandpass_biquad(
         mel_center_frequencies(num_channels, f_lo, f_hi), fs=fs, q=q
     )
+
+
+def biquad_frequency_response(coeffs: BiquadCoeffs, freqs_hz) -> np.ndarray:
+    """|H(e^{jw})| evaluated at freqs_hz. Shape (C, F). Pure numpy oracle."""
+    f = np.asarray(freqs_hz, dtype=np.float64)
+    z = np.exp(-1j * 2.0 * math.pi * f / coeffs.fs)  # z^-1, shape (F,)
+    z = z[None, :]
+    num = (
+        coeffs.b0[:, None]
+        + coeffs.b1[:, None] * z
+        + coeffs.b2[:, None] * z**2
+    )
+    den = 1.0 + coeffs.a1[:, None] * z + coeffs.a2[:, None] * z**2
+    return np.abs(num / den)

@@ -44,6 +44,8 @@ __all__ = [
     "gru_classifier_forward",
     "gru_classifier_step",
     "init_states",
+    "classifier_macs",
+    "classifier_param_bytes",
 ]
 
 
@@ -211,3 +213,29 @@ def init_states(config: GRUConfig, batch: int, device) -> List[torch.Tensor]:
         torch.zeros((batch, config.hidden_dim), dtype=torch.float32, device=device)
         for _ in range(config.num_layers)
     ]
+
+
+def classifier_macs(config: GRUConfig) -> int:
+    """MAC count per frame: the latency model's input (Section III-E).
+
+    The paper's 2 x 48 GRU + FC over 16 inputs is 24 204 weights; at 8
+    HPEs and 250 kHz that gives the reported 12.4 ms (`core.energy`).
+    """
+    macs = 0
+    h = config.hidden_dim
+    for layer in range(config.num_layers):
+        in_dim = config.input_dim if layer == 0 else h
+        macs += 3 * h * (in_dim + h) + 2 * 3 * h  # matmuls + two bias adds
+    macs += config.num_classes * h + config.num_classes
+    return macs
+
+
+def classifier_param_bytes(config: GRUConfig, bits: int = 8) -> int:
+    """Bytes of the classifier's weights and biases at ``bits`` a value."""
+    h = config.hidden_dim
+    n = 0
+    for layer in range(config.num_layers):
+        in_dim = config.input_dim if layer == 0 else h
+        n += 3 * h * (in_dim + h) + 2 * 3 * h
+    n += config.num_classes * h + config.num_classes
+    return n * bits // 8

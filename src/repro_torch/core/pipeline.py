@@ -21,6 +21,9 @@ Every feature entry point routes through the frontend:
                                         FV_Norm frame per stream
   streaming_step(params, states, fv_t)  one GRU step per 16 ms frame
 
+and the classifier side: `logits` (final frame), `logits_all_frames`
+and `predict` (audio -> class, `features` then `logits`).
+
 On a CUDA tensor the batch features run the port's kernels: K1 for
 "software", the K1 scan entry and K5 for "hardware-pallas", the scan
 entry and the cumulative-phase TDC (PyTorch, as in the reference) for
@@ -131,6 +134,11 @@ class KWSPipeline:
         # strong reference keeps the key's id() from being recycled
         self._prepared = None
 
+    @property
+    def norm_stats(self) -> Optional[FExNormStats]:
+        """The bound frontend state's FV_Log normalizer statistics."""
+        return self.state.norm_stats
+
     def _resolve(self, state: Optional[FrontendState]) -> FrontendState:
         return self.state if state is None else state
 
@@ -235,9 +243,26 @@ class KWSPipeline:
 
     def logits(self, params, fv_norm: torch.Tensor) -> torch.Tensor:
         """(B, F, C) -> final-frame logits (B, K)."""
+        return self.logits_all_frames(params, fv_norm)[:, -1, :]
+
+    def logits_all_frames(self, params, fv_norm: torch.Tensor) -> torch.Tensor:
+        """(B, F, C) -> logits of every frame (B, F, K), through the
+        configured backend (K2 on the card for integer and delta-int)."""
         return self.classifier.forward(
             self.prepare_params(params), fv_norm, self.config.gru
-        )[:, -1, :]
+        )
+
+    def predict(
+        self,
+        params,
+        audio: torch.Tensor,
+        state: Optional[FrontendState] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """audio (B, T) -> the class of each clip's final frame (B,) int64:
+        `features`, then the argmax of `logits`, on the audio's device."""
+        fv_norm, _ = self.features(audio, state, generator)
+        return torch.argmax(self.logits(params, fv_norm), dim=-1)
 
     # ---------- streaming serving ----------
 

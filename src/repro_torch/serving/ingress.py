@@ -129,7 +129,9 @@ class TickHandle:
 class PipelinedIngress:
     """Double-buffered slab staging over the server's async dispatch.
 
-    `depth` preallocated (slab, mask) host buffer pairs cycle round-robin;
+    `depth` preallocated (slab, mask) host buffer pairs cycle round-robin
+    (reallocated by the first `stage()` after a `resize`, which needs the
+    pipeline drained);
     at most `depth` dispatches are in flight. `stage()` returns the next
     pair (numpy views; on the card views of pinned host tensors) for the
     caller to assemble a tick into, forcing the dispatch that consumed
@@ -164,22 +166,7 @@ class PipelinedIngress:
         self.dim = int(dim)
         self.depth = depth
         self.window = window
-        n = server.max_streams
-        # pinned on the card, so the slab's copy to the card is
-        # asynchronous; the FIFO below keeps a buffer from being rewritten
-        # before the tick that read it has completed
-        pin = server.device.type == "cuda"
-        self._slab_t = [
-            torch.zeros((window, n, self.dim), dtype=torch.float32,
-                        pin_memory=pin)
-            for _ in range(depth)
-        ]
-        self._mask_t = [
-            torch.zeros((window, n), dtype=torch.bool, pin_memory=pin)
-            for _ in range(depth)
-        ]
-        self._slabs = [t.numpy() for t in self._slab_t]
-        self._masks = [t.numpy() for t in self._mask_t]
+        self._allocate(server.max_streams)
         # (buffer index, handle, traces) in dispatch order; len <= depth
         self._fifo: collections.deque = collections.deque()
         self._retired: List[TickHandle] = []
@@ -210,6 +197,24 @@ class PipelinedIngress:
                 "device dispatches issued by the pipelined ingress",
             )
 
+    def _allocate(self, n: int) -> None:
+        """The `depth` (slab, mask) buffer pairs for ``n`` slots: pinned on
+        the card, so the slab's copy to the card is asynchronous; the FIFO
+        keeps a buffer from being rewritten before the tick that read it
+        has completed."""
+        pin = self.server.device.type == "cuda"
+        self._slab_t = [
+            torch.zeros((self.window, n, self.dim), dtype=torch.float32,
+                        pin_memory=pin)
+            for _ in range(self.depth)
+        ]
+        self._mask_t = [
+            torch.zeros((self.window, n), dtype=torch.bool, pin_memory=pin)
+            for _ in range(self.depth)
+        ]
+        self._slabs = [t.numpy() for t in self._slab_t]
+        self._masks = [t.numpy() for t in self._mask_t]
+
     @property
     def in_flight(self) -> int:
         return len(self._fifo)
@@ -224,6 +229,20 @@ class PipelinedIngress:
         the pipeline is full (forces the oldest in-flight dispatch)."""
         if self._staged:
             raise RuntimeError("stage() called again before commit()")
+        n = self.server.max_streams
+        if n != self._slabs[0].shape[1]:
+            # the server was resized (autoscaler, shard-loss recovery):
+            # the buffers are the old capacity. Reallocating is safe only
+            # with the pipeline empty (in-flight dispatches and a
+            # half-filled window still hold old-capacity slabs), so
+            # callers drain() around a resize and the next stage() picks
+            # the new capacity up here.
+            if self._fifo or self._fill:
+                raise RuntimeError(
+                    "server capacity changed mid-pipeline: drain() the "
+                    "ingress before staging into the resized server"
+                )
+            self._allocate(n)
         i = self._cursor
         if self._fill == 0:
             # about to write row 0 of buffer i: the dispatch that

@@ -18,7 +18,7 @@ byte of its state across the tick. `open_stream`/`close_stream` recycle
 slots through a `StreamRouter`, zeroing only the reused slot.
 
 It serves all five classifier backends (float, qat, integer, delta,
-delta-int) on one device; the ΔGRU backends' per-stream sparsity is
+delta-int); the ΔGRU backends' per-stream sparsity is
 `StreamingKWSServer.sparsity`. A pipeline with a cascade
 (`KWSPipelineConfig.cascade`) gates the classifier per stream behind the
 stage-1 wake detector inside the same launch; its duty cycle is
@@ -26,24 +26,33 @@ stage-1 wake detector inside the same launch; its duty cycle is
 return a `repro_torch.serving.ingress.TickHandle` without waiting for the
 card (the pipelined ingress of `repro_torch.serving.ingress` builds on
 them), and ``metrics=`` instruments the server into a
-`repro_torch.serving.metrics.MetricsRegistry`. `resize`, shard-loss
-recovery and sharding arrive with the fleet slice (ROADMAP queue 1).
+`repro_torch.serving.metrics.MetricsRegistry`.
+
+The fleet: ``devices=`` splits the slot axis block-wise over shards
+(`repro_torch.distributed.sharding.stream_devices`; entries may repeat,
+so one card runs several shards). Each shard keeps its slots' state in
+tensors of its own on its device and gets one kernel launch a tick, the
+counterpart of the reference's one kernel per shard under ``shard_map``.
+`resize` grows or shrinks the capacity live, copying the open streams'
+state bitwise (`repro_torch.serving.autoscale.Autoscaler` drives it
+from occupancy and latency), and `recover_shard_loss` shrinks the fleet
+onto the surviving shards after one is lost.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.frontend import tree_leaves
 from repro_torch.core.gru_delta import effective_mac_fraction
-from repro_torch.kernels.build import resolve_device
+from repro_torch.distributed.sharding import stream_devices, surviving_devices
 from repro_torch.kernels.tick_fused import pack_operands, tick_fused
 from repro_torch.serving import cascade as cascade_lib
-from repro_torch.serving.autoscale import StreamRouter
+from repro_torch.serving.autoscale import StreamRouter, shard_of_slot
 from repro_torch.serving.ingress import TickHandle
 from repro_torch.serving.metrics import MetricsRegistry
 
@@ -72,7 +81,8 @@ class ServerState:
 
     On the card each tick updates these tensors in place (the
     counterpart of the reference's buffer donation); all-zeros is every
-    backend's fresh state.
+    backend's fresh state. A sharded server keeps one per shard, each
+    over that shard's block of slots.
     """
 
     gru: Tuple[torch.Tensor, ...]
@@ -85,11 +95,32 @@ class ServerState:
         return tree_leaves((self.gru, self.carry, self.scores, self.det))
 
 
-def _reset_slot(state: ServerState, slot: int) -> None:
-    """Zero one slot's slice of every state tensor, in place; the zero is
-    written in each leaf's own dtype (the cascade's awake latch is bool)."""
+def _map_state(fn, *states: ServerState) -> ServerState:
+    """A `ServerState` whose every leaf is ``fn`` of the leaves in the same
+    place of ``states`` (which share one structure)."""
+
+    def walk(*nodes):
+        first = nodes[0]
+        if first is None:
+            return None
+        if isinstance(first, dict):
+            return {k: walk(*(n[k] for n in nodes)) for k in first}
+        if isinstance(first, (tuple, list)):
+            return type(first)(walk(*xs) for xs in zip(*nodes))
+        return fn(*nodes)
+
+    return ServerState(*(walk(*(getattr(st, f.name) for st in states))
+                         for f in dataclasses.fields(ServerState)))
+
+
+def _reset_slots(state: ServerState, slots: List[int]) -> None:
+    """Zero the given slots' slices of every state tensor, in place (one
+    indexed write a tensor); the zero is written in each leaf's own dtype
+    (the cascade's awake latch is bool)."""
+    idx = slots[0] if len(slots) == 1 else torch.as_tensor(
+        slots, dtype=torch.int64, device=state.scores.device)
     for t in state.leaves():
-        t[slot] = 0
+        t[idx] = 0
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -115,45 +146,70 @@ class StreamingKWSServer:
 
     ``device`` defaults to the card (``"cuda"``); with no CUDA device the
     constructor raises, and ``device="cpu"`` runs the plain PyTorch tick.
-    ``tick_impl`` accepts only ``"auto"``: on the card the tick is the
-    CUDA kernel and nothing else (`tick_dispatch` reads ``"cuda"``, or
-    ``"cpu"`` for the plain tick). ``params`` are the float parameters (or
-    `QuantizedClassifier` codes for ``classifier="integer"`` /
-    ``"delta-int"``) on ``device``; the server backend-shapes them once.
+    ``devices`` (exclusive with ``device``) shards the slot axis: an int
+    (the first N visible cards; more than are visible raises) or a list
+    of devices, which may repeat (``["cuda:0"] * 4`` is four shards on
+    one card). Slot ``s`` lives on shard ``shard_of_slot(s, max_streams,
+    n)`` in that shard's own `ServerState` on its device; a tick launches
+    the kernel once per shard on the shard's rows. One entry is the
+    unsharded server. ``tick_impl`` accepts only ``"auto"``: on the card
+    the tick is the CUDA kernel and nothing else (`tick_dispatch` reads
+    ``"cuda"``, or ``"cpu"`` for the plain tick). ``params`` are the float
+    parameters (or `QuantizedClassifier` codes for ``classifier="integer"``
+    / ``"delta-int"``); the server backend-shapes them once and packs the
+    kernel's operands once per distinct card.
 
     Two cadences drive the same launches: `step_batch` (dispatch, then
     wait for the scores) and `step_batch_async` (dispatch and return a
     `TickHandle` whose scores arrive later, so tick N's results are
     fetched while tick N+1 runs). On the card everything of a tick (the
-    slab's copy in, the kernel, the scores' copy out) goes on the
+    slab's copy in, the kernels, the scores' copy out) goes on the
     device's current CUDA stream, so tick N's copy-out is ordered before
     tick N+1 rewrites the scores in place. `run_batch` / `run_batch_async`
     run a (T, N, ·) slab as T back-to-back ticks and copy to the host
-    once. Results are owned host copies.
+    once. Results are owned host copies, in global slot order.
+
+    Elastic capacity: `resize` re-lays every state tensor onto a new
+    capacity, the open streams' rows copied bitwise and re-placed by
+    `StreamRouter.remap`; `recover_shard_loss` drops a lost shard,
+    shrinks the shard list (power of two) and reopens the lost shard's
+    streams on zeroed slots.
 
     Observability: ``metrics=`` takes a
     `repro_torch.serving.metrics.MetricsRegistry` (or ``True`` for a
     fresh one, exposed as `srv.metrics`) and records tick dispatch /
     fetch / step latency histograms keyed on the 16 ms budget, tick /
     retrace / compile counters, occupancy gauges, and a journal event for
-    the server's build and every retrace. These are host clock reads and
-    dict updates around the existing calls, so a metrics-enabled server
-    gives bit-identical results. `metrics_snapshot()` rolls the registry
-    and the server's own telemetry into one JSON-able dict.
+    the server's build, every retrace, resize and shard loss. These are
+    host clock reads and dict updates around the existing calls, so a
+    metrics-enabled server gives bit-identical results.
+    `metrics_snapshot()` rolls the registry and the server's own
+    telemetry into one JSON-able dict.
     """
 
     def __init__(self, pipeline, params, max_streams: int = 256,
                  smoothing: float = 0.7, state=None, tick_impl: str = "auto",
-                 device=None, metrics=None):
+                 device=None, devices=None, metrics=None):
+        if device is not None and devices is not None:
+            raise ValueError("pass device= or devices=, not both")
         if tick_impl not in _TICK_IMPLS:
             raise ValueError(
                 f"tick_impl must be one of {_TICK_IMPLS}; got {tick_impl!r}"
             )
-        self.device = resolve_device(device)
+        # stream_devices is the one count-against-visible validator
+        self.shard_devices: List[torch.device] = stream_devices(
+            [device] if devices is None else devices
+        )
+        self.n_devices = len(self.shard_devices)
+        self.device = self.shard_devices[0]
+        if max_streams % self.n_devices != 0:
+            raise ValueError(
+                f"max_streams={max_streams} must divide over "
+                f"{self.n_devices} devices"
+            )
         self.tick_impl = tick_impl
         # what a tick runs: the CUDA kernel, or the plain tick on the CPU
         self.tick_dispatch = "cuda" if self.device.type == "cuda" else "cpu"
-        self.n_devices = 1
         # `_is_raw` dispatches on the trailing dim alone, so a geometry
         # where a raw hop and an FV_Norm frame have the same width would
         # route every tick down the raw-audio path.
@@ -174,27 +230,19 @@ class StreamingKWSServer:
         self.max_streams = max_streams
         self.smoothing = smoothing
         self.frontend_state = pipeline.state if state is None else state
-        self._operands = None
-        if self.device.type == "cuda":
-            self._operands = pack_operands(
-                pipeline, self.params, self.frontend_state, self.device
-            )
-        det = None
-        if pipeline.config.cascade is not None:
-            det = cascade_lib.init_state(max_streams, self.device)
-        self.state = ServerState(
-            gru=tuple(pipeline.streaming_init(max_streams, self.device)),
-            carry=pipeline.streaming_features_init(max_streams, self.device),
-            scores=torch.zeros(
-                (max_streams, pipeline.config.gru.num_classes),
-                dtype=torch.float32, device=self.device,
-            ),
-            det=det,
-        )
+        self._operands: Dict[torch.device, Any] = {}
+        self._shards: List[ServerState] = [
+            self._fresh_state(max_streams // self.n_devices, dev)
+            for dev in self.shard_devices
+        ]
         self.active: Dict[int, int] = {}  # stream_id -> slot
-        self.router = StreamRouter(max_streams)
+        # slot allocation is shard placement: the router's round-robin
+        # fill keeps the shards' loads balanced (one shard: lowest slot
+        # first)
+        self.router = StreamRouter(max_streams, self.n_devices)
         # retrace / compile accounting is kept with metrics off too
         self._retraces = 0
+        self._compiles = 0
         self._tick_shapes: set = set()
         # metrics: True -> a fresh registry, a MetricsRegistry -> shared,
         # any falsy value (None / False) -> off
@@ -243,15 +291,46 @@ class StreamingKWSServer:
                 "kws_serve_occupancy", "open streams / capacity"
             )
         self._update_occupancy_gauges()
-        # the server's one program build: the kernel operands packed above
-        # (the reference's `_compile_programs`)
-        self._compiles = 1
-        if metrics is not None:
+        self._compile_programs()
+
+    def _fresh_state(self, rows: int, device) -> ServerState:
+        """All-zeros state of ``rows`` slots on ``device``."""
+        pipeline = self.pipeline
+        det = None
+        if pipeline.config.cascade is not None:
+            det = cascade_lib.init_state(rows, device)
+        return ServerState(
+            gru=tuple(pipeline.streaming_init(rows, device)),
+            carry=pipeline.streaming_features_init(rows, device),
+            scores=torch.zeros(
+                (rows, pipeline.config.gru.num_classes),
+                dtype=torch.float32, device=device,
+            ),
+            det=det,
+        )
+
+    def _compile_programs(self) -> None:
+        """(Re)build what the ticks launch with for the current shard
+        devices: the kernel operands, packed once per distinct card (the
+        reference's ``_compile_programs``, which rebuilds its jitted
+        programs). Runs at construction and again only when the shard
+        devices change (`recover_shard_loss`); a `resize` keeps them. A
+        rebuild resets the retrace tracking, so every operand shape
+        counts again."""
+        self._tick_shapes.clear()
+        self._compiles += 1
+        if self.metrics is not None:
             self._m_compiles.inc()
-            metrics.journal.append(
+            self.metrics.journal.append(
                 "compile_programs", n_devices=self.n_devices,
                 max_streams=self.max_streams, tick_impl=self.tick_impl,
             )
+        self._operands = {
+            dev: pack_operands(self.pipeline, self.params,
+                               self.frontend_state, dev)
+            for dev in dict.fromkeys(self.shard_devices)
+            if dev.type == "cuda"
+        }
 
     # ---- observability ----
 
@@ -262,14 +341,18 @@ class StreamingKWSServer:
         ``run_fv`` for a replay, keyed by the slab's shape. The reference
         counts the ticks that trace and compile a new XLA program; the
         port compiles nothing per shape (the CUDA kernel is built once per
-        process), so here a retrace is the first launch at that shape.
-        Tracked with metrics off too."""
+        process), so here a retrace is the first launch at that shape: the
+        first tick after a `resize` to a capacity not served yet counts, a
+        resize back to a seen capacity does not, and a rebuild
+        (`recover_shard_loss`) makes every shape count again. Tracked
+        with metrics off too."""
         return self._retraces
 
     @property
     def compile_count(self) -> int:
         """Program builds so far: 1 after construction (the kernel
-        operands packed for this server; no later rebuild exists yet)."""
+        operands packed for this server), +1 per `recover_shard_loss`,
+        which changes the shard devices; a `resize` builds nothing."""
         return self._compiles
 
     def _note_dispatch(self, program: str, shape) -> None:
@@ -331,10 +414,47 @@ class StreamingKWSServer:
             snap.update(self.metrics.snapshot())
         return snap
 
+    # ---- state views (global slot order) ----
+
+    @property
+    def state(self) -> ServerState:
+        """The whole server's state in global slot order. Unsharded, the
+        one `ServerState` the ticks update in place; sharded, a gathered
+        copy on the first shard's device (writes to it reach no shard).
+        Assigning a state in global slot order replaces every shard's."""
+        if self.n_devices == 1:
+            return self._shards[0]
+        return _map_state(
+            lambda *xs: torch.cat([x.to(self.device) for x in xs]),
+            *self._shards,
+        )
+
+    @state.setter
+    def state(self, value: ServerState) -> None:
+        if self.n_devices == 1:
+            self._shards[0] = value
+        else:
+            self._shards = self._place_state(value)
+
+    @property
+    def states(self) -> List[Any]:
+        """Per-layer classifier states (the reference's pre-fused name)."""
+        return list(self.state.gru)
+
+    @property
+    def feat_carry(self) -> Dict[str, torch.Tensor]:
+        """Frontend streaming carry (the reference's pre-fused name)."""
+        return self.state.carry
+
+    def _rows(self, shard: int) -> slice:
+        """Global slots of shard ``shard``."""
+        n = self.max_streams // self.n_devices
+        return slice(shard * n, (shard + 1) * n)
+
     @property
     def scores(self) -> np.ndarray:
         """Smoothed per-slot posteriors as an owned host array."""
-        return _host(self.state.scores)
+        return np.concatenate([_host(st.scores) for st in self._shards])
 
     @property
     def sparsity(self) -> np.ndarray:
@@ -382,7 +502,7 @@ class StreamingKWSServer:
             raise ValueError(f"stream {stream_id} already open")
         slot = self.router.acquire()  # raises RuntimeError at capacity
         self.active[stream_id] = slot
-        _reset_slot(self.state, slot)
+        self._reset(slot)
         self._update_occupancy_gauges()
 
     def close_stream(self, stream_id: int):
@@ -390,6 +510,199 @@ class StreamingKWSServer:
             raise ValueError(f"stream {stream_id} not open")
         self.router.release(self.active.pop(stream_id))
         self._update_occupancy_gauges()
+
+    def _reset(self, *slots: int) -> None:
+        """Zero the global ``slots`` on their shards, and nothing else."""
+        local: Dict[int, List[int]] = {}
+        for slot in slots:
+            p = self.router.placement(slot)
+            local.setdefault(p.shard, []).append(p.local_slot)
+        for shard, rows in local.items():
+            _reset_slots(self._shards[shard], rows)
+
+    # ---- elastic capacity: live resize and shard-loss recovery ----
+
+    def _host_state(self, lost: Optional[int] = None) -> ServerState:
+        """Owned host copies of every state leaf in global slot order.
+        The copy from the card waits for every tick already enqueued on
+        the stream (and for the copies of `TickHandle`s dispatched before
+        it), so a resize never tears a tick. Shard ``lost``'s rows are
+        zeros and are never read: its device is gone."""
+        def gather(*leaves):
+            return torch.cat([
+                torch.zeros(x.shape, dtype=x.dtype) if k == lost
+                else x.to("cpu", copy=True)
+                for k, x in enumerate(leaves)
+            ])
+
+        return _map_state(gather, *self._shards)
+
+    @staticmethod
+    def _relay_state(host_state: ServerState, new_max: int, src, dst) -> ServerState:
+        """Re-lay host state onto a new capacity: per leaf zeros at
+        ``new_max`` slots with old rows ``src`` copied to new rows ``dst``
+        by indexing alone. No arithmetic touches the data, so survivors
+        are array-equal in every dtype (float32 scores, int32 Q6.8 codes,
+        the bool wake latch, the ΔGRU accumulators and counters)."""
+        src = torch.as_tensor(src, dtype=torch.int64)
+        dst = torch.as_tensor(dst, dtype=torch.int64)
+
+        def relay(leaf):
+            out = torch.zeros((new_max,) + tuple(leaf.shape[1:]), dtype=leaf.dtype)
+            out[dst] = leaf[src]
+            return out
+
+        return _map_state(relay, host_state)
+
+    def _place_state(self, state: ServerState) -> List[ServerState]:
+        """Split a state in global slot order into the shards' blocks, each
+        an owned contiguous copy on its shard's device."""
+        n = state.scores.shape[0] // self.n_devices
+        return [
+            _map_state(
+                lambda x, k=k, dev=dev: x[k * n:(k + 1) * n].to(dev, copy=True),
+                state,
+            )
+            for k, dev in enumerate(self.shard_devices)
+        ]
+
+    def resize(self, new_max_streams: int) -> None:
+        """Grow or shrink the stream-slot capacity live.
+
+        Every state tensor is re-laid onto the new capacity: open streams'
+        rows are copied bitwise (through the host, then onto each shard's
+        device), stream ids keep serving through the move, and the
+        `StreamRouter` re-places the survivors in ascending old-slot order
+        (`StreamRouter.remap`). Surviving streams are array-equal to an
+        un-resized server afterwards, for every backend, the cascade's
+        detector state and the ΔGRU counters. The copy waits for the ticks
+        already dispatched, so a `TickHandle` taken before the resize
+        still returns its tick's results.
+
+        The shard devices do not change, so nothing is rebuilt
+        (`compile_count` stays); the first tick at a capacity not served
+        yet counts as a retrace. The new capacity must divide over the
+        shards and hold every open stream; a shrink below the open count
+        raises before any state moves. A `PipelinedIngress` over this
+        server must be drained around a resize (its buffers are
+        capacity-shaped; it reallocates on the next `stage()`).
+        """
+        if new_max_streams < 1:
+            raise ValueError(
+                f"new_max_streams must be >= 1, got {new_max_streams}"
+            )
+        if new_max_streams % self.n_devices != 0:
+            raise ValueError(
+                f"new_max_streams={new_max_streams} must divide over "
+                f"{self.n_devices} devices"
+            )
+        if len(self.active) > new_max_streams:
+            raise RuntimeError(
+                f"cannot shrink to {new_max_streams} slots with "
+                f"{len(self.active)} stream(s) open"
+            )
+        if new_max_streams == self.max_streams:
+            return
+        occupied = sorted(self.active.values())
+        router, mapping = StreamRouter.remap(
+            occupied, new_max_streams, self.n_devices
+        )
+        new_host = self._relay_state(
+            self._host_state(), new_max_streams, occupied,
+            [mapping[s] for s in occupied],
+        )
+        self._shards = self._place_state(new_host)
+        self.active = {sid: mapping[slot] for sid, slot in self.active.items()}
+        self.router = router
+        old_max, self.max_streams = self.max_streams, new_max_streams
+        if self.metrics is not None:
+            self.metrics.journal.append(
+                "resize", from_streams=old_max, to_streams=new_max_streams,
+                open_streams=len(self.active), n_devices=self.n_devices,
+            )
+        self._update_occupancy_gauges()
+
+    def recover_shard_loss(self, lost_shard: int) -> Dict[str, Any]:
+        """Shrink the fleet onto the surviving shards after losing one.
+
+        The recovery control flow of
+        `repro_torch.distributed.fault_tolerance` wired into serving:
+
+          1. every OTHER shard's state is gathered to the host (bitwise;
+             the lost shard's rows are never read),
+          2. `ElasticMeshManager` shrinks the shard list to a power of two
+             taken from the surviving devices (4 -> 2, 2 -> 1: one
+             survivor is the unsharded server),
+          3. the capacity is rounded UP to whole shard blocks,
+          4. survivors are remapped (ascending old-slot order) and their
+             state re-laid bitwise onto the new shards,
+          5. the kernel operands are packed again for the new device list
+             (one more `compile_count`, and every shape retraces),
+          6. the lost shard's streams reopen under their own ids on
+             zeroed slots, in old-slot order (their state died with the
+             device; the caller replays or resumes their audio).
+
+        Returns ``{"lost_shard", "n_devices", "max_streams"`` (after),
+        ``"reopened"`` (stream ids that lost their state), ``"survivors"``
+        (stream ids kept bit for bit)``}``.
+        """
+        if self.n_devices == 1:
+            raise ValueError("single-device server has no shards to lose")
+        if not 0 <= lost_shard < self.n_devices:
+            raise ValueError(
+                f"lost_shard {lost_shard} outside [0, {self.n_devices})"
+            )
+        from repro_torch.distributed.fault_tolerance import ElasticMeshManager
+
+        host = self._host_state(lost=lost_shard)
+        healthy = surviving_devices(self.shard_devices, lost_shard)
+        manager = ElasticMeshManager(
+            make_mesh=lambda n: healthy[:n], initial_data_size=self.n_devices
+        )
+        new_devices = manager.shrink(1)
+        new_n = manager.data_size
+        new_max = -(-self.max_streams // new_n) * new_n
+        survivors = {
+            sid: slot for sid, slot in self.active.items()
+            if shard_of_slot(slot, self.max_streams, self.n_devices) != lost_shard
+        }
+        affected = sorted(
+            (slot, sid) for sid, slot in self.active.items() if sid not in survivors
+        )
+        occupied = sorted(survivors.values())
+        router, mapping = StreamRouter.remap(occupied, new_max, new_n)
+        new_host = self._relay_state(
+            host, new_max, occupied, [mapping[s] for s in occupied]
+        )
+        old_devices, old_max = self.n_devices, self.max_streams
+        self.shard_devices = list(new_devices)
+        self.n_devices = new_n
+        self.device = self.shard_devices[0]
+        self.max_streams = new_max
+        self._shards = self._place_state(new_host)
+        self.active = {sid: mapping[slot] for sid, slot in survivors.items()}
+        self.router = router
+        self._compile_programs()
+        reopened = []
+        for _old_slot, sid in affected:
+            self.active[sid] = self.router.acquire()
+            reopened.append(sid)
+        self._reset(*(self.active[sid] for sid in reopened))
+        if self.metrics is not None:
+            self.metrics.journal.append(
+                "shard_loss", lost_shard=lost_shard,
+                from_devices=old_devices, to_devices=new_n,
+                from_streams=old_max, to_streams=new_max,
+                reopened=list(reopened), survivors=sorted(survivors),
+            )
+        self._update_occupancy_gauges()
+        return {
+            "lost_shard": lost_shard,
+            "n_devices": new_n,
+            "max_streams": new_max,
+            "reopened": reopened,
+            "survivors": sorted(survivors),
+        }
 
     # ---- serving ----
 
@@ -429,7 +742,8 @@ class StreamingKWSServer:
         return slab, mask
 
     def _inputs(self, slab, mask, lead: Tuple[int, ...]):
-        """The slab and mask on the device. The copy in is ``non_blocking``:
+        """Each shard's (slab, mask) rows on its device. A card gets one
+        copy of the rows of its shards; the copy in is ``non_blocking``:
         from pinned host memory (`PipelinedIngress`'s buffers) it runs
         asynchronously, so the caller may rewrite that memory only after
         the tick has completed (the ingress's FIFO guarantees it); from a
@@ -438,22 +752,44 @@ class StreamingKWSServer:
         _check_shapes(slab, mask, lead + (self.max_streams,))
         inp = torch.as_tensor(slab, dtype=torch.float32)
         m = torch.as_tensor(mask, dtype=torch.bool)
-        if self.device.type == "cuda":
-            inp = inp.to(self.device, non_blocking=True)
-            m = m.to(self.device, non_blocking=True)
-        return inp.contiguous(), m.contiguous()
+        ax = len(lead)  # the slot axis
+        copies = {}
+        for dev in dict.fromkeys(self.shard_devices):
+            ks = [k for k, d in enumerate(self.shard_devices) if d == dev]
+            lo, hi = self._rows(ks[0]).start, self._rows(ks[-1]).stop
+            x, y = inp, m
+            if (lo, hi) != (0, self.max_streams):
+                x, y = x.narrow(ax, lo, hi - lo), y.narrow(ax, lo, hi - lo)
+            if dev.type == "cuda":
+                x = x.to(dev, non_blocking=True)
+                y = y.to(dev, non_blocking=True)
+            copies[dev] = (x.contiguous(), y.contiguous(), lo)
+        out = []
+        for k, dev in enumerate(self.shard_devices):
+            x, y, lo = copies[dev]
+            r = self._rows(k)
+            out.append((x.narrow(ax, r.start - lo, r.stop - r.start),
+                        y.narrow(ax, r.start - lo, r.stop - r.start)))
+        return out
 
-    def _tick(self, inp, mask, raw: bool):
-        st = self.state
-        (gru, carry, scores, det), out_scores, top = tick_fused(
-            self.pipeline, raw, self.params,
-            (st.gru, st.carry, st.scores, st.det),
-            inp, mask, self.frontend_state, self.smoothing,
-            operands=self._operands,
-        )
-        self.state = ServerState(gru=tuple(gru), carry=carry, scores=scores,
-                                 det=det)
-        return out_scores, top
+    def _tick(self, inputs, raw: bool):
+        """One tick: one `tick_fused` launch per shard on its rows; returns
+        (scores, top) in global slot order on the first shard's device."""
+        outs = []
+        for k, (inp, mask) in enumerate(inputs):
+            st = self._shards[k]
+            (gru, carry, scores, det), out_scores, top = tick_fused(
+                self.pipeline, raw, self.params,
+                (st.gru, st.carry, st.scores, st.det),
+                inp, mask, self.frontend_state, self.smoothing,
+                operands=self._operands.get(self.shard_devices[k]),
+            )
+            self._shards[k] = ServerState(gru=tuple(gru), carry=carry,
+                                          scores=scores, det=det)
+            outs.append((out_scores, top))
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(torch.cat([o[i].to(self.device) for o in outs]) for i in (0, 1))
 
     def _handle(self, scores: torch.Tensor, top: torch.Tensor) -> TickHandle:
         """A handle over owned host copies of a tick's outputs. On the card
@@ -505,9 +841,9 @@ class StreamingKWSServer:
         raw = self._is_raw(int(np.shape(slab)[-1]))
         m = self.metrics
         t0 = None if m is None else m.clock()
-        inp, msk = self._inputs(slab, mask, ())
+        inputs = self._inputs(slab, mask, ())
         self._note_dispatch("tick_audio" if raw else "tick_fv", np.shape(slab))
-        handle = self._handle(*self._tick(inp, msk, raw))
+        handle = self._handle(*self._tick(inputs, raw))
         if m is not None:
             self._m_ticks.inc()
             self._m_dispatch.observe((m.clock() - t0) * 1e3)
@@ -548,7 +884,7 @@ class StreamingKWSServer:
         m = self.metrics
         t0 = None if m is None else m.clock()
         n_ticks = int(np.shape(slab)[0])
-        inp, msk = self._inputs(slab, mask, (n_ticks,))
+        inputs = self._inputs(slab, mask, (n_ticks,))
         self._note_dispatch("run_audio" if raw else "run_fv", np.shape(slab))
         k = self.pipeline.config.gru.num_classes
         scores_seq = torch.empty(
@@ -559,7 +895,9 @@ class StreamingKWSServer:
             (n_ticks, self.max_streams), dtype=torch.int64, device=self.device
         )
         for t in range(n_ticks):
-            scores_seq[t], tops[t] = self._tick(inp[t], msk[t], raw)
+            scores_seq[t], tops[t] = self._tick(
+                [(inp[t], msk[t]) for inp, msk in inputs], raw
+            )
         handle = self._handle(scores_seq, tops)
         if m is not None:
             self._m_ticks.inc(n_ticks)

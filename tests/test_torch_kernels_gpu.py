@@ -1183,3 +1183,135 @@ def test_fit_linear_detector_on_the_card_equals_the_cpu(dev):
                               torch.as_tensor(silence, device=dev), steps=50)
     assert dict(build.launches) == {"fma_rows": 50}
     assert got == fit_linear_detector(speech, silence, steps=50)
+
+
+# ---------------- the fleet: shards, resize, shard loss on the card ----------------
+
+FLEET = [("qat", None), ("delta-int", 0.15)]
+
+
+def _fleet_pair(dev, classifier, theta, **kw):
+    """(a server built with ``kw``, an unsharded twin) on the same params,
+    64 slots, 40 streams open."""
+    pipe = _pipe(dev, classifier, theta)
+    params = pipe.init_params(torch.Generator().manual_seed(7), device=dev)
+    servers = (StreamingKWSServer(pipe, params, max_streams=64, **kw),
+               StreamingKWSServer(pipe, params, max_streams=64, device=dev))
+    for srv in servers:
+        for sid in range(40):
+            srv.open_stream(sid)
+    return servers
+
+
+def _by_sid(srv, hops, submit):
+    """A step_batch of every open stream, each fed its stream id's hop;
+    {sid: (scores row, top)}."""
+    slab = np.zeros((srv.max_streams, 256), np.float32)
+    mask = np.zeros(srv.max_streams, bool)
+    for sid, slot in srv.active.items():
+        slab[slot], mask[slot] = hops[sid], submit[sid]
+    scores, top = srv.step_batch(slab, mask)
+    return {sid: (scores[slot], top[slot]) for sid, slot in srv.active.items()}
+
+
+def _assert_same_streams(a, b, sids):
+    for sid in sids:
+        for x, y in zip(a.state.leaves(), b.state.leaves()):
+            assert torch.equal(x[a.active[sid]], y[b.active[sid]]), sid
+
+
+def _fleet_ticks(servers, rng, n):
+    for _ in range(n):
+        hops = (rng.standard_normal((200, 256)) * 0.1).astype(np.float32)
+        submit = rng.random(200) < 0.8
+        outs = [_by_sid(srv, hops, submit) for srv in servers]
+        for sid in outs[0]:
+            assert np.array_equal(outs[0][sid][0], outs[1][sid][0])
+            assert outs[0][sid][1] == outs[1][sid][1]
+
+
+@pytest.mark.parametrize("classifier,theta", FLEET)
+def test_shards_on_one_card_launch_once_each(dev, classifier, theta):
+    sharded, twin = _fleet_pair(dev, classifier, theta, devices=[dev] * 4)
+    assert sharded.n_devices == 4 and len({str(d) for d in sharded.shard_devices}) == 1
+    rng = np.random.default_rng(8)
+    build.launches.clear()
+    _fleet_ticks((sharded, twin), rng, 3)
+    assert dict(build.launches) == {"tick_fused": 3 * 4 + 3}
+    hops = (rng.standard_normal((2, 40, 256)) * 0.1).astype(np.float32)
+    submit = rng.random((2, 40)) < 0.8
+    outs = []
+    build.launches.clear()
+    for srv in (sharded, twin):  # each stream id's hops in that server's slots
+        slots = [srv.active[sid] for sid in range(40)]
+        slab, mask = np.zeros((2, 64, 256), np.float32), np.zeros((2, 64), bool)
+        slab[:, slots], mask[:, slots] = hops, submit
+        scores, top = srv.run_batch(slab, mask)
+        outs.append((scores[:, slots], top[:, slots]))
+    assert dict(build.launches) == {"tick_fused": 2 * 4 + 2}
+    assert np.array_equal(outs[0][0], outs[1][0]) and np.array_equal(outs[0][1], outs[1][1])
+    _assert_same_streams(sharded, twin, list(twin.active))
+
+
+@pytest.mark.parametrize("classifier,theta", FLEET)
+def test_resize_on_the_card_keeps_every_stream(dev, classifier, theta):
+    srv, twin = _fleet_pair(dev, classifier, theta, device=dev)
+    rng = np.random.default_rng(9)
+    _fleet_ticks((srv, twin), rng, 2)
+    build.launches.clear()
+    srv.resize(128)
+    _fleet_ticks((srv, twin), rng, 2)
+    srv.resize(48)
+    _fleet_ticks((srv, twin), rng, 2)
+    assert dict(build.launches) == {"tick_fused": 8}
+    assert srv.compile_count == 1 and srv.max_streams == 48
+    _assert_same_streams(srv, twin, list(twin.active))
+
+
+@pytest.mark.parametrize("classifier,theta", FLEET)
+def test_recover_shard_loss_on_the_card(dev, classifier, theta):
+    sharded, twin = _fleet_pair(dev, classifier, theta, devices=[dev] * 4)
+    rng = np.random.default_rng(10)
+    _fleet_ticks((sharded, twin), rng, 2)
+    info = sharded.recover_shard_loss(1)
+    assert info["n_devices"] == 2 and sharded.compile_count == 2
+    _assert_same_streams(sharded, twin, info["survivors"])
+    for sid in info["reopened"]:
+        assert not any(bool(t[sharded.active[sid]].any()) for t in sharded.state.leaves())
+        twin.close_stream(sid)
+        twin.open_stream(sid)
+    build.launches.clear()
+    _fleet_ticks((sharded, twin), rng, 2)
+    assert dict(build.launches) == {"tick_fused": 2 * 2 + 2}
+    _assert_same_streams(sharded, twin, list(twin.active))
+
+
+def test_handle_in_flight_across_a_resize_on_the_card(dev):
+    srv, twin = _fleet_pair(dev, "qat", None, device=dev)
+    rng = np.random.default_rng(11)
+    slab = (rng.standard_normal((64, 256)) * 0.1).astype(np.float32)
+    mask = np.ones(64, bool)
+    want = twin.step_batch(slab, mask)
+    handle = srv.step_batch_async(slab, mask)
+    srv.resize(128)
+    got = handle.result()
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_logits_all_frames_and_predict_on_the_card(dev):
+    pipe = _pipe(dev, "integer", None)
+    params = pipe.init_params(torch.Generator().manual_seed(12), device=dev)
+    cpu = KWSPipeline(pipe.config, norm_stats=FExNormStats(*(t.cpu() for t in (
+        pipe.norm_stats.mu, pipe.norm_stats.sigma))))
+    cpu_params = {"gru": [{k: v.cpu() for k, v in layer.items()} for layer in params["gru"]],
+                  "fc": {k: v.cpu() for k, v in params["fc"].items()}}
+    audio = torch.randn((5, 4000), generator=torch.Generator().manual_seed(13)) * 0.1
+    fv, _ = pipe.features(audio.to(dev))
+    build.launches.clear()
+    logits = pipe.logits_all_frames(params, fv)
+    assert dict(build.launches) == {"intgemm": 4 * fv.shape[1] + 1}
+    assert torch.equal(logits.cpu(), cpu.logits_all_frames(cpu_params, fv.cpu()))
+    build.launches.clear()
+    top = pipe.predict(params, audio.to(dev))
+    assert build.launches["fex_fused"] == 1 and build.launches["intgemm"] == 4 * fv.shape[1] + 1
+    assert torch.equal(top.cpu(), cpu.predict(cpu_params, audio))

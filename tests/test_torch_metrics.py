@@ -1,13 +1,14 @@
 """The port's observability layer (`repro_torch.serving.metrics` and the
 server's instrumentation) against the reference.
 
-Mirrors tests/test_metrics.py without resize, shard loss and the
-autoscaler (the fleet slice): a metrics-enabled server gives the same
+Mirrors tests/test_metrics.py: a metrics-enabled server gives the same
 bits as a metrics-off twin for every backend, cascaded and pipelined
 (`np.testing.assert_array_equal`); the registry's units behave as the
-reference's; the snapshot's ``server`` block has the reference server's
-keys; and the Prometheus text equals the reference registry's for the
-same observations under an injected clock.
+reference's; resize, shard loss and the autoscaler journal their events
+in the reference's order and with its fields; the snapshot's ``server``
+block has the reference server's keys; and the Prometheus text equals
+the reference registry's for the same observations under an injected
+clock.
 """
 
 import json
@@ -27,7 +28,9 @@ from repro.serving import metrics as jm
 from repro.serving.serve_loop import StreamingKWSServer as JServer
 from repro_torch import convert
 from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
+from repro_torch.distributed.fault_tolerance import StragglerMonitor
 from repro_torch.serving import metrics as tm
+from repro_torch.serving.autoscale import AutoscalePolicy, Autoscaler
 from repro_torch.serving.cascade import CascadeConfig
 from repro_torch.serving.ingress import PipelinedIngress, TickCoalescer
 from repro_torch.serving.metrics import (
@@ -228,6 +231,100 @@ def test_server_journals_its_build_and_retraces(setup):
                      ("retrace", "tick_audio"), ("retrace", "run_fv")]
     assert srv.metrics.counter("kws_serve_retraces_total").value == 3
     assert srv.metrics.counter("kws_serve_compile_programs_total").value == 1
+
+
+def test_journal_orders_resize_events(setup):
+    """resize() journals one "resize" event with before / after capacity;
+    a resize back to a seen shape journals but does not retrace."""
+    pipe = _pipe(setup)
+    srv = StreamingKWSServer(pipe, setup[3], max_streams=MAX_STREAMS, device="cpu", metrics=True)
+    srv.open_stream(0)
+    for n in (MAX_STREAMS, 2 * MAX_STREAMS, MAX_STREAMS):
+        if n != srv.max_streams:
+            srv.resize(n)
+        srv.step_batch(np.zeros((n, 16), np.float32), np.ones(n, bool))
+    ev = srv.metrics.journal.snapshot()
+    assert [e["kind"] for e in ev] == [
+        "compile_programs", "retrace", "resize", "retrace", "resize"]
+    seqs = [e["seq"] for e in ev]
+    assert seqs == sorted(seqs) and len(set(seqs)) == len(seqs)
+    grows = [e for e in ev if e["kind"] == "resize"]
+    assert [(e["from_streams"], e["to_streams"], e["open_streams"], e["n_devices"])
+            for e in grows] == [(8, 16, 1, 1), (16, 8, 1, 1)]
+    assert srv.retrace_count == 2 and srv.compile_count == 1
+    assert srv.metrics.gauge("kws_serve_capacity").value == MAX_STREAMS
+
+
+def test_journal_orders_shard_loss_events(setup):
+    """The rebuild ("compile_programs") happens mid-recovery, before the
+    "shard_loss" summary; the first tick after it retraces again."""
+    pipe = _pipe(setup)
+    srv = StreamingKWSServer(pipe, setup[3], max_streams=MAX_STREAMS,
+                             devices=["cpu"] * 4, metrics=True)
+    for sid in range(MAX_STREAMS):
+        srv.open_stream(sid)
+    srv.step_batch(np.zeros((MAX_STREAMS, 16), np.float32), np.ones(MAX_STREAMS, bool))
+    r0 = srv.retrace_count
+    info = srv.recover_shard_loss(0)
+    srv.step_batch(np.zeros((srv.max_streams, 16), np.float32), np.ones(srv.max_streams, bool))
+    journal = srv.metrics.journal.snapshot()
+    assert [e["kind"] for e in journal] == [
+        "compile_programs", "retrace", "compile_programs", "shard_loss", "retrace"]
+    assert journal[2]["n_devices"] == 2
+    loss = journal[3]
+    assert (loss["lost_shard"], loss["from_devices"], loss["to_devices"]) == (0, 4, 2)
+    assert (loss["from_streams"], loss["to_streams"]) == (MAX_STREAMS, srv.max_streams)
+    assert loss["reopened"] == info["reopened"] == [0, 4]
+    assert loss["survivors"] == info["survivors"]
+    assert srv.retrace_count == r0 + 1 and srv.compile_count == 2
+    assert srv.metrics.counter("kws_serve_compile_programs_total").value == 2
+
+
+def _auto(setup, n_open, **policy):
+    srv = StreamingKWSServer(_pipe(setup), setup[3], max_streams=policy.get("min_streams", 8),
+                             device="cpu", metrics=True)
+    for sid in range(n_open):
+        srv.open_stream(sid)
+    return srv, Autoscaler(srv, AutoscalePolicy(**policy), monitor=StragglerMonitor(warmup=0))
+
+
+def test_autoscaler_grow_reasons_and_counter(setup):
+    srv, auto = _auto(setup, n_open=8, min_streams=8, max_streams=32,
+                      hysteresis_ticks=2, cooldown_ticks=0)
+    assert auto.last_decision is None
+    assert auto.observe() is None
+    assert auto.observe() == "grow"
+    assert auto.last_decision == {"step": 2, "action": "grow", "from": 8, "to": 16,
+                                  "reason": "occupancy_watermark"}
+    auto.note_rejection()
+    assert auto.observe() == "grow"
+    assert auto.last_decision["reason"] == "rejection"
+    assert srv.max_streams == 32
+    assert srv.metrics.counter("kws_autoscale_decisions_total", action="grow").value == 2
+    kinds = [e["kind"] for e in srv.metrics.journal.snapshot()]
+    assert kinds.index("resize") < kinds.index("autoscale")
+    scale = [e for e in srv.metrics.journal.snapshot() if e["kind"] == "autoscale"]
+    assert [(e["action"], e["reason"], e["from_streams"], e["to_streams"], e["open_streams"])
+            for e in scale] == [("grow", "occupancy_watermark", 8, 16, 8),
+                                ("grow", "rejection", 16, 32, 8)]
+
+
+def test_autoscaler_slo_veto_recorded_once_per_trip(setup):
+    srv, auto = _auto(setup, n_open=1, min_streams=4, max_streams=16, shrink_at=0.3,
+                      grow_at=0.9, hysteresis_ticks=2, cooldown_ticks=0)
+    srv.resize(16)
+    auto.observe(0.001)
+    assert auto.observe(0.1) is None
+    assert auto.last_decision == {"step": 2, "action": "hold", "from": 16, "to": 16,
+                                  "reason": "slo_veto"}
+    assert auto.observe(0.1) is None
+    vetos = [e for e in srv.metrics.journal.snapshot() if e["kind"] == "autoscale"]
+    assert len(vetos) == 1 and vetos[0]["reason"] == "slo_veto"
+    assert srv.metrics.counter("kws_autoscale_decisions_total", action="hold").value == 1
+    assert auto.observe(0.001) == "shrink"
+    assert auto.last_decision["action"] == "shrink"
+    assert auto.last_decision["reason"] == "occupancy_watermark"
+    assert srv.max_streams < 16
 
 
 def _exercised_server(setup):

@@ -1,9 +1,8 @@
 """The port's async ingress (`step_batch_async`, `run_batch_async`,
 `TickHandle`, `PipelinedIngress`, `TickCoalescer`) on the CPU tier.
 
-Mirrors tests/test_serve_async.py without its resize and sharded cases
-(the port's fleet slice has not landed): the pipelined path must be a
-pure latency transformation, so every result is compared with
+Mirrors tests/test_serve_async.py, its sharded and resize cases included:
+the pipelined path must be a pure latency transformation, so every result is compared with
 `np.testing.assert_array_equal` against the synchronous `step_batch`
 sequence of a twin server, for every classifier backend and for cascaded
 servers; the synchronous sequence itself is held against the reference's
@@ -160,6 +159,27 @@ def test_async_bit_identical_cascaded(setup, wake_threshold):
         assert (woken < a.state.det["ticks"].numpy()).any()
 
 
+@pytest.mark.parametrize("classifier", ("qat", "delta-int"))
+def test_async_bit_identical_sharded(setup, classifier):
+    """Async dispatch against a four-shard server equals the synchronous
+    unsharded sequence, handles fetched late (two slots a shard, as the
+    reference's case)."""
+    tpipe = _pipes(setup, classifier)[1]
+    ticks = _ticks(tpipe, 3, "fv", seed=7) + _ticks(tpipe, 1, "audio", seed=8)
+    a = StreamingKWSServer(tpipe, setup[3], max_streams=MAX_STREAMS, devices=["cpu"] * 4)
+    b = _server(tpipe, setup[3])
+    for sid in range(MAX_STREAMS):
+        a.open_stream(sid)
+    handles = [a.step_batch_async(slab, mask) for slab, mask in ticks]
+    for h, (slab, mask) in zip(handles, ticks):
+        rs, rt = b.step_batch(slab, mask)
+        gs, gt = h.result()
+        np.testing.assert_array_equal(gs, rs)
+        np.testing.assert_array_equal(gt, rt)
+    _assert_states_identical(a, b)
+    np.testing.assert_array_equal(a.sparsity, b.sparsity)
+
+
 def test_handle_survives_later_ticks_and_slot_resets(qat):
     pipe, params = qat
     srv, ref_srv = _server(pipe, params), _server(pipe, params)
@@ -285,6 +305,45 @@ def _reopen(srv, n_open):
         srv.close_stream(sid)
     for sid in range(n_open):
         srv.open_stream(sid)
+
+
+def test_ingress_reallocates_after_resize(qat):
+    """A live `resize()` makes the buffers the wrong capacity: staging with
+    old-capacity work in flight raises, while drain() + stage() reallocates
+    at the new capacity; the ticks before and after equal a synchronous
+    twin resized at the same point."""
+    pipe, params = qat
+    srv, twin = _server(pipe, params), _server(pipe, params)
+    ing = PipelinedIngress(srv, 16, depth=2)
+    ref = []
+    for s, m in _ticks(pipe, 3, "fv", seed=21):
+        slab, mask = ing.stage()
+        slab[:] = s
+        mask[:] = m
+        ing.commit()
+        ref.append(twin.step_batch(s, m))
+    assert ing.in_flight > 0
+    grown = 2 * MAX_STREAMS
+    srv.resize(grown)
+    with pytest.raises(RuntimeError, match="drain"):
+        ing.stage()
+    for h, (rs, rt) in zip(ing.drain(), ref, strict=True):
+        np.testing.assert_array_equal(h.scores, rs)
+        np.testing.assert_array_equal(h.top, rt)
+    twin.resize(grown)
+    assert twin.active == srv.active  # one shard: the remap keeps every slot
+    for k, (s, m) in enumerate(_ticks(pipe, 3, "fv", seed=22, n_streams=grown)):
+        m[MAX_STREAMS:] = False  # the grown slots are not open
+        slab, mask = ing.stage()
+        assert slab.shape == (grown, 16) and mask.shape == (grown,)
+        slab[:] = s
+        mask[:] = m
+        ing.commit(meta=k)
+        ref.append(twin.step_batch(s, m))
+    for h, (rs, rt) in zip(ing.drain(), ref[3:], strict=True):
+        np.testing.assert_array_equal(h.scores, rs)
+        np.testing.assert_array_equal(h.top, rt)
+    _assert_states_identical(srv, twin)
 
 
 def test_coalescer_flushes_when_every_open_stream_submitted(qat):
