@@ -70,17 +70,27 @@ plain PyTorch version on the card:
      step_batch after it, the qat tick on 1 and on 4 shards (device ms, launches a tick);
      `logits_all_frames` and `predict` (integer: K2, and K1 for predict's
      features) equal to the CPU plain path;
- 12. K6 through `kernels.gru_sequence`: the paper's classifier at full
+ 12. QAT training through `training.kws.train` (the entry point of
+     ``python -m repro_torch.training.kws``): the synthetic corpus (24
+     clips a class, test set seed 1) recorded on the card (K1), 100 steps
+     at batch 64 with AdamW and ReduceLROnPlateau and a checkpoint, whose
+     leaves are held equal to the state it saved, then a run resumed from
+     it to step 200; the loss falls, test accuracy beats 1/12, the integer
+     replay (K2) gives the QAT model's logits and confusion matrix; one
+     step's gradients on the card within 1e-5 of max |g| of the same step
+     on the CPU; a warm step's time, and its device activities and busy
+     share under torch.profiler;
+ 13. K6 through `kernels.gru_sequence`: the paper's classifier at full
      width in float (layer 1 16 -> 48 feeding layer 2 48 -> 48) over 4096
      clips of 62 frames, float32 and one bf16 pass of layer 1, one launch
      a layer, each held against the plain version on the card, each
      launch's geometry and blocks an SM (occupancy API); cuDNN's
      `torch.nn.GRU` on the same weights as the library yardstick;
- 13. K7 through `kernels.wkv6` at rwkv6-7b's head layout and train_4k
+ 14. K7 through `kernels.wkv6` at rwkv6-7b's head layout and train_4k
      length (8, 4096, 64, 64) in float32, one launch, against the plain
      sequential form (relative to max |y|), strong decay and bf16 at small
      sizes, and the chunked training form at B = 1 timed as information;
- 14. times on CUDA events after warm-up: ms per step_batch tick and each
+ 15. times on CUDA events after warm-up: ms per step_batch tick and each
      kernel's time beside its plain version's, its bound and a library
      yardstick where one exists (the qat, integer and ΔGRU ticks on raw
      audio and on the reference's sparsity traffic as FV input, the ΔGRU
@@ -97,7 +107,7 @@ plain PyTorch version on the card:
      tick kernels' dynamic shared memory and blocks an SM (occupancy
      API); one JSON line per kernel (K4's `delta_gather` with its phase's
      time, plain time and bound), then all kernels in one JSON line;
- 15. the result line ``{"ok": true, "device": {...}}``.
+ 16. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
@@ -2179,6 +2189,174 @@ def _entry_points(dev):
     return {"entry intgemm": counts["intgemm"], "entry fex_fused": counts["fex_fused"]}, 0
 
 
+TRAIN_PER_CLASS = 24  # the reference example's corpus: 24 clips a class, test set seed 1
+TRAIN_STEPS = 200  # two runs of 100: the second resumes from the first's checkpoint
+TRAIN_BATCH = 64
+# a step's gradients on the card against the same step on the CPU, per
+# leaf, max |difference| / max |gradient|: the forward is equal on the
+# grid, the backward's sums run in other orders (cuBLAS against the CPU)
+TRAIN_GRAD_TOL = 1e-5
+
+
+def _grad_rel_err(got, want) -> float:
+    """Largest max |difference| / max |want| over the leaves of two
+    gradient trees."""
+    from repro_torch.training.checkpoint import _flatten_with_names
+
+    return max(float((a.cpu() - b.cpu()).abs().max() / b.abs().max())
+               for (_, a), (_, b) in zip(_flatten_with_names(got), _flatten_with_names(want),
+                                         strict=True))
+
+
+def _profile_step(step):
+    """(device activities, device busy share, host ms) of one call of
+    ``step`` under torch.profiler: the union of the device's intervals over
+    the span of everything the profiler saw. None for both where it saw
+    no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    events = list(prof.events())
+    device = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not device:
+        return None, None, host_ms
+    busy, end = 0.0, float("-inf")
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events))
+    return len(device), busy / span, host_ms
+
+
+def phase_train(dev):
+    """QAT training through `repro_torch.training.kws.train`, the entry
+    point of ``python -m repro_torch.training.kws``: the synthetic corpus
+    (seed 0, TRAIN_PER_CLASS a class; test set seed 1) recorded on the
+    card (K1), TRAIN_STEPS / 2 steps at TRAIN_BATCH with AdamW and
+    ReduceLROnPlateau and a checkpoint, then a second run that resumes
+    from it for the rest; the test accuracy of the QAT model and of its
+    integer replay (K2). Checks: the checkpoint's leaves equal the first
+    run's state, the loss falls, accuracy beats 1/12, the integer replay's
+    confusion matrix and logits equal the QAT model's, one step's
+    gradients on the card within TRAIN_GRAD_TOL of the same step on the
+    CPU; one warm step under torch.profiler. Returns ({kernel: launches},
+    times)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
+    from repro_torch.distributed.fault_tolerance import CheckpointManager, CheckpointPolicy
+    from repro_torch.kernels import build
+    from repro_torch.training import kws
+    from repro_torch.training.checkpoint import _flatten_with_names
+    from repro_torch.training.optimizer import ReduceLROnPlateau, tree_map
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the QAT matmuls and their backward need full float32")
+    ckpt_dir = ROOT / "chiprun_out" / "kws_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    half = TRAIN_STEPS // 2
+    run = dict(batch=TRAIN_BATCH, n_per_class=TRAIN_PER_CLASS, ckpt_dir=str(ckpt_dir),
+               device=dev, ckpt_every=half)
+    build.launches.clear()
+    first = kws.train(steps=half, **run)
+    # the checkpoint the second run resumes from holds the first run's state
+    got_p, got_opt, _ = kws.resume(CheckpointManager(CheckpointPolicy(str(ckpt_dir), half)),
+                                   first["params"], first["opt"], ReduceLROnPlateau(*kws.SCHEDULE))
+    for (name, a), (_, b) in zip(_flatten_with_names((got_p, got_opt)),
+                                 _flatten_with_names((first["params"], first["opt"])), strict=True):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"checkpoint leaf {name} differs from the state it saved")
+    second = kws.train(steps=TRAIN_STEPS, resume_run=True, **run)
+    if second["start_step"] != half:
+        raise AssertionError(f"the second run resumed at {second['start_step']}, not {half}")
+    ftr, fte = second["features"]
+    pipes = {c: KWSPipeline(KWSPipelineConfig(classifier=c)) for c in ("qat", "integer")}
+    logits = {c: pipe.logits(second["params"], fte) for c, pipe in pipes.items()}
+    torch.cuda.synchronize()
+    counts = dict(build.launches)
+    # K1: record_features in batches of 64 (train and test set) a run; K2:
+    # the integer evaluation (4 launches a frame and the FC, one batch of
+    # up to 128 clips), twice, then the replay's logits once
+    n_train, n_test = 12 * TRAIN_PER_CLASS, 12 * max(TRAIN_PER_CLASS // 3, 4)
+    frames = ftr.shape[1]
+    ceil = lambda a, b: -(-a // b)  # noqa: E731
+    want = {"fex_fused": 2 * (ceil(n_train, 64) + ceil(n_test, 64)),
+            "intgemm": 3 * ceil(n_test, 128) * (4 * frames + 1)}
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, want {want}")
+    if not torch.equal(logits["integer"], logits["qat"]):
+        raise AssertionError("the integer replay's logits differ from the QAT model's")
+    if not np.array_equal(second["confusion"], second["int_confusion"]):
+        raise AssertionError("the integer replay's confusion matrix differs from the QAT model's")
+    losses = first["losses"] + second["losses"]
+    w = kws.WINDOW
+    if not np.mean(losses[-w:]) < np.mean(losses[:w]):
+        raise AssertionError(f"the loss did not fall: {np.mean(losses[:w]):.4f} -> "
+                             f"{np.mean(losses[-w:]):.4f}")
+    if not second["accuracy"] > 1 / 12:
+        raise AssertionError(f"test accuracy {second['accuracy']:.4f} does not beat 1/12")
+
+    # one step's gradients on the card and on the CPU, on a batch of the
+    # recorded features at the trained params
+    idx = torch.arange(TRAIN_BATCH, device=dev)
+    ytr = torch.as_tensor(second["labels"][0], device=dev)
+    loss, grads = kws.value_and_grad(second["params"], ftr[idx], ytr[idx])
+    cpu_loss, cpu_grads = kws.value_and_grad(tree_map(lambda t: t.cpu(), second["params"]),
+                                             ftr[idx].cpu(), ytr[idx].cpu())
+    grad_err = _grad_rel_err(grads, cpu_grads)
+    loss_err = abs(float(loss) - float(cpu_loss))
+    if grad_err > TRAIN_GRAD_TOL or loss_err > 1e-6:
+        raise AssertionError(f"a step's gradients on the card differ from the CPU's by "
+                             f"{grad_err:.3g} of max |g| (limit {TRAIN_GRAD_TOL}), the loss by "
+                             f"{loss_err:.3g}")
+
+    # one warm step under the profiler
+    params, opt = second["params"], second["opt"]
+    for _ in range(2):
+        params, opt, _ = kws.train_step(params, opt, ftr[idx], ytr[idx], 1e-3)
+    n_dev, busy, prof_ms = _profile_step(
+        lambda: kws.train_step(params, opt, ftr[idx], ytr[idx], 1e-3))
+    steps_s = first["step_s"][1:] + second["step_s"][1:]
+    out = {
+        "train step s": float(np.median(steps_s)),
+        "train first step s": first["step_s"][0],
+        "train run s": first["seconds"] + second["seconds"],
+        "train device activities a step": n_dev,
+        "train busy share": busy,
+        "train profiled step ms": prof_ms,
+        "train grad err": grad_err,
+        "train accuracy": second["accuracy"],
+    }
+    print(f"train: {len(losses)} steps at batch {TRAIN_BATCH} over {frames} frames on "
+          f"{n_train} clips ({TRAIN_STEPS // 2} + {TRAIN_STEPS // 2} resumed from the checkpoint, "
+          f"whose leaves equal the saved state); loss {np.mean(losses[:w]):.4f} -> "
+          f"{np.mean(losses[-w:]):.4f}; test accuracy {second['accuracy']:.4f} over {n_test} "
+          f"clips (QAT), the integer replay's confusion matrix and logits equal; launches {counts}")
+    print(f"train: a warm step {out['train step s']:.5f} s (median of {len(steps_s)}), the first "
+          f"{out['train first step s']:.4f} s, both runs' steps {out['train run s']:.3f} s; "
+          f"the card's gradients within {grad_err:.3g} of max |g| of the CPU's (limit "
+          f"{TRAIN_GRAD_TOL}), the loss within {loss_err:.3g}; TF32 off")
+    if n_dev is None:
+        print("train: torch.profiler saw no device activity: kernels a step and busy share "
+              "not measured")
+    else:
+        print(f"train: one warm step under torch.profiler: {n_dev} device activities "
+              f"(kernels and copies), the device busy {busy:.4f} of the span, {prof_ms:.3f} ms "
+              f"on the host clock")
+    return counts, out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2245,6 +2423,7 @@ def main() -> int:
         dev, hw_state)
     ingress_times, _ = phase_ingress(dev)
     fleet_times, fleet_launches, entry_err = phase_fleet(dev)
+    train_launches, train_times = phase_train(dev)
     gru_err, gru_launches, gru_times = phase_gru_seq(dev)
     wkv_err, wkv_launches, wkv_times = phase_wkv6(dev)
 
@@ -2254,6 +2433,7 @@ def main() -> int:
     times.update(fit_times)
     times.update(ingress_times)
     times.update(fleet_times)
+    times.update(train_times)
     times.update(gru_times)
     times.update(wkv_times)
     print(f"step_batch at {N_STREAMS} streams (qat, raw audio, host slab in, host "
@@ -2317,9 +2497,10 @@ def main() -> int:
                    max(hw_tick_err.values())),
         # the gated branch (detector, gate, decay) inside the same launch
         tick_entry("tick_fused[cascade]", "cascade qat energy 0.15", casc_launches, casc_err),
-        # record_features (software), then predict
+        # record_features (software), then predict, then the training corpus
         feature_entry("fex_fused", "fex_fused",
-                      feat_launches["software"]["fex_fused"] + fleet_launches["entry fex_fused"],
+                      feat_launches["software"]["fex_fused"] + fleet_launches["entry fex_fused"]
+                      + train_launches["fex_fused"],
                       feat_errs["fex_fused"]),
         # the K1 kernel's per-sample entry: the hardware frontends' Rec-BPF scan
         feature_entry("fex_fused[scan]", "scan",
@@ -2332,8 +2513,9 @@ def main() -> int:
             "name": "intgemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/intgemm.cu",
             "replaces": "src/repro/kernels/intgemm/kernel.py:46",
-            # streaming_step, then logits_all_frames and predict
-            "launches": intgemm_launches + fleet_launches["entry intgemm"],
+            # streaming_step, logits_all_frames and predict, the trained model's replay
+            "launches": intgemm_launches + fleet_launches["entry intgemm"]
+            + train_launches["intgemm"],
             "max_abs_err": max(intgemm_err, entry_err),
             "ms": times["intgemm_ms"], "plain_ms": times["intgemm_plain_ms"],
             "bound_ms": times["intgemm_bound_ms"], "bound_by": times["intgemm_bound_by"],

@@ -1,6 +1,7 @@
 """Weights carried across from the reference, through numpy.
 
-The reference's float parameter pytree, `QuantizedClassifier` codes,
+The reference's float parameter pytree, its AdamW state,
+`QuantizedClassifier` codes,
 norm stats, ΔGRU states, cascade detector states, whole serving states
 and hardware-frontend states (a die drawn with ``jax.random`` and its calibration) arrive as numpy arrays (for example through
 ``jax.tree_util.tree_map(np.asarray, tree)``) and leave as the port's
@@ -23,6 +24,7 @@ from repro_torch.serving.serve_loop import ServerState
 
 __all__ = [
     "params_from_numpy",
+    "opt_state_from_numpy",
     "gru_layer_from_numpy",
     "quantized_from_numpy",
     "norm_stats_from_numpy",
@@ -49,6 +51,34 @@ def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
                 for layer in tree["gru"]],
         "fc": {"w": f(tree["fc"]["w"]), "b": f(tree["fc"]["b"])},
     }
+
+
+def opt_state_from_numpy(state: Dict[str, Any], device) -> Dict[str, Any]:
+    """An AdamW state ``{"step": int32 scalar, "m": ..., "v": ...}`` of
+    numpy arrays, the moments shaped like the params (float32 leaves, or
+    ``{"q": int8, "s": float32}`` rows for int8 moments) -> the same tree
+    of tensors, dtypes checked (`repro_torch.training.optimizer`)."""
+
+    def moments(tree):
+        if isinstance(tree, (list, tuple)):
+            return [moments(v) for v in tree]
+        if isinstance(tree, dict) and set(tree) != {"q", "s"}:
+            return {k: moments(v) for k, v in tree.items()}
+        if isinstance(tree, dict):
+            q, s = np.asarray(tree["q"]), np.asarray(tree["s"])
+            if q.dtype != np.int8 or s.dtype != np.float32:
+                raise ValueError(f"an int8 moment holds int8 q and float32 s; got {q.dtype}, {s.dtype}")
+            return {"q": torch.tensor(q, device=device), "s": torch.tensor(s, device=device)}
+        a = np.asarray(tree)
+        if a.dtype != np.float32:
+            raise ValueError(f"a float moment is float32; got {a.dtype}")
+        return torch.tensor(a, device=device)
+
+    step = np.asarray(state["step"])
+    if step.dtype != np.int32 or step.shape != ():
+        raise ValueError(f"step is an int32 scalar; got {step.dtype} {step.shape}")
+    return {"step": torch.tensor(step, device=device),
+            "m": moments(state["m"]), "v": moments(state["v"])}
 
 
 def gru_layer_from_numpy(layer: Dict[str, Any], device) -> Tuple[torch.Tensor, ...]:

@@ -15,14 +15,18 @@ With ``quantized=True`` (QAT) weights are fake-quantized to int8, biases
 to the accumulator grid and activations to Q6.8, and the gate
 nonlinearities are the Q6.8 ROMs of `repro_torch.core.quant`: on the
 Q6.8 grid the ROM equals ``fake_quant(sigmoid(.))`` exactly, so no device
-sigmoid or tanh decides a code. With ``quantized=False`` (the float
+sigmoid or tanh decides a code. QAT trains through them: a gate's backward
+is the reference's derivative of ``fake_quant(sigmoid(x))`` /
+``fake_quant(tanh(x))`` at the float preactivation, and every fake-quant
+is straight through (`quant.fake_quant`). With ``quantized=False`` (the float
 backend) nothing is quantized and the gates are float ``sigmoid`` /
 ``tanh``; that path agrees with the reference within a tolerance only.
 
 Products of Q6.8 activations and int8 weights are exact in float32, so
 the QAT matmuls are exact as long as they run in full float32: TF32 must
 be off on the card (`_matmul` refuses otherwise, for the float backend
-too).
+too). The backward's matmuls are taken under the same switch, so they run
+in full float32 as well.
 """
 
 from __future__ import annotations
@@ -120,12 +124,37 @@ def _layer_weights(layer: Params):
     return wq(layer["w_i"]), wq(layer["w_h"]), bq(layer["b_i"]), bq(layer["b_h"])
 
 
-def _gate(lookup, x: torch.Tensor) -> torch.Tensor:
-    """A Q6.8 ROM lookup (`quant.lut_sigmoid_q68` / `lut_tanh_q68`) on a
-    float tensor that lies on the Q6.8 grid."""
-    # no Q6.8 clip: a gate sum spans twice the activation range
-    codes = torch.round(x * 2.0**quant.ACT_Q6_8.frac_bits).to(torch.int64)
-    return quant.dequantize_int(lookup(codes), quant.ACT_Q6_8)
+# the gates' ROMs, float functions, and the reference's derivative rules
+# for them (jax's, written in its order, from the float value a = f(x))
+_GATES = {
+    "sigmoid": (quant.lut_sigmoid_q68, torch.sigmoid, lambda g, a: g * (a * (1 - a))),
+    "tanh": (quant.lut_tanh_q68, torch.tanh, lambda g, a: (g + g * a) * (1 - a)),
+}
+
+
+class _Gate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, name):
+        ctx.save_for_backward(x)
+        ctx.name = name
+        # no Q6.8 clip: a gate sum spans twice the activation range
+        codes = torch.round(x * 2.0**quant.ACT_Q6_8.frac_bits).to(torch.int64)
+        return quant.dequantize_int(_GATES[name][0](codes), quant.ACT_Q6_8)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        _, fn, rule = _GATES[ctx.name]
+        return rule(g, fn(x)), None
+
+
+def _gate(name: str, x: torch.Tensor) -> torch.Tensor:
+    """A Q6.8 gate, ``"sigmoid"`` or ``"tanh"``, on a float tensor that
+    lies on the Q6.8 grid: its ROM lookup forward, and backward the
+    reference's derivative of ``fake_quant(sigmoid(x))`` /
+    ``fake_quant(tanh(x))``, taken from the float preactivation ``x``
+    (the output clip passes the gates' whole range)."""
+    return _Gate.apply(x, name)
 
 
 def gru_cell(
@@ -150,9 +179,9 @@ def gru_cell(
     # Gate outputs are register values: on the IC sigmoid/tanh are Q6.8
     # ROM lookups, so downstream consumers never see a float
     # intermediate (this is what keeps QAT bit-replayable on codes).
-    r = _gate(quant.lut_sigmoid_q68, i_r + h_r)
-    z = _gate(quant.lut_sigmoid_q68, i_z + h_z)
-    n = _gate(quant.lut_tanh_q68, i_n + aq(r * h_n))
+    r = _gate("sigmoid", i_r + h_r)
+    z = _gate("sigmoid", i_z + h_z)
+    n = _gate("tanh", i_n + aq(r * h_n))
     return aq((1.0 - z) * n + z * h)
 
 

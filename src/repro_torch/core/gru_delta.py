@@ -222,9 +222,9 @@ def delta_gru_cell(
     gh = aq(acc_h + b_h)
     i_r, i_z, i_n = torch.chunk(gi, 3, dim=-1)
     h_r, h_z, h_n = torch.chunk(gh, 3, dim=-1)
-    r = _gate(quant.lut_sigmoid_q68, i_r + h_r)
-    z = _gate(quant.lut_sigmoid_q68, i_z + h_z)
-    n = _gate(quant.lut_tanh_q68, i_n + aq(r * h_n))
+    r = _gate("sigmoid", i_r + h_r)
+    z = _gate("sigmoid", i_z + h_z)
+    n = _gate("tanh", i_n + aq(r * h_n))
     h_new = aq((1.0 - z) * n + z * st["h"])
 
     skipped, total = _count_macs(st, fire_x, fire_h)

@@ -13,6 +13,11 @@ float32: the 12 -> 10-bit log compressor and the Q6.8 sigmoid / tanh
 gates. Lookups then give the same codes on every device, so no device
 `log2`, `sigmoid` or `tanh` ever decides a code. Rounding is
 round-half-to-even (`torch.round`) everywhere, as in the reference.
+
+The quantizers train through the reference's straight-through estimator:
+`ste_round` passes the gradient through unchanged, and the saturating clip
+passes it where a value lies inside the format, halves it on a bound and
+stops it outside, as ``jnp.clip`` (a maximum, then a minimum) does.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ __all__ = [
     "BIAS_Q8_15",
     "FV_RAW_U12",
     "FV_LOG_U10",
+    "ste_round",
     "fake_quant",
     "quantize_int",
     "dequantize_int",
@@ -91,15 +97,54 @@ FV_LOG_U10 = QuantSpec(bits=10, frac_bits=0, signed=False)  # log LUT output
 BIAS_Q8_15 = QuantSpec(bits=24, frac_bits=15, signed=True)
 
 
+class _SteRound(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """Round-half-to-even with a straight-through gradient."""
+    return _SteRound.apply(x)
+
+
+class _Clip(torch.autograd.Function):
+    # torch.clamp's gradient is 1 on a bound; jnp.clip's is 0.5 there,
+    # since the max and the min each split a tie between their operands
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        mask = torch.where((x > lo) & (x < hi), 1.0,
+                           torch.where((x == lo) | (x == hi), 0.5, 0.0))
+        return g * mask.to(g.dtype), None, None
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``torch.clamp(x, lo, hi)`` with ``jnp.clip``'s gradient: 1 inside
+    the bounds, 0.5 on one, 0 outside."""
+    return _Clip.apply(x, lo, hi)
+
+
 def fake_quant(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """Quantize-dequantize to `spec` on the float path (QAT forward).
 
     Saturates at the format bounds, like the HPE accumulator and the
-    activation registers. Forward only: the training slice adds the
-    straight-through gradient.
+    activation registers; the gradient is straight through, 0.5 on a
+    bound and 0 beyond one, as in the reference.
     """
-    q = torch.round(x * 2.0**spec.frac_bits)
-    q = torch.clamp(q, spec.qmin, spec.qmax)
+    q = ste_round(x * 2.0**spec.frac_bits)
+    q = _clip(q, spec.qmin, spec.qmax)
     return q * spec.scale
 
 
@@ -135,9 +180,10 @@ def quantize_unsigned(x: torch.Tensor, bits: int, x_max: float) -> torch.Tensor:
     """The FEx 12-bit unsigned quantizer: [0, x_max] -> float codes.
 
     Mirrors the DeltaSigma-TDC + decimation output register width.
-    Values are clipped (the TDC count register saturates).
+    Values are clipped (the TDC count register saturates); the gradient
+    is straight through.
     """
-    return torch.round(torch.clamp(x, 0.0, x_max) * quantizer_scale(bits, x_max))
+    return ste_round(_clip(x, 0.0, x_max) * quantizer_scale(bits, x_max))
 
 
 def _log_scale(in_bits: int, out_bits: int) -> float:
@@ -163,6 +209,14 @@ def _on_device(rom_fn, device: torch.device, *args) -> torch.Tensor:
     return rom_fn(*args).to(device)
 
 
+def _rom_device(device) -> torch.device:
+    """A ROM's device: the card unless the caller names another
+    (`kernels.build.resolve_device`, which raises where there is none)."""
+    from repro_torch.kernels.build import resolve_device  # lazy: kernels import core
+
+    return resolve_device(device)
+
+
 def log_rom(
     device=None, in_bits: int = 12, out_bits: int = 10
 ) -> torch.Tensor:
@@ -170,10 +224,10 @@ def log_rom(
 
     ``out = round((2^out_bits - 1) * log2(1 + v) / in_bits)`` for every
     input code ``v``, float32, 4096 entries: a monotone companding curve
-    exactly representable as a ROM on the IC.
+    exactly representable as a ROM on the IC. On ``device``, the card by
+    default.
     """
-    return _on_device(_log_rom_host, torch.device(device or "cpu"),
-                      in_bits, out_bits)
+    return _on_device(_log_rom_host, _rom_device(device), in_bits, out_bits)
 
 
 def log_compress_lut(
@@ -265,14 +319,16 @@ def sigmoid_rom(device=None) -> torch.Tensor:
     """Q6.8 sigmoid ROM over the summed-preactivation code domain.
 
     Entry ``i`` holds ``quantize_int(sigmoid((i + LUT_MIN) * 2^-8))``
-    (int32, 32 767 entries), evaluated once on the host in float32.
+    (int32, 32 767 entries), evaluated once on the host in float32, on
+    ``device`` (the card by default).
     """
-    return _on_device(_sigmoid_rom_host, torch.device(device or "cpu"))
+    return _on_device(_sigmoid_rom_host, _rom_device(device))
 
 
 def tanh_rom(device=None) -> torch.Tensor:
-    """Q6.8 tanh ROM over the summed-preactivation code domain."""
-    return _on_device(_tanh_rom_host, torch.device(device or "cpu"))
+    """Q6.8 tanh ROM over the summed-preactivation code domain, on
+    ``device`` (the card by default)."""
+    return _on_device(_tanh_rom_host, _rom_device(device))
 
 
 def _lookup(rom: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

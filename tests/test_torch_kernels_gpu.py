@@ -1315,3 +1315,54 @@ def test_logits_all_frames_and_predict_on_the_card(dev):
     top = pipe.predict(params, audio.to(dev))
     assert build.launches["fex_fused"] == 1 and build.launches["intgemm"] == 4 * fv.shape[1] + 1
     assert torch.equal(top.cpu(), cpu.predict(cpu_params, audio))
+
+
+# a QAT step's gradients on the card against the CPU's, per leaf, max
+# |difference| / max |gradient|: the forward is equal on the grid, the
+# backward's sums run in cuBLAS's order and the CPU's
+TRAIN_GRAD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "int8"])
+def test_train_step_on_the_card_equals_the_cpu_step(dev, state_dtype):
+    from repro_torch.core.gru import GRUConfig, init_gru_classifier
+    from repro_torch.training import kws
+    from repro_torch.training.checkpoint import _flatten_with_names
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state, tree_map
+
+    params = init_gru_classifier(GRUConfig(), torch.Generator().manual_seed(14), "cpu")
+    cfg = AdamWConfig(lr=1e-3, weight_decay=0.01, state_dtype=state_dtype)
+    opt = init_opt_state(params, cfg)
+    rng = np.random.default_rng(15)
+    fv = torch.from_numpy((np.round(rng.standard_normal((64, 62, 16)) * 256) / 256).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 12, 64).astype(np.int32))
+
+    def to(tree, device):
+        return tree_map(lambda t: t.to(device), tree)
+
+    loss, grads = kws.value_and_grad(to(params, dev), fv.to(dev), y.to(dev))
+    cpu_loss, cpu_grads = kws.value_and_grad(params, fv, y)
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-6
+    for (name, g), (_, c) in zip(_flatten_with_names(grads), _flatten_with_names(cpu_grads),
+                                 strict=True):
+        assert g.is_cuda
+        assert float((g.cpu() - c).abs().max() / c.abs().max()) <= TRAIN_GRAD_TOL, name
+    build.launches.clear()
+    new_p, new_opt, _ = kws.train_step(to(params, dev), to(opt, dev), fv.to(dev), y.to(dev),
+                                       1e-3, ocfg=cfg)
+    assert not build.launches  # the step runs PyTorch operations, as the reference runs jnp
+    cpu_p, cpu_opt, _ = kws.train_step(params, opt, fv, y, 1e-3, ocfg=cfg)
+    for (name, a), (_, b) in zip(_flatten_with_names((new_p, new_opt)),
+                                 _flatten_with_names((cpu_p, cpu_opt)), strict=True):
+        assert a.is_cuda and a.dtype == b.dtype, name
+        if a.dtype == torch.int8:
+            assert (a.cpu().int() - b.int()).abs().max() <= 1, name
+        elif a.dim() and name.startswith("0/"):
+            # the first step moves a weight by lr * g / (|g| + eps): where |g|
+            # is near eps, a difference within TRAIN_GRAD_TOL can move it by
+            # up to 2 lr; the moments above hold the gradient itself
+            assert float((a.cpu() - b).abs().max()) <= 2e-3 + 1e-7, name
+        elif a.dim():
+            assert float((a.cpu() - b).abs().max()) <= TRAIN_GRAD_TOL * float(b.abs().max()), name
+        else:
+            assert torch.equal(a.cpu(), b), name

@@ -5,6 +5,9 @@ their whole domain: the 4096-entry log ROM with the log compression the
 reference's compiled (XLA) tick evaluates, and the two 32 767-entry Q6.8
 gate ROMs with both the reference's ROMs and its jitted
 ``fake_quant(sigmoid(.))`` / ``fake_quant(tanh(.))`` (watch item W3).
+The straight-through gradients are held against ``jax.grad``: ste_round,
+the fake-quant clip's 0.5 on a bound, and the QAT gates' derivative on
+every code of their domain.
 """
 
 from fractions import Fraction
@@ -18,6 +21,7 @@ import torch
 from repro.core import quant as jq
 from repro_torch.core import quant as tq
 from repro_torch.core.fex import fma_f32
+from repro_torch.core.gru import _gate
 
 ALL_LOG_CODES = np.arange(4096, dtype=np.float32)
 GATE_CODES = np.arange(tq.LUT_MIN, tq.LUT_MAX + 1, dtype=np.int32)
@@ -27,7 +31,7 @@ def test_log_rom_equals_compiled_reference():
     ref = np.asarray(
         jax.jit(lambda c: jq.log_compress_lut(c, 12, 10))(ALL_LOG_CODES)
     )
-    np.testing.assert_array_equal(tq.log_rom().numpy(), ref)
+    np.testing.assert_array_equal(tq.log_rom("cpu").numpy(), ref)
     np.testing.assert_array_equal(
         tq.log_compress_lut(torch.from_numpy(ALL_LOG_CODES)).numpy(), ref
     )
@@ -38,7 +42,7 @@ def test_log_rom_tie_at_code_63():
     its constants and gives 511; the eager `make_log_lut` gives 512.
     The port follows the tick the server runs; no other code differs."""
     eager = np.asarray(jq.make_log_lut())
-    rom = tq.log_rom().numpy()
+    rom = tq.log_rom("cpu").numpy()
     assert np.nonzero(rom != eager)[0].tolist() == [63]
     assert (rom[63], eager[63]) == (511.0, 512.0)
 
@@ -52,7 +56,7 @@ def test_log_rom_tie_at_code_63():
     ids=["sigmoid", "tanh"],
 )
 def test_gate_roms_exhaustive(rom, ref_rom, fn):
-    port = rom().numpy()
+    port = rom("cpu").numpy()
     assert port.shape == (32767,)
     np.testing.assert_array_equal(port, np.asarray(ref_rom()))
     # the QAT path's own evaluation, jitted, on every grid input
@@ -156,3 +160,80 @@ def test_fma_f32_is_one_rounding():
     np.testing.assert_array_equal(got, want)
     naive = (a.astype(np.float64) * b + c).astype(np.float32)
     assert (naive != want).any()  # the hard cases are really exercised
+
+
+@pytest.mark.parametrize("rom", [tq.log_rom, tq.sigmoid_rom, tq.tanh_rom],
+                         ids=["log", "sigmoid", "tanh"])
+def test_roms_default_to_the_card(rom, monkeypatch):
+    """F7: ``device=None`` means the card, as at every entry point of the
+    port, and raises where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rom()
+    assert rom("cpu").device.type == "cpu"
+
+
+def test_ste_round_passes_the_gradient_through():
+    x = np.array([-2.5, -1.5, -0.5, 0.0, 0.49, 0.5, 1.5, 2.5, 7.3], np.float32)
+    g = np.arange(1, len(x) + 1, dtype=np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = tq.ste_round(xt)
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(jq.ste_round(jnp.asarray(x))))
+    y.backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(jq.ste_round, jnp.asarray(x))
+    np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]))
+    np.testing.assert_array_equal(xt.grad.numpy(), g)
+
+
+@pytest.mark.parametrize("name", ["ACT_Q6_8", "WEIGHT_INT8", "BIAS_Q8_15"])
+def test_fake_quant_gradient_equals_jax_grad_with_clip_ties(name):
+    """1 inside the format, 0.5 on a bound (jnp.clip's max and min split a
+    tie), 0 beyond; torch.clamp would give 1 on the bound."""
+    jspec, tspec = getattr(jq, name), getattr(tq, name)
+    lsb = jspec.scale
+    bounds = np.array([jspec.min_value, jspec.max_value, jspec.min_value + lsb / 4,
+                       jspec.max_value + lsb / 4, jspec.min_value - lsb, jspec.max_value + lsb,
+                       jspec.max_value * 2, 0.0], np.float32)
+    x = np.concatenate([bounds, _random_and_boundary(jspec, np.random.default_rng(4))])
+    g = np.random.default_rng(5).standard_normal(len(x)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = tq.fake_quant(xt, tspec)
+    y.backward(torch.from_numpy(g))
+    want = jax.grad(lambda v: jnp.sum(jq.fake_quant(v, jspec) * g))(jnp.asarray(x))
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(jq.fake_quant(jnp.asarray(x), jspec)))
+    np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(want))
+    # on a bound, and a quarter LSB inside it (the same code): half the gradient
+    np.testing.assert_array_equal(xt.grad.numpy()[:4], g[:4] * np.float32(0.5))
+    np.testing.assert_array_equal(xt.grad.numpy()[4:8], [0, 0, 0, g[7]])
+
+
+def test_quantize_unsigned_gradient_is_straight_through_inside_the_range():
+    x = np.array([-0.1, 0.0, 0.2, 0.35, 0.7, 0.9], np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    tq.quantize_unsigned(xt, 12, 0.7).sum().backward()
+    want = np.asarray(jax.grad(lambda v: jnp.sum(jq.quantize_unsigned(v, 12, 0.7)))(jnp.asarray(x)))
+    # the port scales by the folded 5850.0, the reference by / 0.7 * 4095
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(xt.grad.numpy(), [0, 2925, 5850, 5850, 2925, 0])
+
+
+# the port's gate backward against jax.grad of the reference's
+# fake_quant(sigmoid / tanh): the same rule on a float a = f(x) that torch
+# and XLA evaluate up to 1 ulp (sigmoid) / 2 ulps (tanh) apart; measured
+# over the whole domain, relative to the largest |gradient|: sigmoid
+# 1.9e-7, tanh 6.1e-7 (at a = -1 + 2^-22, where 1 - a carries it)
+GATE_GRAD_TOL = 1e-6
+
+
+@pytest.mark.parametrize("name,fn", [("sigmoid", jax.nn.sigmoid), ("tanh", jnp.tanh)])
+def test_gate_gradient_equals_jax_grad_on_every_code(name, fn):
+    x = GATE_CODES.astype(np.float32) * np.float32(2.0**-8)
+    g = np.random.default_rng(6).standard_normal(len(x)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = _gate(name, xt)
+    y.backward(torch.from_numpy(g))
+    ref_fn = lambda v: jq.fake_quant(fn(v), jq.ACT_Q6_8)  # noqa: E731
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(jax.jit(ref_fn)(x)))
+    want = np.asarray(jax.grad(lambda v: jnp.sum(ref_fn(v) * g))(jnp.asarray(x)))
+    err = np.abs(xt.grad.numpy() - want).max() / np.abs(want).max()
+    assert err <= GATE_GRAD_TOL, err
