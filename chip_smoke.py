@@ -107,7 +107,17 @@ plain PyTorch version on the card:
      tick kernels' dynamic shared memory and blocks an SM (occupancy
      API); one JSON line per kernel (K4's `delta_gather` with its phase's
      time, plain time and bound), then all kernels in one JSON line;
- 16. the result line ``{"ok": true, "device": {...}}``.
+ 16. data-parallel QAT training through `training.kws.train(dp=4,
+     compress_grads=True, devices=["cuda:0"] * 4)`: the reference
+     example's recipe on four shards of the one card, 20 steps (the
+     corpus by K1, the integer replay by K2); the first step's loss,
+     synced gradients and per-shard residuals against the same step on
+     the CPU, a plain DP step against the single-device step; s a step;
+ 17. the LM train step on rwkv6-7b at full width cut to 2 layers: 10 steps
+     at 1 x 4096 tokens (s a step, tokens a second, peak memory, the
+     loss), a prefill of 4096 tokens and 16 decode steps whose logits
+     equal the full forward's within a bfloat16 tolerance;
+ 18. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
@@ -2208,11 +2218,12 @@ def _grad_rel_err(got, want) -> float:
                                          strict=True))
 
 
-def _profile_step(step):
+def _profile_step(step, top: int = 0):
     """(device activities, device busy share, host ms) of one call of
     ``step`` under torch.profiler: the union of the device's intervals over
     the span of everything the profiler saw. None for both where it saw
-    no device activity."""
+    no device activity. With ``top``, prints the ``top`` kernel names by
+    their summed device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2227,6 +2238,14 @@ def _profile_step(step):
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     if not device:
         return None, None, host_ms
+    if top:
+        by_name = {}
+        for e in events:
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                              - e.time_range.start) / 1e3
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+            print(f"  device {ms:9.3f} ms  {name[:110]}")
     busy, end = 0.0, float("-inf")
     for a, b in device:
         if b > end:
@@ -2357,6 +2376,233 @@ def phase_train(dev):
     return counts, out
 
 
+DP_SHARDS = 4  # data-parallel shards, all on the one card
+DP_STEPS = 20
+
+
+def phase_train_dp(dev):
+    """Data-parallel QAT training through `training.kws.train` (the entry
+    point of ``python -m repro_torch.training.kws --dp 4 --compress-grads
+    --devices cuda:0 ...``): the reference example's recipe on DP_SHARDS
+    shards of the one card, batch TRAIN_BATCH (a shard's TRAIN_BATCH /
+    DP_SHARDS rows), the int8 all-reduce with error feedback, DP_STEPS
+    steps; the corpus recorded by K1, the integer replay by K2. Checks:
+    the first step's loss, synced gradients and per-shard residuals on the
+    card against the same step on the CPU's shards within TRAIN_GRAD_TOL
+    (a whole code may differ where a value lies within it of a rounding
+    tie: at most 0.1 % of the elements), one plain DP step against the
+    single-device `value_and_grad` on the same batch, the integer replay's
+    confusion matrix equal to QAT's. Returns ({kernel: launches}, times)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.gru import GRUConfig, init_gru_classifier
+    from repro_torch.distributed.collectives import elements_apart, init_residual
+    from repro_torch.kernels import build
+    from repro_torch.training import kws
+    from repro_torch.training.optimizer import tree_map
+
+    ckpt_dir = ROOT / "chiprun_out" / "kws_dp_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    devices = [str(dev)] * DP_SHARDS
+    build.launches.clear()
+    out = kws.train(steps=DP_STEPS, batch=TRAIN_BATCH, n_per_class=TRAIN_PER_CLASS,
+                    ckpt_dir=str(ckpt_dir), device=dev, ckpt_every=DP_STEPS, dp=DP_SHARDS,
+                    compress_grads=True, devices=devices)
+    torch.cuda.synchronize()
+    counts = dict(build.launches)
+    n_train, n_test = 12 * TRAIN_PER_CLASS, 12 * max(TRAIN_PER_CLASS // 3, 4)
+    ftr, fte = out["features"]
+    frames = ftr.shape[1]
+    ceil = lambda a, b: -(-a // b)  # noqa: E731
+    want = {"fex_fused": ceil(n_train, 64) + ceil(n_test, 64),
+            "intgemm": ceil(n_test, 128) * (4 * frames + 1)}
+    if counts != want:
+        raise AssertionError(f"train dp: launches {counts}, want {want}")
+    if len(out["residual"]) != DP_SHARDS or not np.isfinite(out["losses"]).all():
+        raise AssertionError("train dp: a residual a shard and finite losses expected")
+    if not np.array_equal(out["confusion"], out["int_confusion"]):
+        raise AssertionError("train dp: the integer replay's confusion matrix differs from QAT's")
+
+    # the run's first step on the card and on the CPU: the initial params,
+    # the step-0 batch, zero residuals
+    ytr = torch.as_tensor(out["labels"][0], device=dev)
+    rows = torch.as_tensor(kws._batch(0, 0, n_train, TRAIN_BATCH), device=dev)
+    params = init_gru_classifier(GRUConfig(), torch.Generator().manual_seed(0), dev)
+    fv, y = ftr[rows], ytr[rows]
+
+    def first_step(device, shard_devices):
+        reps = [tree_map(lambda t, d=d: t.to(d), params) for d in shard_devices]
+        return kws.dp_value_and_grad(reps, fv.to(device), y.to(device),
+                                     residual=[init_residual(r) for r in reps])
+
+    loss, synced, resid = first_step(dev, [dev] * DP_SHARDS)
+    cpu_loss, cpu_synced, cpu_resid = first_step("cpu", ["cpu"] * DP_SHARDS)
+    flips = [elements_apart(a, b, cpu_synced[0], TRAIN_GRAD_TOL)
+             for a, b in [(synced[0], cpu_synced[0])] + list(zip(resid, cpu_resid))]
+    off, total = sum(f[0] for f in flips), sum(f[1] for f in flips)
+    loss_err = abs(float(loss) - float(cpu_loss))
+    if loss_err > 1e-6 or off > 1e-3 * total:
+        raise AssertionError(f"train dp: the first step on the card differs from the CPU's: loss "
+                             f"by {loss_err:.3g}, {off} of {total} synced / residual elements "
+                             f"beyond {TRAIN_GRAD_TOL} of max |g|")
+    # one plain DP step against the single-device step on the same batch
+    plain_loss, plain, _ = kws.dp_value_and_grad(
+        [tree_map(lambda t: t.clone(), params) for _ in range(DP_SHARDS)], fv, y)
+    one_loss, one = kws.value_and_grad(params, fv, y)
+    plain_err = _grad_rel_err(plain[0], one)
+    if plain_err > TRAIN_GRAD_TOL or abs(float(plain_loss) - float(one_loss)) > 1e-6:
+        raise AssertionError(f"train dp: a plain DP step differs from the single-device step by "
+                             f"{plain_err:.3g} of max |g| (limit {TRAIN_GRAD_TOL})")
+    steps_s = out["step_s"][1:]
+    w = kws.WINDOW
+    times = {"train dp step s": float(np.median(steps_s)),
+             "train dp first step s": out["step_s"][0],
+             "train dp run s": out["seconds"],
+             "train dp loss": float(np.mean(out["losses"][-w:]))}
+    print(f"train dp: {DP_STEPS} steps, {DP_SHARDS} shards on {dev} (compressed, batch "
+          f"{TRAIN_BATCH}, {TRAIN_BATCH // DP_SHARDS} rows a shard): a warm step "
+          f"{times['train dp step s']:.5f} s (median of {len(steps_s)}), the first "
+          f"{times['train dp first step s']:.4f} s, the run {times['train dp run s']:.3f} s; loss "
+          f"{np.mean(out['losses'][:w]):.4f} -> {times['train dp loss']:.4f}; test accuracy "
+          f"{out['accuracy']:.4f}, the integer replay's confusion matrix equal; launches {counts}")
+    print(f"train dp: the first step's loss within {loss_err:.3g} of the CPU's, {off} of {total} "
+          f"synced / residual elements a code apart (beyond {TRAIN_GRAD_TOL} of max |g|); a plain "
+          f"DP step within {plain_err:.3g} of max |g| of the single-device step")
+    return counts, times
+
+
+LM_ARCH = "rwkv6-7b"
+LM_LAYERS = 2  # 32 layers (~7.5 B parameters) with grads and moments exceed 80 GB
+LM_SEQ = 4096  # the train_4k length, batch 1
+LM_STEPS = 10
+LM_DECODE = 16
+LM_ZERO_LEAVES = ("bonus_u", "mix_x", "mix_base", "cm_mix_k", "cm_mix_r", "ln1", "ln2", "ln_x")
+# bfloat16 logits of the last decode step against the full forward at the
+# same position, max |difference| / max |logit|: the decode carries its
+# WKV state in bfloat16 step by step, the chunked form within chunks in
+# float32; measured 0.0062 on an H100 at rwkv6-7b's full width, 2 layers,
+# with LM_ZERO_LEAVES drawn away from zero
+LM_DECODE_TOL = 0.02
+
+
+def phase_lm(dev):
+    """The LM train step (`training.train_loop.build_train_step`) on
+    rwkv6-7b at full width (d_model 4096, d_ff 14336, vocab 65536, 64
+    heads of 64, bfloat16, remat "full") cut to LM_LAYERS layers, random
+    weights from a generator on the card: LM_STEPS steps at batch 1 x
+    LM_SEQ tokens of the reference smoke's recipe (tokens from
+    default_rng(0), inputs [:, :-1], labels [:, 1:]), then a prefill of
+    LM_SEQ tokens and LM_DECODE decode steps, with LM_ZERO_LEAVES (zero
+    as drawn) drawn away from zero, the last decode's logits against the
+    full forward's at the same position within LM_DECODE_TOL. No kernel
+    of the port runs (the backbone trains through the chunked WKV6 form,
+    as the reference does). Returns ({kernel: launches}, times)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import rwkv6
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainConfig, build_train_step, lm_batches
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what the earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    build.launches.clear()
+    params = rwkv6.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+    n_params = sum(t.numel() for t in params["layers"].values()) + sum(
+        params[k].numel() for k in ("embed", "head", "final_norm"))
+    opt = init_opt_state(params, AdamWConfig(lr=3e-3))
+    step = build_train_step(cfg, TrainConfig(optimizer=AdamWConfig(lr=3e-3)), dev)
+    losses, step_s = [], []
+    for batch in lm_batches(cfg.vocab, LM_STEPS, batch=1, seq=LM_SEQ):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    train_peak = torch.cuda.max_memory_allocated() - base
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"lm: a loss is not finite: {losses}")
+    print("lm: one more step under torch.profiler, its kernels by device ms:")
+    n_dev, busy, prof_ms = _profile_step(lambda: step(params, opt, batch), top=8)
+    del opt
+    # the leaves that init_params draws as zero (the bonus u, the token-shift
+    # and channel-mix mixes, the norms' scales), drawn away from it so that
+    # the decode check exercises them
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for name in LM_ZERO_LEAVES:
+        leaf = params["layers"][name]
+        noise = torch.randn(leaf.shape, generator=gen, device=dev) * 0.1
+        params["layers"][name] = (leaf.float() + noise).to(leaf.dtype)
+
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, LM_SEQ + LM_DECODE)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = rwkv6.prefill(params, {"tokens": toks[:, :LM_SEQ]}, cfg)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(LM_DECODE):
+            logits, cache = rwkv6.decode_step(params, cache, LM_SEQ + i,
+                                              {"tokens": toks[:, LM_SEQ + i:LM_SEQ + i + 1]}, cfg)
+        torch.cuda.synchronize()
+        decode_s = (time.perf_counter() - t0) / LM_DECODE
+        full, _ = rwkv6.forward(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    counts = dict(build.launches)
+    if counts:
+        raise AssertionError(f"lm: launches {counts}, want none (PyTorch operations only)")
+    ref = full[:, -1].float()
+    decode_err = float((logits.float() - ref).abs().max() / ref.abs().max())
+    # prefill runs the forward's block code on the first LM_SEQ tokens: its
+    # last logits check prefill's slicing and cache, not the recurrence
+    ref_p = full[:, LM_SEQ - 1].float()
+    prefill_err = float((last.float() - ref_p).abs().max() / ref_p.abs().max())
+    if not (decode_err <= LM_DECODE_TOL and prefill_err <= LM_DECODE_TOL):
+        raise AssertionError(f"lm: prefill's last / the last decode logits differ from the "
+                             f"forward's by {prefill_err:.3g} / {decode_err:.3g} of max |logit| "
+                             f"(limit {LM_DECODE_TOL})")
+    warm = float(np.median(step_s[1:]))
+    times = {"lm step s": warm, "lm first step s": step_s[0],
+             "lm tokens per s": LM_SEQ / warm, "lm train peak GB": train_peak / 1e9,
+             "lm peak GB": (torch.cuda.max_memory_allocated() - base) / 1e9,
+             "lm prefill s": prefill_s, "lm decode ms": decode_s * 1e3,
+             "lm loss first": losses[0], "lm loss last": losses[-1],
+             "lm params": n_params, "lm decode err": decode_err,
+             "lm device activities a step": n_dev, "lm busy share": busy,
+             "lm profiled step ms": prof_ms}
+    print(f"lm: {LM_ARCH} at full width ({cfg.d_model} / {cfg.d_ff} / vocab {cfg.vocab}, "
+          f"{cfg.d_model // cfg.resolved_head_dim} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.dtype}, remat {cfg.remat}) cut to {LM_LAYERS} layers ({n_params} params): "
+          f"{LM_STEPS} train steps at 1 x {LM_SEQ} tokens, a warm step {warm:.4f} s (median of "
+          f"{LM_STEPS - 1}), the first {step_s[0]:.3f} s, {LM_SEQ / warm:.1f} tokens a second, "
+          f"peak {train_peak / 1e9:.3f} GB (max_memory_allocated above the "
+          f"{base / 1e9:.3f} GB the earlier phases hold); loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"lm: prefill of {LM_SEQ} tokens {prefill_s:.4f} s, {LM_DECODE} decode steps "
+          f"{decode_s * 1e3:.3f} ms each, with {', '.join(LM_ZERO_LEAVES)} drawn away from zero: "
+          f"the last decode logits within {decode_err:.3g} of max |logit| of the forward's "
+          f"(limit {LM_DECODE_TOL}), prefill's last (the same block code) within "
+          f"{prefill_err:.3g}; peak "
+          f"{times['lm peak GB']:.3f} GB; launches {counts or 'none'}")
+    if n_dev is None:
+        print("lm: torch.profiler saw no device activity: busy share not measured")
+    else:
+        print(f"lm: one step under torch.profiler: {n_dev} device activities, the device busy "
+              f"{busy:.4f} of the span, {prof_ms:.3f} ms on the host clock")
+    return counts, times
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2424,6 +2670,8 @@ def main() -> int:
     ingress_times, _ = phase_ingress(dev)
     fleet_times, fleet_launches, entry_err = phase_fleet(dev)
     train_launches, train_times = phase_train(dev)
+    dp_launches, dp_times = phase_train_dp(dev)
+    _, lm_times = phase_lm(dev)
     gru_err, gru_launches, gru_times = phase_gru_seq(dev)
     wkv_err, wkv_launches, wkv_times = phase_wkv6(dev)
 
@@ -2434,6 +2682,8 @@ def main() -> int:
     times.update(ingress_times)
     times.update(fleet_times)
     times.update(train_times)
+    times.update(dp_times)
+    times.update(lm_times)
     times.update(gru_times)
     times.update(wkv_times)
     print(f"step_batch at {N_STREAMS} streams (qat, raw audio, host slab in, host "
@@ -2497,10 +2747,10 @@ def main() -> int:
                    max(hw_tick_err.values())),
         # the gated branch (detector, gate, decay) inside the same launch
         tick_entry("tick_fused[cascade]", "cascade qat energy 0.15", casc_launches, casc_err),
-        # record_features (software), then predict, then the training corpus
+        # record_features (software), then predict, then the training corpora
         feature_entry("fex_fused", "fex_fused",
                       feat_launches["software"]["fex_fused"] + fleet_launches["entry fex_fused"]
-                      + train_launches["fex_fused"],
+                      + train_launches["fex_fused"] + dp_launches["fex_fused"],
                       feat_errs["fex_fused"]),
         # the K1 kernel's per-sample entry: the hardware frontends' Rec-BPF scan
         feature_entry("fex_fused[scan]", "scan",
@@ -2513,9 +2763,9 @@ def main() -> int:
             "name": "intgemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/intgemm.cu",
             "replaces": "src/repro/kernels/intgemm/kernel.py:46",
-            # streaming_step, logits_all_frames and predict, the trained model's replay
+            # streaming_step, logits_all_frames and predict, the trained models' replays
             "launches": intgemm_launches + fleet_launches["entry intgemm"]
-            + train_launches["intgemm"],
+            + train_launches["intgemm"] + dp_launches["intgemm"],
             "max_abs_err": max(intgemm_err, entry_err),
             "ms": times["intgemm_ms"], "plain_ms": times["intgemm_plain_ms"],
             "bound_ms": times["intgemm_bound_ms"], "bound_by": times["intgemm_bound_by"],

@@ -2,8 +2,10 @@
 
 The reference's float parameter pytree, its AdamW state,
 `QuantizedClassifier` codes,
-norm stats, ΔGRU states, cascade detector states, whole serving states
-and hardware-frontend states (a die drawn with ``jax.random`` and its calibration) arrive as numpy arrays (for example through
+norm stats, ΔGRU states, cascade detector states, whole serving states,
+hardware-frontend states (a die drawn with ``jax.random`` and its
+calibration) and the LM backbones' parameter and cache trees arrive as
+numpy arrays (for example through
 ``jax.tree_util.tree_map(np.asarray, tree)``) and leave as the port's
 tensors on ``device``, in the same layouts: ``w_i`` (I, 3H), ``w_h``
 (H, 3H), ``fc.w`` (H, K). This module takes numpy only.
@@ -32,6 +34,7 @@ __all__ = [
     "cascade_state_from_numpy",
     "frontend_state_from_numpy",
     "server_state_from_numpy",
+    "lm_params_from_numpy",
 ]
 
 
@@ -188,3 +191,25 @@ def server_state_from_numpy(gru, carry, scores, det, device):
         scores=_t(scores, device, torch.float32),
         det=None if det is None else cascade_state_from_numpy(det, device),
     )
+
+
+def _lm_leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16: torch.from_numpy has no bf16, so the bits
+        # cross as int16 and are viewed back
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def lm_params_from_numpy(tree: Any, device) -> Any:
+    """An LM backbone's parameter or cache tree (`repro.models`: nested
+    dicts, lists and tuples of numpy arrays, float32 or ``ml_dtypes``
+    bfloat16 leaves) -> the same tree of tensors on ``device``, every
+    dtype and bit kept."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(lm_params_from_numpy(v, device) for v in tree)
+    return _lm_leaf(tree, device)

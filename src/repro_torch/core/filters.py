@@ -61,16 +61,25 @@ class BiquadCoeffs:
 
     def as_arrays(self, dtype=torch.float32, device=None):
         """(b0, b1, b2, a1, a2) as tensors of shape (C,) on ``device``
-        (the host when None, as `stacked`)."""
+        (the card when None, as `stacked`)."""
+        device = _resolve_device(device)
         return tuple(
             torch.as_tensor(v, dtype=dtype, device=device)
             for v in (self.b0, self.b1, self.b2, self.a1, self.a2)
         )
 
     def stacked(self, dtype=torch.float32, device=None) -> torch.Tensor:
-        """Shape (5, C): rows are b0, b1, b2, a1, a2."""
+        """Shape (5, C): rows are b0, b1, b2, a1, a2, on ``device``
+        (default: `kernels.build.resolve_device`, which raises where there
+        is no card)."""
         rows = np.stack([self.b0, self.b1, self.b2, self.a1, self.a2])
-        return torch.as_tensor(rows, dtype=dtype, device=device)
+        return torch.as_tensor(rows, dtype=dtype, device=_resolve_device(device))
+
+
+def _resolve_device(device) -> torch.device:
+    from repro_torch.kernels.build import resolve_device  # lazy: kernels import core
+
+    return resolve_device(device)
 
 
 def hz_to_mel(f_hz):

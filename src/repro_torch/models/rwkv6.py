@@ -1,30 +1,137 @@
-"""The RWKV6 (Finch) WKV recurrence, in its two plain forms.
+"""RWKV-6 "Finch" backbone (arXiv:2404.05892): token-shift data-dependent
+mixing, per-channel data-dependent decay linear attention (WKV6), and
+squared-ReLU channel mix.
 
-PyTorch counterpart of `repro.models.rwkv6`'s `wkv6_chunked` and
-`wkv6_sequential`, with the same arguments and results. Only these two
-are ported: the block, the model and its configs come with the LM side.
-The recurrence, per (batch, head), from S = 0:
+PyTorch counterpart of `repro.models.rwkv6`, with the same parameter
+tree, arguments and results. Per head (key / value dims P) the WKV
+recurrence is, from S = 0,
 
     y_t = r_t . (S + u ⊙ k_t v_t^T)
     S  <- diag(exp(logw_t)) S + k_t v_t^T
 
-The chunked form is the training formulation: within a chunk every
+with logw_t = -exp(ww_t) <= 0 data-dependent per channel.
+
+Training uses the chunked form (`wkv6_chunked`): within a chunk every
 decay factor is an exp of a clipped difference of cumulative log-decays
 (the (b, nc, q, q, h, p) ``ratio`` tensor), across chunks the state is
-carried by a scan. The port builds ``ratio`` in place (one tensor of that
-size at a time); the values are the reference's.
+carried by a loop. The port builds ``ratio`` in place (one tensor of
+that size at a time); the values are the reference's. Its gradient
+(`_IntraScores`) recomputes ``ratio`` a few chunks at a time in the
+backward, so a step at rwkv6-7b's width and 4096 tokens does not hold
+the reference's five or six (nc, q, q, H, P) intermediates (8.6 GB each
+in float32). `wkv6_sequential` is the direct recurrence, K7's plain
+version (`kernels.wkv6`); the backbone trains through the chunked form,
+as the reference's does.
+
+The model API (`init_params`, `forward`, `loss_fn`, `init_cache`,
+`prefill`, `decode_step`) takes the reference's arguments; ``mesh_ctx``
+is accepted and ignored (one card). The reference's ``lax.scan`` over
+the stacked layer axis is a loop over it, and its ``jax.checkpoint`` a
+``torch.utils.checkpoint`` a layer (`ArchConfig.remat`).
 """
 
 from __future__ import annotations
 
-import torch
+import functools
+from typing import Any, Dict, Optional
 
-__all__ = ["wkv6_chunked", "wkv6_sequential"]
+import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
+
+from repro_torch.core.quant import _clip as _jnp_clip
+from repro_torch.models.layers import cross_entropy_loss, dense_init, rms_norm
+
+__all__ = [
+    "wkv6_chunked",
+    "wkv6_sequential",
+    "rwkv6_block_init",
+    "rwkv6_block_apply",
+    "rwkv6_block_decode",
+    "init_params",
+    "forward",
+    "loss_fn",
+    "init_cache",
+    "prefill",
+    "decode_step",
+]
+
+Params = Dict[str, Any]
+
+_MIX_NAMES = ("w", "k", "v", "r", "g")
+_LORA_DIM = 32
+_DECAY_LORA = 64
+_CLIP = (-60.0, 0.0)  # the log-decay differences' clip
+# elements of one (b, chunks, q, q, h, p) float32 temporary of the
+# chunked form's backward: 256 MiB, one chunk of rwkv6-7b at B = 1
+_BACKWARD_ELEMS = 1 << 26
+
+
+# --------------------------------------------------------------------------
+# the WKV6 recurrence
+# --------------------------------------------------------------------------
+
+def _tri(q: int, device) -> torch.Tensor:
+    """(q, q) bool: j < t, the intra-chunk pairs."""
+    return torch.tril(torch.ones((q, q), dtype=torch.bool, device=device), -1)
+
+
+def _intra_scores(rs32, ks32, el, il) -> torch.Tensor:
+    """scores[b, c, t, j, h] = sum_p r_t k_j exp(clip(el_t - il_j)) over
+    j < t, with ``ratio`` built in place, one tensor of its size at a
+    time."""
+    q = rs32.shape[2]
+    ratio = el[:, :, :, None] - il[:, :, None]  # (b, nc, t, j, h, p)
+    ratio.clamp_(*_CLIP).exp_()
+    ratio.masked_fill_(~_tri(q, rs32.device)[None, None, :, :, None, None], 0.0)
+    # summed in place of einsum's three-operand product
+    ratio.mul_(rs32[:, :, :, None]).mul_(ks32[:, :, None])
+    return ratio.sum(dim=-1)
+
+
+class _IntraScores(torch.autograd.Function):
+    """`_intra_scores` with the gradient of the reference's
+    ``einsum(r, k, where(tri, exp(clip(el_t - il_j, -60, 0)), 0))``
+    under ``jax.grad``: ``jnp.clip``'s derivative is 1 inside, 0.5 on a
+    bound, 0 outside. The backward keeps only the (b, nc, q, h, p)
+    inputs and rebuilds ``ratio`` a group of chunks at a time."""
+
+    @staticmethod
+    def forward(ctx, rs32, ks32, el, il):
+        ctx.save_for_backward(rs32, ks32, el, il)
+        return _intra_scores(rs32, ks32, el, il)
+
+    @staticmethod
+    def backward(ctx, d_scores):
+        rs32, ks32, el, il = ctx.saved_tensors
+        b, nc, q, h, p = rs32.shape
+        lo, hi = _CLIP
+        tri = _tri(q, rs32.device)[None, None, :, :, None, None]
+        d_r, d_k = torch.empty_like(rs32), torch.empty_like(ks32)
+        d_el, d_il = torch.empty_like(el), torch.empty_like(il)
+        group = max(1, _BACKWARD_ELEMS // (b * q * q * h * p))
+        for c0 in range(0, nc, group):
+            cs = slice(c0, min(nc, c0 + group))
+            r, k, ds = rs32[:, cs], ks32[:, cs], d_scores[:, cs]
+            x = el[:, cs, :, None] - il[:, cs, None]  # (b, g, t, j, h, p)
+            a = torch.clamp(x, lo, hi).exp_().masked_fill_(~tri, 0.0)  # ratio
+            # jnp.clip's derivative, in place of x
+            x = torch.where((x > lo) & (x < hi), 1.0, torch.where((x == lo) | (x == hi), 0.5, 0.0))
+            a.mul_(ds[..., None])  # dscores * ratio
+            d_r[:, cs] = torch.einsum("bctjhp,bcjhp->bcthp", a, k)
+            d_k[:, cs] = torch.einsum("bctjhp,bcthp->bcjhp", a, r)
+            a.mul_(r[:, :, :, None]).mul_(k[:, :, None]).mul_(x)  # d(el_t - il_j)
+            del x
+            d_el[:, cs] = a.sum(dim=3)
+            d_il[:, cs] = -a.sum(dim=2)
+        return d_r, d_k, d_el, d_il
 
 
 def wkv6_chunked(r, k, v, logw, u, chunk):
     """Chunked WKV6. r/k/v (B, L, H, P), logw (B, L, H, P) (<= 0),
-    u (H, P). Returns (y (B, L, H, P), final state (B, H, P, P))."""
+    u (H, P). Returns (y (B, L, H, P), final state (B, H, P, P)).
+    Differentiable in every input (`_IntraScores`); without a graph to
+    record, ``ratio`` is built once, in place."""
     b, l, h, p = r.shape
     q = min(chunk, l)
     pad = (-l) % q
@@ -47,22 +154,14 @@ def wkv6_chunked(r, k, v, logw, u, chunk):
 
     # intra-chunk: y_t gets k_j (j < t) with decay prod_{s=j+1..t-1} w_s
     # = exp(el_t - il_j); plus the bonus u*k_t at j == t.
-    ratio = el[:, :, :, None] - il[:, :, None]  # (b, nc, t, j, h, p)
-    ratio.clamp_(-60.0, 0.0).exp_()
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=r.device), -1)
-    ratio.masked_fill_(~tri[None, None, :, :, None, None], 0.0)
-    # scores[t, j] = sum_p r_t k_j ratio[t, j], summed in place of einsum's
-    # three-operand product
-    ratio.mul_(rs.to(f32)[:, :, :, None]).mul_(ks_.to(f32)[:, :, None])
-    scores = ratio.sum(dim=-1)  # (b, nc, t, j, h)
-    del ratio
+    scores = _IntraScores.apply(rs.to(f32), ks_.to(f32), el, il)  # (b, nc, t, j, h)
     diag_sc = (rs.to(f32) * u.to(f32) * ks_.to(f32)).sum(dim=-1)  # (b, nc, t, h)
     y_intra = torch.einsum("bctjh,bcjhp->bcthp", scores.to(r.dtype), vs) + (
         diag_sc[..., None].to(r.dtype) * vs
     )
 
     # chunk-local end state: sum_j exp(total - il_j) k_j v_j^T
-    decay_to_end = torch.exp(torch.clamp(total[:, :, None] - il, -60.0, 0.0))
+    decay_to_end = torch.exp(_jnp_clip(total[:, :, None] - il, *_CLIP))
     s_local = torch.einsum(
         "bcjhp,bcjhv->bchpv", (ks_.to(f32) * decay_to_end).to(r.dtype), vs
     )  # (b, nc, h, p, v)
@@ -97,3 +196,259 @@ def wkv6_sequential(r, k, v, logw, u):
     if not ys:
         return r.new_zeros((b, 0, h, p))
     return torch.stack(ys, dim=1)
+
+
+# --------------------------------------------------------------------------
+# the block
+# --------------------------------------------------------------------------
+
+def rwkv6_block_init(gen: torch.Generator, cfg) -> Params:
+    """One layer's float32 parameters, drawn from ``gen`` on its device."""
+    d = cfg.d_model
+    dev = gen.device
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    n_mix = len(_MIX_NAMES)
+    return {
+        "ln1": zeros(d),
+        "ln2": zeros(d),
+        # token-shift ddlerp
+        "mix_x": zeros(d),
+        "mix_base": zeros(n_mix, d),
+        "mix_w1": dense_init(gen, (d, n_mix * _LORA_DIM)),
+        "mix_w2": dense_init(gen, (n_mix, _LORA_DIM, d), fan_in=_LORA_DIM),
+        # time-mix projections
+        "w_r": dense_init(gen, (d, d)),
+        "w_k": dense_init(gen, (d, d)),
+        "w_v": dense_init(gen, (d, d)),
+        "w_g": dense_init(gen, (d, d)),
+        "w_o": dense_init(gen, (d, d)),
+        # data-dependent decay: ww = base + tanh(x W1) W2
+        "decay_base": torch.full((d,), -6.0, dtype=torch.float32, device=dev),
+        "decay_w1": dense_init(gen, (d, _DECAY_LORA)),
+        "decay_w2": dense_init(gen, (_DECAY_LORA, d), fan_in=_DECAY_LORA),
+        "bonus_u": zeros(d),  # per-channel "faaaa"
+        "ln_x": zeros(d),  # per-head group norm scale
+        # channel mix
+        "cm_mix_k": zeros(d),
+        "cm_mix_r": zeros(d),
+        "cm_w_k": dense_init(gen, (d, cfg.d_ff)),
+        "cm_w_v": dense_init(gen, (cfg.d_ff, d), fan_in=cfg.d_ff),
+        "cm_w_r": dense_init(gen, (d, d)),
+    }
+
+
+def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shift right by one along time; ``last`` is the streaming carry."""
+    first = torch.zeros_like(x[:, :1]) if last is None else last[:, None, :]
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _ddlerp(p, x, xs):
+    """Data-dependent interpolation: the five mixed inputs
+    [x_w, x_k, x_v, x_r, x_g]."""
+    dt = x.dtype
+    dx = xs - x
+    xxx = x + dx * p["mix_x"].to(dt)
+    lora = torch.tanh(xxx @ p["mix_w1"].to(dt))
+    lora = lora.reshape(*x.shape[:2], len(_MIX_NAMES), _LORA_DIM)
+    deltas = torch.einsum("blmr,mrd->blmd", lora, p["mix_w2"].to(dt))
+    return [x + dx * (p["mix_base"][i].to(dt) + deltas[:, :, i])
+            for i in range(len(_MIX_NAMES))]
+
+
+def _time_mix_pre(p, x, cfg, shift_state=None):
+    hd = cfg.resolved_head_dim
+    n_heads = cfg.d_model // hd
+    dt = x.dtype
+    heads = lambda t: t.reshape(*x.shape[:2], n_heads, hd)  # noqa: E731
+    xs = _token_shift(x, shift_state)
+    x_w, x_k, x_v, x_r, x_g = _ddlerp(p, x, xs)
+    r = heads(x_r @ p["w_r"].to(dt))
+    k = heads(x_k @ p["w_k"].to(dt))
+    v = heads(x_v @ p["w_v"].to(dt))
+    g = F.silu(x_g @ p["w_g"].to(dt))
+    ww = p["decay_base"].to(torch.float32) + (
+        torch.tanh(x_w @ p["decay_w1"].to(dt)) @ p["decay_w2"].to(dt)
+    ).to(torch.float32)
+    logw = heads(-torch.exp(ww))  # <= 0, per channel
+    u = p["bonus_u"].reshape(n_heads, hd)
+    return r, k, v, g, logw, u, x[:, -1, :]
+
+
+def _time_mix_post(p, y, g, cfg):
+    b, l = y.shape[:2]
+    # per-head group norm, jnp.var's two passes
+    y32 = y.to(torch.float32)
+    mean = y32.mean(-1, keepdim=True)
+    var = torch.square(y32 - mean).mean(-1, keepdim=True)
+    yn = (y32 - mean) * torch.rsqrt(var + 64e-5)
+    yn = yn.reshape(b, l, cfg.d_model) * (1.0 + p["ln_x"].to(torch.float32))
+    return (yn.to(g.dtype) * g) @ p["w_o"].to(g.dtype)
+
+
+def _channel_mix(p, x, shift_state=None):
+    dt = x.dtype
+    xs = _token_shift(x, shift_state)
+    dx = xs - x
+    x_k = x + dx * p["cm_mix_k"].to(dt)
+    x_r = x + dx * p["cm_mix_r"].to(dt)
+    k = torch.square(F.relu(x_k @ p["cm_w_k"].to(dt)))
+    vv = k @ p["cm_w_v"].to(dt)
+    return torch.sigmoid(x_r @ p["cm_w_r"].to(dt)) * vv, x[:, -1, :]
+
+
+def rwkv6_block_apply(p, x, cfg):
+    """Full-sequence block. Returns (x, (tm_shift, wkv_state, cm_shift)),
+    the states a stream continues from."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    r, k, v, g, logw, u, tm_shift = _time_mix_pre(p, h, cfg)
+    y, s_final = wkv6_chunked(r, k, v, logw, u, cfg.ssm.chunk)
+    x = x + _time_mix_post(p, y, g, cfg)
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    cm_out, cm_shift = _channel_mix(p, h2)
+    return x + cm_out, (tm_shift, s_final, cm_shift)
+
+
+def rwkv6_block_decode(p, x, cfg, state):
+    """One-token decode. state = (tm_shift (B, d), wkv (B, H, P, P),
+    cm_shift (B, d))."""
+    tm_shift, s, cm_shift = state
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    r, k, v, g, logw, u, tm_new = _time_mix_pre(p, h, cfg, tm_shift)
+    r1, k1, v1, lw1 = (t[:, 0] for t in (r, k, v, logw))
+    kv = torch.einsum("bhp,bhv->bhpv", k1, v1)
+    y = torch.einsum("bhp,bhpv->bhv", r1, s + u[None, :, :, None].to(x.dtype) * kv)[:, None]
+    s_new = s * torch.exp(lw1)[..., None].to(s.dtype) + kv
+    x = x + _time_mix_post(p, y, g, cfg)
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    cm_out, cm_new = _channel_mix(p, h2, cm_shift)
+    return x + cm_out, (tm_new, s_new, cm_new)
+
+
+# --------------------------------------------------------------------------
+# backbone API
+# --------------------------------------------------------------------------
+
+def _layer(params: Params, i: int) -> Params:
+    return {name: leaf[i] for name, leaf in params["layers"].items()}
+
+
+def init_params(gen: torch.Generator, cfg, mesh_ctx=None, device=None) -> Params:
+    """Random parameters drawn from ``gen`` (on its device), cast to the
+    activation dtype as the reference casts them, on ``device`` (default:
+    the card through `kernels.build.resolve_device`). ``layers`` stacks
+    each leaf along a leading (n_layers,) axis."""
+    from repro_torch.kernels.build import resolve_device  # lazy: kernels import models
+
+    device = resolve_device(device)
+    dt = cfg.activation_dtype
+    cast = lambda t: t.to(device=device, dtype=dt)  # noqa: E731
+    d, v = cfg.d_model, cfg.vocab_padded
+    embed = cast(dense_init(gen, (v, d), fan_in=d))
+    layers = [{k: cast(t) for k, t in rwkv6_block_init(gen, cfg).items()}
+              for _ in range(cfg.n_layers)]
+    stacked = {k: torch.stack([layer[k] for layer in layers]) for k in layers[0]}
+    return {
+        "embed": embed,
+        "head": cast(dense_init(gen, (d, v))),
+        "final_norm": torch.zeros((d,), dtype=dt, device=device),
+        "layers": stacked,
+    }
+
+
+def _remat(fn, cfg):
+    """``fn`` under ``torch.utils.checkpoint`` as ``cfg.remat`` asks:
+    "full" recomputes the layer in the backward, "dots" saves the
+    matrix products without batch dims (`aten.mm`, as the reference's
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
+    "none" keeps everything."""
+    if cfg.remat == "none":
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                             _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: none | dots | full")
+    return lambda *args: _ckpt.checkpoint(fn, *args, **kw)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.mm.default:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _embed(params, batch, cfg) -> torch.Tensor:
+    tokens = batch["tokens"].to(device=params["embed"].device, dtype=torch.int64)
+    return params["embed"].to(cfg.activation_dtype)[tokens]
+
+
+def forward(params, batch, cfg, mesh_ctx=None):
+    """Logits (B, S, V_padded) of ``batch["tokens"]`` (B, S), and the
+    reference's zero auxiliary loss."""
+    x = _embed(params, batch, cfg)
+    body = _remat(lambda p, x: rwkv6_block_apply(p, x, cfg)[0], cfg)
+    for i in range(cfg.n_layers):
+        x = body(_layer(params, i), x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ params["head"].to(x.dtype)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, batch, cfg, mesh_ctx=None):
+    logits, _ = forward(params, batch, cfg, mesh_ctx)
+    labels = batch["labels"].to(logits.device)
+    return cross_entropy_loss(logits, labels, cfg.final_softcap)
+
+
+def init_cache(cfg, batch: int, max_len: int, mesh_ctx=None, device=None):
+    """Zero streaming state of every layer: token-shift carries and WKV
+    states, in the activation dtype (``max_len`` is unused: the state is
+    constant in size)."""
+    from repro_torch.kernels.build import resolve_device  # lazy: kernels import models
+
+    device = resolve_device(device)
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    z = lambda *shape: torch.zeros(shape, dtype=cfg.activation_dtype, device=device)  # noqa: E731
+    n = cfg.n_layers
+    return {
+        "tm_shift": z(n, batch, d),
+        "wkv": z(n, batch, d // hd, hd, hd),
+        "cm_shift": z(n, batch, d),
+    }
+
+
+def _cache(states) -> Dict[str, torch.Tensor]:
+    tm, s, cm = zip(*states)
+    return {"tm_shift": torch.stack(tm), "wkv": torch.stack(s), "cm_shift": torch.stack(cm)}
+
+
+def _head_last(params, x, cfg) -> torch.Tensor:
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (h @ params["head"].to(h.dtype))[:, 0, :]
+
+
+def prefill(params, batch, cfg, mesh_ctx=None, max_len=None):
+    """The whole prompt in one pass: (logits at its last position (B, V),
+    the cache a `decode_step` continues from)."""
+    x = _embed(params, batch, cfg)
+    states = []
+    for i in range(cfg.n_layers):
+        x, st = rwkv6_block_apply(_layer(params, i), x, cfg)
+        states.append(st)
+    return _head_last(params, x[:, -1:, :], cfg), _cache(states)
+
+
+def decode_step(params, cache, cache_len, batch, cfg, mesh_ctx=None):
+    """One token a sequence (``batch["tokens"]`` (B, 1)) from ``cache``:
+    (logits (B, V), the new cache). ``cache_len`` is unused, as in the
+    reference (the state is constant in size)."""
+    x = _embed(params, batch, cfg)
+    states = []
+    for i in range(cfg.n_layers):
+        c = (cache["tm_shift"][i], cache["wkv"][i], cache["cm_shift"][i])
+        x, st = rwkv6_block_decode(_layer(params, i), x, cfg, c)
+        states.append(st)
+    return _head_last(params, x, cfg), _cache(states)

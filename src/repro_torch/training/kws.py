@@ -12,6 +12,7 @@ card), with periodic checkpoints, resume and straggler monitoring
 
     python -m repro_torch.training.kws [--steps 300] [--batch 64]
         [--n-per-class 24] [--ckpt-dir kws_ckpt] [--resume] [--device cpu]
+        [--dp N [--compress-grads] [--devices cuda:0 cuda:0 ...]]
 
 The forward and backward are PyTorch operations on the card, as the
 reference's are ``jnp`` operations under ``jax.grad``; the trained model
@@ -22,7 +23,18 @@ A checkpoint holds ``(params, opt)`` in the reference's tree and format,
 so either package resumes from the other's. Each step draws its batch
 from ``(seed, step)``, and the scheduler's state is kept beside the
 checkpoint (``schedule.json``), so a resumed run takes the steps an
-unbroken one takes. Data-parallel training is not ported.
+unbroken one takes.
+
+Data-parallel training (``dp=N``, the reference example's ``--dp N
+--compress-grads``): each of N shards holds a parameter replica and its
+AdamW state on its device (`stream_devices`: entries may name the same
+card), takes its ``batch / N`` rows of the step's batch in order and
+computes its loss and gradients there; the losses are averaged, the
+gradients synced (`distributed.collectives`: the plain mean, or the
+int8 all-reduce with error feedback), and the same update is applied to
+every replica. The error-feedback residual starts at zero and is not
+checkpointed, as in the reference, so a resumed compressed run restarts
+its residual.
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ import argparse
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,15 +54,23 @@ from repro_torch.core.fex import fit_norm_stats
 from repro_torch.core.gru import GRUConfig, gru_classifier_forward, init_gru_classifier
 from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
 from repro_torch.data.gscd import CLASSES, make_dataset
+from repro_torch.distributed.collectives import (
+    compressed_psum_with_error_feedback,
+    init_residual,
+    pmean,
+)
 from repro_torch.distributed.fault_tolerance import (
     CheckpointManager,
     CheckpointPolicy,
     StragglerMonitor,
 )
+from repro_torch.distributed.sharding import stream_devices
 from repro_torch.kernels.build import resolve_device
+from repro_torch.training import train_loop
 from repro_torch.training.optimizer import (
     AdamWConfig,
     ReduceLROnPlateau,
+    _leaves,
     adamw_update,
     init_opt_state,
     tree_map,
@@ -60,6 +80,9 @@ __all__ = [
     "loss_fn",
     "value_and_grad",
     "train_step",
+    "dp_devices",
+    "dp_value_and_grad",
+    "dp_train_step",
     "train_classifier",
     "evaluate",
     "corpus_features",
@@ -96,10 +119,7 @@ def loss_fn(params: Tree, fv: torch.Tensor, labels: torch.Tensor,
 def value_and_grad(params: Tree, fv: torch.Tensor, labels: torch.Tensor,
                    config: GRUConfig = GRUConfig()) -> Tuple[torch.Tensor, Tree]:
     """(loss, gradients shaped like ``params``) by autograd."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss = loss_fn(leaves, fv, labels, config)
-    loss.backward()
-    return loss.detach(), tree_map(lambda p: p.grad, leaves)
+    return train_loop.value_and_grad(loss_fn, params, fv, labels, config)
 
 
 def train_step(params: Tree, opt: Tree, fv: torch.Tensor, labels: torch.Tensor,
@@ -108,6 +128,61 @@ def train_step(params: Tree, opt: Tree, fv: torch.Tensor, labels: torch.Tensor,
     loss, grads = value_and_grad(params, fv, labels, config)
     params, opt, _ = adamw_update(params, grads, opt, ocfg, lr)
     return params, opt, loss
+
+
+def dp_devices(dp: int, devices=None, device=None) -> List[torch.device]:
+    """The shard devices of a ``dp``-way data-parallel run: ``devices``
+    (an int: the first that many cards, raising above the visible count;
+    or a list, whose entries may repeat) through `stream_devices`, or
+    without it ``dp`` shards on the first ``dp`` cards, or all on the CPU
+    where ``device`` is the CPU."""
+    if devices is None:
+        device = resolve_device(device)
+        devices = [device] * dp if device.type == "cpu" else dp
+    devs = stream_devices(devices)
+    if len(devs) != dp:
+        raise ValueError(f"dp={dp} but {len(devs)} shard device(s): {[str(d) for d in devs]}")
+    return devs
+
+
+def dp_value_and_grad(replicas: Sequence[Tree], fv: torch.Tensor, labels: torch.Tensor,
+                      config: GRUConfig = GRUConfig(),
+                      residual: Optional[Sequence[Tree]] = None):
+    """One data-parallel forward and backward over ``len(replicas)``
+    shards: shard i takes rows ``[i * B / N, (i + 1) * B / N)`` of the
+    batch to its replica's device and computes `value_and_grad` there;
+    then the losses' mean and the gradients' sync: with ``residual`` (one
+    tree a shard) `compressed_psum_with_error_feedback`, else `pmean`.
+    Returns (loss, the synced gradients one tree a shard, the new
+    residuals or None)."""
+    n = len(replicas)
+    if fv.shape[0] % n:
+        raise ValueError(f"a batch of {fv.shape[0]} rows does not split over {n} shards")
+    per = fv.shape[0] // n
+    losses, grads = [], []
+    for i, params in enumerate(replicas):
+        dev = _leaves(params)[0].device
+        rows = slice(i * per, (i + 1) * per)
+        loss, g = value_and_grad(params, fv[rows].to(dev), labels[rows].to(dev), config)
+        losses.append(loss)
+        grads.append(g)
+    loss = pmean(losses)[0]
+    if residual is not None:
+        grads, residual = compressed_psum_with_error_feedback(grads, residual)
+    else:
+        grads = pmean(grads)
+    return loss, grads, residual
+
+
+def dp_train_step(replicas: Sequence[Tree], opts: Sequence[Tree], fv: torch.Tensor,
+                  labels: torch.Tensor, lr, residual: Optional[Sequence[Tree]] = None,
+                  config: GRUConfig = GRUConfig(), ocfg: AdamWConfig = OPT):
+    """`dp_value_and_grad` (compressed with ``residual``), then
+    `adamw_update` with the synced gradients on every replica alike ->
+    (replicas, opts, loss, residual)."""
+    loss, grads, residual = dp_value_and_grad(replicas, fv, labels, config, residual)
+    out = [adamw_update(p, g, o, ocfg, lr) for p, g, o in zip(replicas, grads, opts)]
+    return [o[0] for o in out], [o[1] for o in out], loss, residual
 
 
 def train_classifier(
@@ -235,21 +310,37 @@ def fit(
     monitor: Optional[StragglerMonitor] = None,
     seed: int = 0,
     log: Callable = print,
+    dp: int = 0,
+    compress_grads: bool = False,
+    devices=None,
 ) -> Dict:
-    """Steps ``start_step`` .. ``steps`` on the features' device: a batch
-    a step, a scheduler step and a log line every `WINDOW` steps, a
-    checkpoint (and the scheduler's state) where ``ckpt``'s policy says.
-    Returns {"params", "opt", "sched", "losses", "step_s", "seconds"}."""
+    """Steps ``start_step`` .. ``steps``: a batch a step, a scheduler
+    step and a log line every `WINDOW` steps, a checkpoint (and the
+    scheduler's state) where ``ckpt``'s policy says. Each step is a
+    `dp_train_step` over the shards of `dp_devices` with ``dp`` > 0
+    (``compress_grads``: the int8 all-reduce, its residual from zero),
+    else over one shard on the features' device, where the sync is exact
+    and the step is `train_step`'s. The checkpoint and the result hold
+    shard 0's replica. Returns {"params", "opt", "sched", "losses",
+    "step_s", "seconds", "stragglers", "residual" (None without
+    compression)}."""
     sched = sched if sched is not None else ReduceLROnPlateau(*SCHEDULE)
     monitor = monitor if monitor is not None else StragglerMonitor()
     gcfg = GRUConfig()
+    if not dp and (compress_grads or devices is not None):
+        raise ValueError("compress_grads and devices need dp > 0")
+    devs = dp_devices(dp, devices, feats.device) if dp else [feats.device]
+    params = [tree_map(lambda t, d=d: t.to(d), params) for d in devs]
+    opt = [tree_map(lambda t, d=d: t.to(d), opt) for d in devs]
+    residual = [init_residual(p) for p in params] if compress_grads else None
     losses, step_s = [], []
     t0 = time.perf_counter()
     for it in range(start_step, steps):
         sl = torch.as_tensor(_batch(seed, it, len(labels), batch), device=feats.device)
         with monitor.timed(it):
             s0 = time.perf_counter()
-            params, opt, loss = train_step(params, opt, feats[sl], labels[sl], sched.lr, gcfg)
+            params, opt, loss, residual = dp_train_step(
+                params, opt, feats[sl], labels[sl], sched.lr, residual, gcfg)
             losses.append(float(loss))  # waits for the step
             step_s.append(time.perf_counter() - s0)
         if (it + 1) % WINDOW == 0:
@@ -257,14 +348,14 @@ def fit(
             sched.step(mean)
             log(f"  step {it + 1:4d} loss {mean:.4f} lr {sched.lr:.2e}")
         if ckpt is not None:
-            ckpt.maybe_save(it + 1, (params, opt))
+            ckpt.maybe_save(it + 1, (params[0], opt[0]))
             if (it + 1) % ckpt.policy.every_steps == 0:
                 _save_schedule(ckpt.policy.directory, it + 1, sched)
     if ckpt is not None:
         ckpt.wait()
-    return {"params": params, "opt": opt, "sched": sched, "losses": losses,
+    return {"params": params[0], "opt": opt[0], "sched": sched, "losses": losses,
             "step_s": step_s, "seconds": time.perf_counter() - t0,
-            "stragglers": len(monitor.events)}
+            "stragglers": len(monitor.events), "residual": residual}
 
 
 def train(
@@ -277,8 +368,12 @@ def train(
     seed: int = 0,
     ckpt_every: int = 100,
     log: Callable = print,
+    dp: int = 0,
+    compress_grads: bool = False,
+    devices=None,
 ) -> Dict:
-    """The whole flow of `main`: corpus, features, training, test
+    """The whole flow of `main`: corpus, features, training (``dp``,
+    ``compress_grads``, ``devices``: data-parallel, as `fit`), test
     accuracy of the QAT model and of its integer replay. Returns `fit`'s
     dict with "start_step", "features" (train, test), "labels",
     "accuracy" / "confusion" and "int_accuracy" / "int_confusion"."""
@@ -304,8 +399,13 @@ def train(
             log(f"resumed from step {start}")
         except FileNotFoundError:
             log("no checkpoint found; starting fresh")
+    if dp:
+        log(f"== {dp}-way data parallel"
+            f"{' + int8 compressed grads' if compress_grads else ''} on "
+            f"{[str(d) for d in dp_devices(dp, devices, device)]} ==")
     log(f"== training steps {start}..{steps} on {device} ==")
-    out = fit(params, opt, ftr, ytr, steps, batch, start, sched, ckpt, seed=seed, log=log)
+    out = fit(params, opt, ftr, ytr, steps, batch, start, sched, ckpt, seed=seed, log=log,
+              dp=dp, compress_grads=compress_grads, devices=devices)
     log(f"trained in {out['seconds']:.1f}s; stragglers flagged: {out['stragglers']}")
 
     model = {"params": out["params"], "config": gcfg}
@@ -329,9 +429,16 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the plain versions)")
+    ap.add_argument("--dp", type=int, default=0, help="data-parallel shards")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradient all-reduce with error feedback (with --dp)")
+    ap.add_argument("--devices", nargs="+", default=None,
+                    help="the shards' devices (with --dp; entries may repeat; default: the "
+                         "first --dp cards, or all on the CPU with --device cpu)")
     args = ap.parse_args(argv)
     out = train(args.steps, args.batch, args.n_per_class, args.ckpt_dir, args.resume,
-                args.device)
+                args.device, dp=args.dp, compress_grads=args.compress_grads,
+                devices=args.devices)
     return 0 if np.array_equal(out["confusion"], out["int_confusion"]) else 1
 
 

@@ -1,0 +1,140 @@
+"""The LM train step on one device: forward, backward and AdamW.
+
+Counterpart of `repro.training.train_loop`'s `TrainConfig` and
+`build_train_step` (and of `examples/lm_smoke.py`): gradient
+accumulation over microbatches (float32 sums from zeros, then ``/ mb``;
+the loss the mean of the microbatches' losses), a schedule-driven
+learning rate, `adamw_update` with its global-norm clip, and the
+metrics ``loss`` and ``grad_norm``. The reference's mesh and sharding
+rules are not ported: the step runs on one device. Its abstract lowering
+(`lower_train_step`, the dry run's entry) waits for ``launch/*``.
+
+    python -m repro_torch.training.train_loop [--arch rwkv6-7b] [--steps 30]
+        [--device cpu]
+
+trains the arch's reduced config on random weights from a seed, with
+the reference's batch recipe: tokens (steps, 8, 33) drawn from
+``numpy.random.default_rng(0)``, inputs ``[:, :-1]``, labels ``[:, 1:]``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.build import resolve_device
+from repro_torch.models.registry import get_backbone
+from repro_torch.training.optimizer import AdamWConfig, adamw_update, init_opt_state, tree_map
+
+__all__ = ["TrainConfig", "build_train_step", "value_and_grad", "lm_batches", "main"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+    microbatch: int = 1  # gradient-accumulation steps per update
+    lr_schedule: Optional[Callable] = None  # step -> lr
+
+
+def value_and_grad(loss: Callable, params, *args):
+    """(loss, gradients shaped like ``params``, in their dtypes) of
+    ``loss(params, *args)`` by autograd."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    value = loss(leaves, *args)
+    value.backward()
+    return value.detach(), tree_map(lambda p: p.grad, leaves)
+
+
+def build_train_step(arch_cfg, train_cfg: TrainConfig = TrainConfig(), device=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` on ``device`` (default: the card through `resolve_device`),
+    where the batch's tensors are moved. TF32 stays off on the card."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    backbone = get_backbone(arch_cfg)
+
+    def loss(params, batch):
+        return backbone.loss_fn(params, batch, arch_cfg)
+
+    def train_step(params, opt_state, batch):
+        batch = {k: v.to(device) for k, v in batch.items()}
+        mb = train_cfg.microbatch
+        if mb > 1:
+            g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            losses = []
+            for i in range(mb):
+                part = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+                        for k, v in batch.items()}
+                l, g = value_and_grad(loss, params, part)
+                g_sum = tree_map(torch.add, g_sum, g)
+                losses.append(l)
+            grads = tree_map(lambda g: g / mb, g_sum)
+            l = torch.stack(losses).mean()
+        else:
+            l, grads = value_and_grad(loss, params, batch)
+        lr = None
+        if train_cfg.lr_schedule is not None:
+            lr = train_cfg.lr_schedule(opt_state["step"])
+        params, opt_state, metrics = adamw_update(params, grads, opt_state,
+                                                  train_cfg.optimizer, lr)
+        metrics["loss"] = l
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def lm_batches(vocab: int, steps: int, batch: int = 8, seq: int = 32, seed: int = 0):
+    """The reference smoke's batches: tokens (steps, batch, seq + 1) from
+    ``default_rng(seed)`` below ``vocab``; step ``i`` -> {"tokens":
+    [:, :-1], "labels": [:, 1:]} as int32 tensors on the host."""
+    data = np.random.default_rng(seed).integers(0, vocab, (steps, batch, seq + 1))
+    for it in range(steps):
+        yield {"tokens": torch.from_numpy(data[it, :, :-1].astype(np.int32)),
+               "labels": torch.from_numpy(data[it, :, 1:].astype(np.int32))}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Train a reduced LM on random weights.")
+    ap.add_argument("--arch", default="rwkv6-7b")
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' runs there)")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch).reduced()
+    try:
+        backbone = get_backbone(cfg)
+    except NotImplementedError as e:
+        print(f"train_loop: {e}", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    print(f"== {args.arch} (reduced: {cfg.n_layers}L d={cfg.d_model}) on {device} ==")
+    gen = torch.Generator(device="cpu").manual_seed(args.seed)
+    params = backbone.init_params(gen, cfg, device=device)
+    opt = init_opt_state(params, AdamWConfig())
+    step = build_train_step(cfg, TrainConfig(optimizer=AdamWConfig(lr=3e-3)), device)
+    losses = []
+    for it, batch in enumerate(lm_batches(cfg.vocab, args.steps)):
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        if it % 5 == 0:
+            print(f"  step {it:3d} loss {losses[-1]:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.2f}")
+    if not np.isfinite(losses).all():
+        print("train_loop: a loss is not finite", file=sys.stderr)
+        return 1
+    print(f"smoke train OK: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -173,7 +173,7 @@ def test_init_frontend_state_draws_and_calibrates_a_die():
     assert abs(float(state.alpha.mean()) - 1.0) < 1e-5
     ideal = pipe.init_frontend_state(mismatch=False, device="cpu")
     assert ideal.chip is None
-    np.testing.assert_array_equal(ideal.coeffs.numpy(), FExConfig().filterbank().stacked().numpy())
+    np.testing.assert_array_equal(ideal.coeffs.numpy(), FExConfig().filterbank().stacked(device="cpu").numpy())
     raw = pipe.init_frontend_state(calibrate=False, device="cpu")
     assert torch.equal(raw.beta, torch.full((16,), TDFExConfig().beta_nominal))
     assert torch.equal(raw.alpha, torch.ones(16))

@@ -58,3 +58,14 @@ def test_scan_pattern_catches_what_it_should():
     assert FORBIDDEN.search("    from repro import kernels")
     assert not FORBIDDEN.search("from repro_torch.core import quant")
     assert not FORBIDDEN.search("import repro_torch")
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.rwkv6_7b",
+    "repro_torch.configs.qwen3_4b", "repro_torch.models.layers", "repro_torch.models.registry",
+    "repro_torch.training.train_loop", "repro_torch.distributed.collectives",
+])
+def test_the_dp_and_lm_modules_are_held_to_it(module):
+    """The data-parallel collective and the LM side are among the modules
+    the two tests above import and scan."""
+    assert module in set(_port_modules())

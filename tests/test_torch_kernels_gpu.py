@@ -1366,3 +1366,85 @@ def test_train_step_on_the_card_equals_the_cpu_step(dev, state_dtype):
             assert float((a.cpu() - b).abs().max()) <= TRAIN_GRAD_TOL * float(b.abs().max()), name
         else:
             assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["compressed", "plain"])
+def test_dp_step_on_the_card_equals_the_cpu_step(dev, compress):
+    """Two shards on one card (``devices=["cuda:0"] * 2``) against the
+    same two shards on the CPU: the loss within 1e-6, the synced gradients
+    and residuals within TRAIN_GRAD_TOL of the synced max |g| (compressed: a whole
+    code may differ where a value lies within it of a rounding tie, at
+    most 0.1 % of the elements), every replica alike after the step."""
+    from repro_torch.core.gru import GRUConfig, init_gru_classifier
+    from repro_torch.distributed.collectives import elements_apart, init_residual
+    from repro_torch.training import kws
+    from repro_torch.training.checkpoint import _flatten_with_names
+    from repro_torch.training.optimizer import init_opt_state, tree_map
+
+    params = init_gru_classifier(GRUConfig(), torch.Generator().manual_seed(16), "cpu")
+    rng = np.random.default_rng(17)
+    fv = torch.from_numpy((np.round(rng.standard_normal((32, 62, 16)) * 256) / 256).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 12, 32).astype(np.int32))
+
+    def step(devices):
+        reps = [tree_map(lambda t, d=d: t.to(d), params) for d in devices]
+        resid = [init_residual(r) for r in reps] if compress else None
+        opts = [init_opt_state(r, kws.OPT) for r in reps]
+        grads = kws.dp_value_and_grad(reps, fv, y, residual=resid)
+        new_p, _, _, _ = kws.dp_train_step(reps, opts, fv, y, 1e-3, resid)
+        return grads, new_p
+
+    (loss, synced, resid), new_p = step([dev, dev])
+    (cpu_loss, cpu_synced, cpu_resid), _ = step(["cpu", "cpu"])
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-6
+    off = total = 0
+    trees = [(synced[0], cpu_synced[0])] + (list(zip(resid, cpu_resid)) if compress else [])
+    for got, want in trees:  # residuals too held to the synced gradients' max |g|
+        assert all(a.is_cuda for _, a in _flatten_with_names(got))
+        o, t = elements_apart(got, want, cpu_synced[0], TRAIN_GRAD_TOL)
+        off, total = off + o, total + t
+    assert off <= (1e-3 * total if compress else 0)
+    for (name, a), (_, b) in zip(_flatten_with_names(new_p[0]), _flatten_with_names(new_p[1])):
+        assert torch.equal(a, b), name
+
+
+def test_lm_train_step_and_decode_on_the_card_equal_the_cpus(dev):
+    """The reduced rwkv6 in float32, every leaf away from zero: one train
+    step (two microbatches, a cosine schedule) on the card against the
+    CPU's (the loss within 1e-5, grad_norm within 1e-4 of it, the params
+    within a hundredth of the learning rate), then prefill and a decode
+    step (logits within 1e-4 of max |logit|); no kernel of the port
+    launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv6
+    from repro_torch.training.checkpoint import _flatten_with_names
+    from repro_torch.training.optimizer import AdamWConfig, cosine_schedule, init_opt_state, tree_map
+    from repro_torch.training.train_loop import TrainConfig, build_train_step, lm_batches
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b").reduced(), dtype="float32")
+    params = rwkv6.init_params(torch.Generator().manual_seed(5), cfg, device="cpu")
+    gen = torch.Generator().manual_seed(6)  # the leaves drawn as zero take part
+    for name in ("bonus_u", "mix_x", "mix_base", "cm_mix_k", "cm_mix_r", "ln1", "ln2", "ln_x"):
+        params["layers"][name] = torch.randn(params["layers"][name].shape, generator=gen) * 0.1
+    lr = 3e-3
+    tcfg = TrainConfig(AdamWConfig(lr=lr), microbatch=2, lr_schedule=cosine_schedule(lr, 1, 10))
+    batch = next(lm_batches(cfg.vocab, 1, batch=4, seq=64))
+    out = {}
+    build.launches.clear()
+    for d in (dev, torch.device("cpu")):
+        p = tree_map(lambda t, d=d: t.to(d), params)
+        p, _, m = build_train_step(cfg, tcfg, d)(p, init_opt_state(p, AdamWConfig(lr=lr)), batch)
+        toks = batch["tokens"].to(d)
+        with torch.no_grad():
+            _, cache = rwkv6.prefill(p, {"tokens": toks[:, :48]}, cfg)
+            logits, _ = rwkv6.decode_step(p, cache, 48, {"tokens": toks[:, 48:49]}, cfg)
+        out[d.type] = (p, m, logits)
+    assert not build.launches
+    (p, m, logits), (cp, cm, clogits) = out["cuda"], out["cpu"]
+    assert abs(float(m["loss"]) - float(cm["loss"])) <= 1e-5
+    assert abs(float(m["grad_norm"]) / float(cm["grad_norm"]) - 1) <= 1e-4
+    for (name, a), (_, b) in zip(_flatten_with_names(p), _flatten_with_names(cp)):
+        assert a.is_cuda and float((a.cpu() - b).abs().max()) <= 1e-2 * lr, name
+    assert float((logits.cpu() - clogits).abs().max()) <= 1e-4 * float(clogits.abs().max())

@@ -155,11 +155,11 @@ def test_biquad_as_arrays_and_frequency_response(dtype):
     # own numpy arrays
     want_rows = (jc.as_arrays() if dtype == torch.float32
                  else (jc.b0, jc.b1, jc.b2, jc.a1, jc.a2))
-    for got, want in zip(tc.as_arrays(dtype), want_rows, strict=True):
+    for got, want in zip(tc.as_arrays(dtype, device="cpu"), want_rows, strict=True):
         assert got.dtype == dtype and got.device.type == "cpu"
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    stacked = tc.stacked(dtype)
-    for k, row in enumerate(tc.as_arrays(dtype)):
+    stacked = tc.stacked(dtype, device="cpu")
+    for k, row in enumerate(tc.as_arrays(dtype, device="cpu")):
         assert torch.equal(stacked[k], row)
     freqs = np.linspace(10.0, 15990.0, 97)
     np.testing.assert_array_equal(
@@ -169,3 +169,23 @@ def test_biquad_as_arrays_and_frequency_response(dtype):
         tf.biquad_frequency_response(single, freqs),
         jf.biquad_frequency_response(jf.design_bandpass_biquad([1000.0, 3000.0], 16000.0, 1.5),
                                      freqs))
+
+
+@pytest.mark.parametrize("method", ["as_arrays", "stacked"])
+def test_biquad_tensors_default_to_the_card(method, monkeypatch):
+    """F9: ``device=None`` resolves through `kernels.build.resolve_device`
+    (the card), as every entry point of the port does, and raises where
+    there is no card."""
+    from repro_torch.kernels import build
+
+    coeffs = tf.design_filterbank()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(coeffs, method)()
+    asked = []
+    monkeypatch.setattr(build, "resolve_device",
+                        lambda d=None: asked.append(d) or torch.device("meta"))
+    out = getattr(coeffs, method)()
+    for t in (out if method == "as_arrays" else (out,)):
+        assert t.device.type == "meta"
+    assert asked == [None]

@@ -83,9 +83,9 @@ def test_vtc_matches(hd3_db):
 def test_mismatched_filterbank_design_matches(seed):
     jchip, tchip = _chip_pair(seed)
     j = np.asarray(jtd.design_mismatched_filterbank(JCFG, jchip).stacked(dtype=jnp.float32))
-    t = ttd.design_mismatched_filterbank(TCFG, tchip).stacked().numpy()
+    t = ttd.design_mismatched_filterbank(TCFG, tchip).stacked(device="cpu").numpy()
     np.testing.assert_array_equal(t, j)
-    nominal = ttd.design_mismatched_filterbank(TCFG, None).stacked().numpy()
+    nominal = ttd.design_mismatched_filterbank(TCFG, None).stacked(device="cpu").numpy()
     np.testing.assert_array_equal(nominal, np.asarray(JCFG.fex.filterbank().stacked(dtype=jnp.float32)))
 
 
@@ -222,7 +222,7 @@ def test_plain_fex_fused_matches_reference(batch, t, channels, frame):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     interp = jax.jit(lambda a, c: fex_fused_pallas(
         a, c, frame_len=frame, block_batch=batch, interpret=True))(
-        jnp.asarray(x), jnp.asarray(coeffs.stacked().numpy()))
+        jnp.asarray(x), jnp.asarray(coeffs.stacked(device="cpu").numpy()))
     np.testing.assert_allclose(got.numpy(), np.asarray(interp), rtol=2e-5, atol=1e-6)
 
 
@@ -246,7 +246,7 @@ def test_plain_fex_fused_state_carries_across_frames():
 
 
 def test_plain_scan_entry_carries_state_like_one_pass():
-    coeffs = design_filterbank(16, 32000.0).stacked()
+    coeffs = design_filterbank(16, 32000.0).stacked(device="cpu")
     x = torch.from_numpy((np.random.default_rng(4).standard_normal((3, 300)) * 0.3)
                          .astype(np.float32))
     y_all, st_all = biquad_stream(x, coeffs)
