@@ -117,7 +117,15 @@ plain PyTorch version on the card:
      at 1 x 4096 tokens (s a step, tokens a second, peak memory, the
      loss), a prefill of 4096 tokens and 16 decode steps whose logits
      equal the full forward's within a bfloat16 tolerance;
- 18. the result line ``{"ok": true, "device": {...}}``.
+ 18. the transformer backbone (attention, the dense MLPs, the one-card MoE
+     route) through the same train step: qwen3-4b and granite-moe-3b at
+     full width cut in depth to what fits the card, gemma2-27b at full
+     width with one local / global step; 6 steps each at 1 x 4096 tokens
+     (s a step, tokens a second, peak memory, busy share and top kernels
+     of a profiled step), a prefill and 16 decode steps whose logits equal
+     a full forward's within a bfloat16 tolerance (gemma2's 4100-token
+     prompt wraps its local rings);
+ 19. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
@@ -128,6 +136,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2603,7 +2612,189 @@ def phase_lm(dev):
     return counts, times
 
 
+TF_SEQ = 4096  # the train_4k length, batch 1
+TF_STEPS = 6
+TF_DECODE = 16
+# (arch, layers, prompt): each at its published widths. qwen3-4b's 36 layers
+# (4.02 B parameters) need 22 bytes a parameter while AdamW writes the new
+# state beside the old (bf16 params and grads, float32 moments, twice):
+# 88.5 GB with nothing else; granite's 32 layers (3.30 B) 72.6 GB plus
+# AdamW's float32 / float64 temporaries, ~28 bytes an element of its
+# (32, 40, 1536, 512) expert leaf. Both are cut to the deepest stack that
+# trains within the card's 80 GB without the allocator emptying its cache
+# mid-step: on an H100 qwen3-4b peaked at 76.9 GB at 23 layers (at 24,
+# 79.9 GB and one allocator retry), granite at 77.6 GB at 24. gemma2-27b
+# runs one local / global step (75.0 GB: AdamW's float64 root of the
+# (256000, 4608) embedding alone is 9.4 GB); its 4100-token prompt passes
+# the 4096 window, so prefill rolls its local rings and the forward's
+# window mask cuts in.
+TF_RUNS = (("qwen3-4b", 23, TF_SEQ), ("gemma2-27b", 2, TF_SEQ + 4),
+           ("granite-moe-3b-a800m", 24, TF_SEQ))
+TF_NORMS = ("ln1", "ln2", "ln1_post", "ln2_post", "q_norm", "k_norm", "final_norm")
+# bfloat16 logits of prefill's last position and of the last decode step
+# against a full forward over the same tokens, max |difference| / max
+# |logit|: decode attends through the grouped form over the cache, the
+# forward through the repeated heads, and both round to bfloat16 in other
+# places
+TF_DECODE_TOL = 0.02
+
+
+def _draw_norms(tree, gen):
+    """The norm scales (zero as `init_params` draws them) drawn away from
+    zero, so that the decode check exercises them."""
+    import torch
+
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _draw_norms(leaf, gen)
+        elif key in TF_NORMS:
+            noise = torch.randn(leaf.shape, generator=gen, device=leaf.device) * 0.1
+            tree[key] = (leaf.float() + noise).to(leaf.dtype)
+
+
+def phase_transformer(dev):
+    """The transformer backbone (`models.transformer`: attention, the dense
+    MLPs and the one-card MoE route) through `training.train_loop.
+    build_train_step`, TF_RUNS at their published widths, bfloat16, remat
+    "full", random weights from a generator on the card: TF_STEPS steps at
+    1 x TF_SEQ tokens of the reference smoke's recipe with AdamW at 3e-3,
+    one more under torch.profiler; then, with the norm scales drawn away
+    from zero, a prefill of the config's prompt and TF_DECODE decode steps
+    (a cache of prompt + TF_DECODE positions), prefill's last logits and the
+    last decode's against a no-grad forward over the same tokens within
+    TF_DECODE_TOL. granite's check runs at capacity factor num_experts /
+    top_k (capacity = every token), so the forward drops no token that
+    decode keeps; its training keeps the published 1.25. No kernel of the
+    port runs. Returns ({kernel: launches}, times)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import softcap
+    from repro_torch.training.checkpoint import _flatten_with_names
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainConfig, build_train_step, lm_batches
+
+    times = {}
+    build.launches.clear()
+    phase_t0 = time.perf_counter()
+    for arch, layers, prompt in TF_RUNS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # what the earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                                         device=dev)
+        n_params = sum(t.numel() for _, t in _flatten_with_names(params))
+        opt = init_opt_state(params, AdamWConfig(lr=3e-3))
+        step = build_train_step(cfg, TrainConfig(optimizer=AdamWConfig(lr=3e-3)), dev)
+        losses, step_s = [], []
+        for batch in lm_batches(cfg.vocab, TF_STEPS, batch=1, seq=TF_SEQ):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        train_peak = torch.cuda.max_memory_allocated() - base
+        # allocations that found no free block and first released the cache
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"transformer {arch}: a loss is not finite: {losses}")
+        print(f"transformer {arch}: one more step under torch.profiler, its kernels by device ms:")
+        n_dev, busy, prof_ms = _profile_step(lambda: step(params, opt, batch), top=8)
+        del opt, step, metrics
+        gc.collect()
+        _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 1))
+        check = cfg
+        if cfg.moe is not None:
+            check = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (1, prompt + TF_DECODE)).astype(np.int32)).to(dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, cache = transformer.prefill(params, {"tokens": toks[:, :prompt]}, check,
+                                              max_len=prompt + TF_DECODE)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for i in range(TF_DECODE):
+                logits, cache = transformer.decode_step(
+                    params, cache, prompt + i, {"tokens": toks[:, prompt + i:prompt + i + 1]},
+                    check)
+            torch.cuda.synchronize()
+            decode_s = (time.perf_counter() - t0) / TF_DECODE
+            del cache
+            full, _ = transformer.forward(params, {"tokens": toks}, check)
+            full = softcap(full[0, [prompt - 1, -1]].float(), cfg.final_softcap)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        errs = [float((got.float() - ref).abs().max() / ref.abs().max())
+                for got, ref in ((last[0], full[0]), (logits[0], full[1]))]
+        if max(errs) > TF_DECODE_TOL:
+            raise AssertionError(f"transformer {arch}: prefill's last / the last decode logits "
+                                 f"differ from the forward's by {errs[0]:.3g} / {errs[1]:.3g} of "
+                                 f"max |logit| (limit {TF_DECODE_TOL})")
+        del params, last, logits, full
+        warm = float(np.median(step_s[1:]))
+        key = f"tf {arch}"
+        times.update({
+            f"{key} layers": layers, f"{key} params": n_params, f"{key} step s": warm,
+            f"{key} first step s": step_s[0], f"{key} tokens per s": TF_SEQ / warm,
+            f"{key} train peak GB": train_peak / 1e9, f"{key} peak GB": peak / 1e9,
+            f"{key} alloc retries": retries,
+            f"{key} prefill s": prefill_s, f"{key} decode ms": decode_s * 1e3,
+            f"{key} prefill err": errs[0], f"{key} decode err": errs[1],
+            f"{key} loss first": losses[0], f"{key} loss last": losses[-1],
+            f"{key} device activities a step": n_dev, f"{key} busy share": busy,
+            f"{key} profiled step ms": prof_ms})
+        print(f"transformer {arch}: published widths (d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, {cfg.dtype}, remat {cfg.remat}) at {layers} layers "
+              f"({n_params} params): {TF_STEPS} train steps at 1 x {TF_SEQ} tokens, a warm step "
+              f"{warm:.4f} s (median of {TF_STEPS - 1}), the first {step_s[0]:.3f} s, "
+              f"{TF_SEQ / warm:.1f} tokens a second, peak {train_peak / 1e9:.3f} GB "
+              f"(max_memory_allocated above the {base / 1e9:.3f} GB held before), {retries} "
+              f"allocator retries; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        print(f"transformer {arch}: prefill of {prompt} tokens {prefill_s:.4f} s, {TF_DECODE} "
+              f"decode steps {decode_s * 1e3:.3f} ms each, the norm scales drawn away from zero"
+              f"{' (capacity factor ' + str(check.moe.capacity_factor) + ')' if cfg.moe else ''}: "
+              f"prefill's last logits within {errs[0]:.3g}, the last decode's within "
+              f"{errs[1]:.3g} of max |logit| of the forward's (limit {TF_DECODE_TOL}); peak "
+              f"{peak / 1e9:.3f} GB")
+        if n_dev is None:
+            print(f"transformer {arch}: torch.profiler saw no device activity: busy share not "
+                  f"measured")
+        else:
+            print(f"transformer {arch}: one step under torch.profiler: {n_dev} device "
+                  f"activities, the device busy {busy:.4f} of the span, {prof_ms:.3f} ms on the "
+                  f"host clock")
+    counts = dict(build.launches)
+    if counts:
+        raise AssertionError(f"transformer: launches {counts}, want none (PyTorch operations "
+                             f"only)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    times["tf phase s"] = time.perf_counter() - phase_t0
+    print(f"transformer: the phase took {times['tf phase s']:.1f} s")
+    return counts, times
+
+
 def main() -> int:
+    # the allocator grows segments in place instead of caching fixed blocks:
+    # the transformer phase's AdamW at full width needs one 9.4 GB float64
+    # temporary after the backward has left its blocks behind
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
@@ -2672,6 +2863,7 @@ def main() -> int:
     train_launches, train_times = phase_train(dev)
     dp_launches, dp_times = phase_train_dp(dev)
     _, lm_times = phase_lm(dev)
+    _, tf_times = phase_transformer(dev)
     gru_err, gru_launches, gru_times = phase_gru_seq(dev)
     wkv_err, wkv_launches, wkv_times = phase_wkv6(dev)
 
@@ -2684,6 +2876,7 @@ def main() -> int:
     times.update(train_times)
     times.update(dp_times)
     times.update(lm_times)
+    times.update(tf_times)
     times.update(gru_times)
     times.update(wkv_times)
     print(f"step_batch at {N_STREAMS} streams (qat, raw audio, host slab in, host "

@@ -122,7 +122,9 @@ class ArchConfig:
 
     @property
     def activation_dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+        """bfloat16 or float32, as the reference's; "float64" runs the
+        port in float64 (a truth for the float32 runs, `models.layers.wide`)."""
+        return {"bfloat16": torch.bfloat16, "float64": torch.float64}.get(self.dtype, torch.float32)
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head)."""

@@ -8,13 +8,16 @@ generator's device) and the caller casts to the activation dtype.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 __all__ = [
+    "wide",
     "rms_norm",
     "softcap",
     "rope",
@@ -23,16 +26,24 @@ __all__ = [
     "mlp_init",
     "mlp_apply",
     "cross_entropy_loss",
+    "remat",
 ]
+
+
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the reference's float32 statistics run in: float32 for
+    bfloat16 and float32 activations, float64 for float64 ones (a
+    float64 run of the port is the truth both float32 runs are held to)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with the (1 + scale) parameterization, statistics in
-    float32 whatever the activation dtype."""
-    x32 = x.to(torch.float32)
+    float32 (`wide`) whatever the activation dtype."""
+    x32 = x.to(wide(x.dtype))
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+    return (y * (1.0 + scale.to(x32.dtype))).to(x.dtype)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -46,7 +57,9 @@ def rope(positions: torch.Tensor, head_dim: int, theta: float):
     """positions (...,) -> (cos, sin), each (..., head_dim / 2), float32."""
     half = head_dim // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exponent)
+    # a Python base: a tensor made of theta on the card would be a copy
+    # that waits for the device, once a layer
+    freqs = torch.pow(theta, exponent)
     angles = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 
@@ -94,9 +107,34 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        final_cap: Optional[float] = None) -> torch.Tensor:
-    """Mean of ``logsumexp(logits) - logits[label]`` in float32; logits
-    (B, S, V), labels (B, S) integers."""
-    logits = softcap(logits, final_cap).to(torch.float32)
+    """Mean of ``logsumexp(logits) - logits[label]`` in float32 (`wide`);
+    logits (B, S, V), labels (B, S) integers."""
+    logits = softcap(logits, final_cap)
+    logits = logits.to(wide(logits.dtype))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
     return torch.mean(logz - gold)
+
+
+def remat(fn, cfg):
+    """``fn`` under ``torch.utils.checkpoint`` as ``cfg.remat`` asks, the
+    counterpart of the reference's ``jax.checkpoint`` of a layer or a
+    scan step: "full" recomputes it in the backward, "dots" saves the
+    matrix products without batch dims (`aten.mm`, as the reference's
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
+    "none" keeps everything."""
+    if cfg.remat == "none":
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                             _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: none | dots | full")
+    return lambda *args: _ckpt.checkpoint(fn, *args, **kw)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.mm.default:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE

@@ -2,14 +2,14 @@
 model API (init_params / forward / loss_fn / init_cache / prefill /
 decode_step), as `repro.models.registry`.
 
-Only RWKV6 is ported. The others raise `NotImplementedError` naming
-their ROADMAP.md item (queue 1, item 5's later slices).
+RWKV6 and the transformer (dense and one-card MoE) are ported. Mamba2
+and Zamba2 raise `NotImplementedError` naming their ROADMAP.md item
+(queue 1, item 5d).
 """
 
 from __future__ import annotations
 
 _NOT_PORTED = {
-    "transformer": "ROADMAP.md queue 1, item 5b (attention and the dense transformer)",
     "mamba2": "ROADMAP.md queue 1, item 5d (Mamba2 / Zamba2)",
     "zamba2": "ROADMAP.md queue 1, item 5d (Mamba2 / Zamba2)",
 }
@@ -20,6 +20,10 @@ def get_backbone(cfg):
         from repro_torch.models import rwkv6
 
         return rwkv6
+    if cfg.backbone == "transformer":
+        from repro_torch.models import transformer
+
+        return transformer
     if cfg.backbone in _NOT_PORTED:
         raise NotImplementedError(
             f"the {cfg.backbone} backbone ({cfg.name}) is not ported yet: "

@@ -32,15 +32,13 @@ the stacked layer axis is a loop over it, and its ``jax.checkpoint`` a
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core.quant import _clip as _jnp_clip
-from repro_torch.models.layers import cross_entropy_loss, dense_init, rms_norm
+from repro_torch.models.layers import cross_entropy_loss, dense_init, remat, rms_norm, wide
 
 __all__ = [
     "wkv6_chunked",
@@ -142,7 +140,7 @@ def wkv6_chunked(r, k, v, logw, u, chunk):
         zero = lambda t: torch.cat([t, t.new_zeros((b, pad, h, p))], dim=1)  # noqa: E731
         r, k, v, logw = zero(r), zero(k), zero(v), zero(logw)
     nc = (l + pad) // q
-    f32 = torch.float32
+    f32 = wide(r.dtype)
     rs = r.reshape(b, nc, q, h, p)
     ks_ = k.reshape(b, nc, q, h, p)
     vs = v.reshape(b, nc, q, h, p)
@@ -267,9 +265,9 @@ def _time_mix_pre(p, x, cfg, shift_state=None):
     k = heads(x_k @ p["w_k"].to(dt))
     v = heads(x_v @ p["w_v"].to(dt))
     g = F.silu(x_g @ p["w_g"].to(dt))
-    ww = p["decay_base"].to(torch.float32) + (
+    ww = p["decay_base"].to(wide(dt)) + (
         torch.tanh(x_w @ p["decay_w1"].to(dt)) @ p["decay_w2"].to(dt)
-    ).to(torch.float32)
+    ).to(wide(dt))
     logw = heads(-torch.exp(ww))  # <= 0, per channel
     u = p["bonus_u"].reshape(n_heads, hd)
     return r, k, v, g, logw, u, x[:, -1, :]
@@ -278,11 +276,11 @@ def _time_mix_pre(p, x, cfg, shift_state=None):
 def _time_mix_post(p, y, g, cfg):
     b, l = y.shape[:2]
     # per-head group norm, jnp.var's two passes
-    y32 = y.to(torch.float32)
+    y32 = y.to(wide(y.dtype))
     mean = y32.mean(-1, keepdim=True)
     var = torch.square(y32 - mean).mean(-1, keepdim=True)
     yn = (y32 - mean) * torch.rsqrt(var + 64e-5)
-    yn = yn.reshape(b, l, cfg.d_model) * (1.0 + p["ln_x"].to(torch.float32))
+    yn = yn.reshape(b, l, cfg.d_model) * (1.0 + p["ln_x"].to(y32.dtype))
     return (yn.to(g.dtype) * g) @ p["w_o"].to(g.dtype)
 
 
@@ -356,29 +354,6 @@ def init_params(gen: torch.Generator, cfg, mesh_ctx=None, device=None) -> Params
     }
 
 
-def _remat(fn, cfg):
-    """``fn`` under ``torch.utils.checkpoint`` as ``cfg.remat`` asks:
-    "full" recomputes the layer in the backward, "dots" saves the
-    matrix products without batch dims (`aten.mm`, as the reference's
-    ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
-    "none" keeps everything."""
-    if cfg.remat == "none":
-        return fn
-    kw = {"use_reentrant": False}
-    if cfg.remat == "dots":
-        kw["context_fn"] = functools.partial(_ckpt.create_selective_checkpoint_contexts,
-                                             _save_dots)
-    elif cfg.remat != "full":
-        raise ValueError(f"remat {cfg.remat!r}: none | dots | full")
-    return lambda *args: _ckpt.checkpoint(fn, *args, **kw)
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    if op is torch.ops.aten.mm.default:
-        return _ckpt.CheckpointPolicy.MUST_SAVE
-    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
-
-
 def _embed(params, batch, cfg) -> torch.Tensor:
     tokens = batch["tokens"].to(device=params["embed"].device, dtype=torch.int64)
     return params["embed"].to(cfg.activation_dtype)[tokens]
@@ -388,7 +363,7 @@ def forward(params, batch, cfg, mesh_ctx=None):
     """Logits (B, S, V_padded) of ``batch["tokens"]`` (B, S), and the
     reference's zero auxiliary loss."""
     x = _embed(params, batch, cfg)
-    body = _remat(lambda p, x: rwkv6_block_apply(p, x, cfg)[0], cfg)
+    body = remat(lambda p, x: rwkv6_block_apply(p, x, cfg)[0], cfg)
     for i in range(cfg.n_layers):
         x = body(_layer(params, i), x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

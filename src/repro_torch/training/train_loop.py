@@ -12,9 +12,12 @@ rules are not ported: the step runs on one device. Its abstract lowering
     python -m repro_torch.training.train_loop [--arch rwkv6-7b] [--steps 30]
         [--device cpu]
 
-trains the arch's reduced config on random weights from a seed, with
-the reference's batch recipe: tokens (steps, 8, 33) drawn from
-``numpy.random.default_rng(0)``, inputs ``[:, :-1]``, labels ``[:, 1:]``.
+trains the arch's reduced config (any ported backbone: rwkv6 and the
+eight transformer configs) on random weights from a seed, with the
+reference's batch recipe: tokens (steps, 8, 33) drawn from
+``numpy.random.default_rng(0)``, inputs ``[:, :-1]``, labels ``[:, 1:]``;
+an embedding frontend (musicgen, llava) takes random frame embeddings in
+place of the inputs.
 """
 
 from __future__ import annotations
@@ -44,11 +47,14 @@ class TrainConfig:
 
 def value_and_grad(loss: Callable, params, *args):
     """(loss, gradients shaped like ``params``, in their dtypes) of
-    ``loss(params, *args)`` by autograd."""
+    ``loss(params, *args)`` by autograd; a leaf the loss does not read
+    (the token embedding of an embedding frontend) gets zeros, as under
+    ``jax.grad``."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     value = loss(leaves, *args)
     value.backward()
-    return value.detach(), tree_map(lambda p: p.grad, leaves)
+    return value.detach(), tree_map(
+        lambda p: torch.zeros_like(p) if p.grad is None else p.grad, leaves)
 
 
 def build_train_step(arch_cfg, train_cfg: TrainConfig = TrainConfig(), device=None):
@@ -92,14 +98,24 @@ def build_train_step(arch_cfg, train_cfg: TrainConfig = TrainConfig(), device=No
     return train_step
 
 
-def lm_batches(vocab: int, steps: int, batch: int = 8, seq: int = 32, seed: int = 0):
+def lm_batches(vocab: int, steps: int, batch: int = 8, seq: int = 32, seed: int = 0,
+               embed_dim: Optional[int] = None):
     """The reference smoke's batches: tokens (steps, batch, seq + 1) from
     ``default_rng(seed)`` below ``vocab``; step ``i`` -> {"tokens":
-    [:, :-1], "labels": [:, 1:]} as int32 tensors on the host."""
+    [:, :-1], "labels": [:, 1:]} as int32 tensors on the host. With
+    ``embed_dim`` (an embedding frontend: musicgen's audio frames, llava's
+    patches) "tokens" gives way to "embeddings", standard normal float32
+    (batch, seq, embed_dim) drawn from a generator seeded ``seed + i``,
+    as the reference smoke draws them from ``PRNGKey(i)``."""
     data = np.random.default_rng(seed).integers(0, vocab, (steps, batch, seq + 1))
     for it in range(steps):
-        yield {"tokens": torch.from_numpy(data[it, :, :-1].astype(np.int32)),
-               "labels": torch.from_numpy(data[it, :, 1:].astype(np.int32))}
+        labels = torch.from_numpy(data[it, :, 1:].astype(np.int32))
+        if embed_dim is None:
+            yield {"tokens": torch.from_numpy(data[it, :, :-1].astype(np.int32)), "labels": labels}
+        else:
+            gen = torch.Generator().manual_seed(seed + it)
+            yield {"embeddings": torch.randn((batch, seq, embed_dim), generator=gen),
+                   "labels": labels}
 
 
 def main(argv=None) -> int:
@@ -123,7 +139,8 @@ def main(argv=None) -> int:
     opt = init_opt_state(params, AdamWConfig())
     step = build_train_step(cfg, TrainConfig(optimizer=AdamWConfig(lr=3e-3)), device)
     losses = []
-    for it, batch in enumerate(lm_batches(cfg.vocab, args.steps)):
+    embed_dim = cfg.d_model if cfg.frontend == "embedding" else None
+    for it, batch in enumerate(lm_batches(cfg.vocab, args.steps, embed_dim=embed_dim)):
         params, opt, metrics = step(params, opt, batch)
         losses.append(float(metrics["loss"]))
         if it % 5 == 0:

@@ -1448,3 +1448,53 @@ def test_lm_train_step_and_decode_on_the_card_equal_the_cpus(dev):
     for (name, a), (_, b) in zip(_flatten_with_names(p), _flatten_with_names(cp)):
         assert a.is_cuda and float((a.cpu() - b).abs().max()) <= 1e-2 * lr, name
     assert float((logits.cpu() - clogits).abs().max()) <= 1e-4 * float(clogits.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-3b-a800m"])
+def test_transformer_train_step_and_decode_on_the_card_equal_the_cpus(dev, arch):
+    """The reduced transformer in float32 (qwen3: qk-norm, GQA, a tied
+    head; granite: the one-card MoE route with head padding), every norm
+    scale away from zero: one train step (two microbatches, a cosine
+    schedule) on the card against the CPU's (the loss within 1e-5,
+    grad_norm within 1e-4 of it, the params within a hundredth of the
+    learning rate), then prefill and a decode step, ``cache_len`` an int
+    and a tensor (logits within 1e-4 of max |logit|); no kernel of the
+    port launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.training.checkpoint import _flatten_with_names
+    from repro_torch.training.optimizer import AdamWConfig, cosine_schedule, init_opt_state, tree_map
+    from repro_torch.training.train_loop import TrainConfig, build_train_step, lm_batches
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = transformer.init_params(torch.Generator().manual_seed(7), cfg, device="cpu")
+    gen = torch.Generator().manual_seed(8)  # the norm scales drawn as zero take part
+    params = tree_map(lambda t: torch.randn(t.shape, generator=gen) * 0.1
+                      if t.dim() <= 2 and t.shape[-1] in (cfg.d_model, cfg.resolved_head_dim)
+                      and not t.any() else t, params)
+    lr = 3e-3
+    tcfg = TrainConfig(AdamWConfig(lr=lr), microbatch=2, lr_schedule=cosine_schedule(lr, 1, 10))
+    batch = next(lm_batches(cfg.vocab, 1, batch=4, seq=64))
+    out = {}
+    build.launches.clear()
+    for d in (dev, torch.device("cpu")):
+        p = tree_map(lambda t, d=d: t.to(d), params)
+        p, _, m = build_train_step(cfg, tcfg, d)(p, init_opt_state(p, AdamWConfig(lr=lr)), batch)
+        toks = batch["tokens"].to(d)
+        with torch.no_grad():
+            _, cache = transformer.prefill(p, {"tokens": toks[:, :48]}, cfg, max_len=56)
+            logits, cache = transformer.decode_step(p, cache, 48, {"tokens": toks[:, 48:49]}, cfg)
+            logits2, _ = transformer.decode_step(p, cache, torch.tensor(49),
+                                                 {"tokens": toks[:, 49:50]}, cfg)
+        out[d.type] = (p, m, logits, logits2)
+    assert not build.launches
+    (p, m, logits, logits2), (cp, cm, clogits, clogits2) = out["cuda"], out["cpu"]
+    assert abs(float(m["loss"]) - float(cm["loss"])) <= 1e-5
+    assert abs(float(m["grad_norm"]) / float(cm["grad_norm"]) - 1) <= 1e-4
+    for (name, a), (_, b) in zip(_flatten_with_names(p), _flatten_with_names(cp)):
+        assert a.is_cuda and float((a.cpu() - b).abs().max()) <= 1e-2 * lr, name
+    for got, want in ((logits, clogits), (logits2, clogits2)):
+        assert got.is_cuda
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
