@@ -1584,7 +1584,8 @@ def _fit_die_detector(dev, hw_state):
 def fma_rows_times(dev, xs=None):
     """The fit's row chain (`kernels.fma_rows`) at the fit's shapes: ``xs``
     (default: (992, 16) seeded normal rows, the die's fit's shape) and a
-    seeded d, held bit-equal to its plain version (and on a case where
+    seeded d, held bit-equal to its plain version (also on xs's first
+    channel alone, over all its rows and over 16, and on a case where
     float64 lands on a float32 midpoint), timed beside its plain version
     and torch.mv (its own order)."""
     import torch
@@ -1601,6 +1602,12 @@ def fma_rows_times(dev, xs=None):
     times["fma_rows plain_ms"], want = _once_ms(lambda: fma_rows_ref(d, xs))
     if not torch.equal(got, want):
         raise AssertionError("fma_rows differs from its plain version")
+    # one channel: past 32 rows the first 8 multiplied and added apart
+    # (XLA's peeled column-major GEMV tile), then the fused chain; up to 32
+    # rows the fused chain alone
+    for m in (n, 16):
+        if not torch.equal(fma_rows(d[:m], xs[:m, :1]), fma_rows_ref(d[:m], xs[:m, :1])):
+            raise AssertionError(f"fma_rows differs from its plain version at ({m}, 1)")
     # acc = 1 + 2^-23, then p = 2^-24 - 2^-70: float64 lands on a midpoint
     md = torch.tensor([1.0, 2.0**-24 * (1 + 2.0**-23)], device=dev)
     mx = torch.tensor([[1 + 2.0**-23], [1 - 2.0**-23]], device=dev)
@@ -2639,29 +2646,146 @@ TF_NORMS = ("ln1", "ln2", "ln1_post", "ln2_post", "q_norm", "k_norm", "final_nor
 TF_DECODE_TOL = 0.02
 
 
-def _draw_norms(tree, gen):
-    """The norm scales (zero as `init_params` draws them) drawn away from
-    zero, so that the decode check exercises them."""
+def _draw_norms(tree, gen, names=TF_NORMS):
+    """The leaves ``names`` (the norm scales, zero as `init_params` draws
+    them) drawn away from their initial values, so that the decode check
+    exercises them."""
     import torch
 
-    for key, leaf in tree.items():
-        if isinstance(leaf, dict):
-            _draw_norms(leaf, gen)
-        elif key in TF_NORMS:
+    for key, leaf in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(leaf, (dict, list)):
+            _draw_norms(leaf, gen, names)
+        elif key in names:
             noise = torch.randn(leaf.shape, generator=gen, device=leaf.device) * 0.1
             tree[key] = (leaf.float() + noise).to(leaf.dtype)
 
 
+def _decode_errs(backbone, params, cfg, check, prompt):
+    """A prefill of ``prompt`` seeded tokens and TF_DECODE decode steps (a
+    cache of prompt + TF_DECODE positions) at ``check``, then a forward
+    over the same tokens, all without grad. Returns (prefill s, decode s a
+    step, [prefill's last logits, the last decode's], each max |difference
+    from the forward's| / max |logit|)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.layers import softcap
+
+    dev = params["embed"].device
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, prompt + TF_DECODE)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = backbone.prefill(params, {"tokens": toks[:, :prompt]}, check,
+                                       max_len=prompt + TF_DECODE)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(TF_DECODE):
+            logits, cache = backbone.decode_step(
+                params, cache, prompt + i, {"tokens": toks[:, prompt + i:prompt + i + 1]}, check)
+        torch.cuda.synchronize()
+        decode_s = (time.perf_counter() - t0) / TF_DECODE
+        del cache
+        full, _ = backbone.forward(params, {"tokens": toks}, check)
+        full = softcap(full[0, [prompt - 1, -1]].float(), cfg.final_softcap)
+    errs = [float((got.float() - ref).abs().max() / ref.abs().max())
+            for got, ref in ((last[0], full[0]), (logits[0], full[1]))]
+    return prefill_s, decode_s, errs
+
+
+def _lm_run(dev, backbone, cfg, prompt, key, label, check=None, norms=TF_NORMS):
+    """One LM backbone module (`models.transformer`, `models.zamba2`) at
+    ``cfg`` through `training.train_loop.build_train_step`: random weights
+    from a generator on the card, TF_STEPS steps at 1 x TF_SEQ tokens of
+    the reference smoke's recipe with AdamW at 3e-3, one more under
+    torch.profiler; then, with the leaves ``norms`` drawn away from their
+    initial values, `_decode_errs` at ``check`` (default ``cfg``) over
+    ``prompt`` tokens. Returns its times under ``key`` (the decode errors
+    among them, for the caller to hold to its limit); prints under
+    ``label``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.training.checkpoint import _flatten_with_names
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import TrainConfig, build_train_step, lm_batches
+
+    check = check or cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what the earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    params = backbone.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+    n_params = sum(t.numel() for _, t in _flatten_with_names(params))
+    opt = init_opt_state(params, AdamWConfig(lr=3e-3))
+    step = build_train_step(cfg, TrainConfig(optimizer=AdamWConfig(lr=3e-3)), dev)
+    losses, step_s = [], []
+    for batch in lm_batches(cfg.vocab, TF_STEPS, batch=1, seq=TF_SEQ):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    train_peak = torch.cuda.max_memory_allocated() - base
+    # allocations that found no free block and first released the cache
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    print(f"{label}: one more step under torch.profiler, its kernels by device ms:")
+    n_dev, busy, prof_ms = _profile_step(lambda: step(params, opt, batch), top=8)
+    del opt, step, metrics
+    gc.collect()
+    _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 1), norms)
+    prefill_s, decode_s, errs = _decode_errs(backbone, params, cfg, check, prompt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del params
+    warm = float(np.median(step_s[1:]))
+    times = {
+        f"{key} layers": cfg.n_layers, f"{key} params": n_params, f"{key} step s": warm,
+        f"{key} first step s": step_s[0], f"{key} tokens per s": TF_SEQ / warm,
+        f"{key} train peak GB": train_peak / 1e9, f"{key} peak GB": peak / 1e9,
+        f"{key} alloc retries": retries,
+        f"{key} prefill s": prefill_s, f"{key} decode ms": decode_s * 1e3,
+        f"{key} prefill err": errs[0], f"{key} decode err": errs[1],
+        f"{key} loss first": losses[0], f"{key} loss last": losses[-1],
+        f"{key} device activities a step": n_dev, f"{key} busy share": busy,
+        f"{key} profiled step ms": prof_ms}
+    heads = (f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.resolved_head_dim}"
+             if cfg.n_heads else "")
+    print(f"{label}: published widths (d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {heads}, {cfg.dtype}, remat {cfg.remat}) at {cfg.n_layers} layers "
+          f"({n_params} params): {TF_STEPS} train steps at 1 x {TF_SEQ} tokens, a warm step "
+          f"{warm:.4f} s (median of {TF_STEPS - 1}), the first {step_s[0]:.3f} s, "
+          f"{TF_SEQ / warm:.1f} tokens a second, peak {train_peak / 1e9:.3f} GB "
+          f"(max_memory_allocated above the {base / 1e9:.3f} GB held before), {retries} "
+          f"allocator retries; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    moe = (f" (capacity factor {check.moe.capacity_factor})" if cfg.moe else "")
+    print(f"{label}: prefill of {prompt} tokens {prefill_s:.4f} s, {TF_DECODE} decode steps "
+          f"{decode_s * 1e3:.3f} ms each, {', '.join(norms)} drawn away from their initial "
+          f"values{moe}: prefill's last logits within {errs[0]:.3g}, the last decode's within "
+          f"{errs[1]:.3g} of max |logit| of the forward's; peak {peak / 1e9:.3f} GB")
+    if n_dev is None:
+        print(f"{label}: torch.profiler saw no device activity: busy share not measured")
+    else:
+        print(f"{label}: one step under torch.profiler: {n_dev} device activities, the device "
+              f"busy {busy:.4f} of the span, {prof_ms:.3f} ms on the host clock")
+    return times
+
+
 def phase_transformer(dev):
     """The transformer backbone (`models.transformer`: attention, the dense
-    MLPs and the one-card MoE route) through `training.train_loop.
-    build_train_step`, TF_RUNS at their published widths, bfloat16, remat
-    "full", random weights from a generator on the card: TF_STEPS steps at
-    1 x TF_SEQ tokens of the reference smoke's recipe with AdamW at 3e-3,
-    one more under torch.profiler; then, with the norm scales drawn away
-    from zero, a prefill of the config's prompt and TF_DECODE decode steps
-    (a cache of prompt + TF_DECODE positions), prefill's last logits and the
-    last decode's against a no-grad forward over the same tokens within
+    MLPs and the one-card MoE route) through `_lm_run`, TF_RUNS at their
+    published widths, bfloat16, remat "full": TF_STEPS train steps at
+    1 x TF_SEQ tokens, a profiled step, prefill of the config's prompt and
+    TF_DECODE decode steps against a no-grad forward within
     TF_DECODE_TOL. granite's check runs at capacity factor num_experts /
     top_k (capacity = every token), so the forward drops no token that
     decode keeps; its training keeps the published 1.25. No kernel of the
@@ -2669,116 +2793,29 @@ def phase_transformer(dev):
     import dataclasses
     import gc
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models import transformer
-    from repro_torch.models.layers import softcap
-    from repro_torch.training.checkpoint import _flatten_with_names
-    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
-    from repro_torch.training.train_loop import TrainConfig, build_train_step, lm_batches
 
     times = {}
     build.launches.clear()
     phase_t0 = time.perf_counter()
     for arch, layers, prompt in TF_RUNS:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()  # what the earlier phases still hold
-        torch.cuda.reset_peak_memory_stats()
-        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
-        params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
-                                         device=dev)
-        n_params = sum(t.numel() for _, t in _flatten_with_names(params))
-        opt = init_opt_state(params, AdamWConfig(lr=3e-3))
-        step = build_train_step(cfg, TrainConfig(optimizer=AdamWConfig(lr=3e-3)), dev)
-        losses, step_s = [], []
-        for batch in lm_batches(cfg.vocab, TF_STEPS, batch=1, seq=TF_SEQ):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt, metrics = step(params, opt, batch)
-            losses.append(float(metrics["loss"]))
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-        train_peak = torch.cuda.max_memory_allocated() - base
-        # allocations that found no free block and first released the cache
-        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
-        if not np.isfinite(losses).all():
-            raise AssertionError(f"transformer {arch}: a loss is not finite: {losses}")
-        print(f"transformer {arch}: one more step under torch.profiler, its kernels by device ms:")
-        n_dev, busy, prof_ms = _profile_step(lambda: step(params, opt, batch), top=8)
-        del opt, step, metrics
-        gc.collect()
-        _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 1))
         check = cfg
         if cfg.moe is not None:
             check = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
-        toks = torch.from_numpy(np.random.default_rng(1).integers(
-            0, cfg.vocab, (1, prompt + TF_DECODE)).astype(np.int32)).to(dev)
-        with torch.no_grad():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            last, cache = transformer.prefill(params, {"tokens": toks[:, :prompt]}, check,
-                                              max_len=prompt + TF_DECODE)
-            torch.cuda.synchronize()
-            prefill_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            for i in range(TF_DECODE):
-                logits, cache = transformer.decode_step(
-                    params, cache, prompt + i, {"tokens": toks[:, prompt + i:prompt + i + 1]},
-                    check)
-            torch.cuda.synchronize()
-            decode_s = (time.perf_counter() - t0) / TF_DECODE
-            del cache
-            full, _ = transformer.forward(params, {"tokens": toks}, check)
-            full = softcap(full[0, [prompt - 1, -1]].float(), cfg.final_softcap)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        errs = [float((got.float() - ref).abs().max() / ref.abs().max())
-                for got, ref in ((last[0], full[0]), (logits[0], full[1]))]
-        if max(errs) > TF_DECODE_TOL:
-            raise AssertionError(f"transformer {arch}: prefill's last / the last decode logits "
-                                 f"differ from the forward's by {errs[0]:.3g} / {errs[1]:.3g} of "
-                                 f"max |logit| (limit {TF_DECODE_TOL})")
-        del params, last, logits, full
-        warm = float(np.median(step_s[1:]))
         key = f"tf {arch}"
-        times.update({
-            f"{key} layers": layers, f"{key} params": n_params, f"{key} step s": warm,
-            f"{key} first step s": step_s[0], f"{key} tokens per s": TF_SEQ / warm,
-            f"{key} train peak GB": train_peak / 1e9, f"{key} peak GB": peak / 1e9,
-            f"{key} alloc retries": retries,
-            f"{key} prefill s": prefill_s, f"{key} decode ms": decode_s * 1e3,
-            f"{key} prefill err": errs[0], f"{key} decode err": errs[1],
-            f"{key} loss first": losses[0], f"{key} loss last": losses[-1],
-            f"{key} device activities a step": n_dev, f"{key} busy share": busy,
-            f"{key} profiled step ms": prof_ms})
-        print(f"transformer {arch}: published widths (d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
-              f"vocab {cfg.vocab}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
-              f"{cfg.resolved_head_dim}, {cfg.dtype}, remat {cfg.remat}) at {layers} layers "
-              f"({n_params} params): {TF_STEPS} train steps at 1 x {TF_SEQ} tokens, a warm step "
-              f"{warm:.4f} s (median of {TF_STEPS - 1}), the first {step_s[0]:.3f} s, "
-              f"{TF_SEQ / warm:.1f} tokens a second, peak {train_peak / 1e9:.3f} GB "
-              f"(max_memory_allocated above the {base / 1e9:.3f} GB held before), {retries} "
-              f"allocator retries; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-        print(f"transformer {arch}: prefill of {prompt} tokens {prefill_s:.4f} s, {TF_DECODE} "
-              f"decode steps {decode_s * 1e3:.3f} ms each, the norm scales drawn away from zero"
-              f"{' (capacity factor ' + str(check.moe.capacity_factor) + ')' if cfg.moe else ''}: "
-              f"prefill's last logits within {errs[0]:.3g}, the last decode's within "
-              f"{errs[1]:.3g} of max |logit| of the forward's (limit {TF_DECODE_TOL}); peak "
-              f"{peak / 1e9:.3f} GB")
-        if n_dev is None:
-            print(f"transformer {arch}: torch.profiler saw no device activity: busy share not "
-                  f"measured")
-        else:
-            print(f"transformer {arch}: one step under torch.profiler: {n_dev} device "
-                  f"activities, the device busy {busy:.4f} of the span, {prof_ms:.3f} ms on the "
-                  f"host clock")
+        times.update(_lm_run(dev, transformer, cfg, prompt, key, f"transformer {arch}", check))
+        if max(times[f"{key} prefill err"], times[f"{key} decode err"]) > TF_DECODE_TOL:
+            raise AssertionError(f"transformer {arch}: prefill's last / the last decode "
+                                 f"logits differ from the forward's by "
+                                 f"{times[f'{key} prefill err']:.3g} / "
+                                 f"{times[f'{key} decode err']:.3g} of max |logit| "
+                                 f"(limit {TF_DECODE_TOL})")
     counts = dict(build.launches)
     if counts:
         raise AssertionError(f"transformer: launches {counts}, want none (PyTorch operations "
@@ -2788,6 +2825,124 @@ def phase_transformer(dev):
     times["tf phase s"] = time.perf_counter() - phase_t0
     print(f"transformer: the phase took {times['tf phase s']:.1f} s")
     return counts, times
+
+
+ZAMBA_ARCH = "zamba2-7b"
+# zamba2-7b's 81 mamba layers (78.0 M parameters each) and 2 shared blocks
+# (231 M each) with embed and head are 7.0 B parameters, 154 GB at 22 bytes
+# a parameter. Cut to the deepest stack that trains within the card's 80 GB
+# without the allocator emptying its cache mid-step: on an H100 18 layers
+# peaked at 55.4 GB, 22 at 65.4, 23 at 67.8 (groups of 6, 6, 6, 5: shared
+# blocks 0, 1, 0, 1), 24 at 70.3 GB with one allocator retry and a step
+# 28 % slower than at 23.
+ZAMBA_LAYERS = 23
+# the vector leaves zero (or one) as drawn: the norm scales, and the SSM's
+# A_log, dt_bias, D and conv bias
+ZAMBA_LEAVES = ("ln", "ln1", "ln2", "gn", "final_norm", "A_log", "dt_bias", "D", "conv_b")
+# The decode check's gate runs in float32 at the published widths: 7
+# layers (groups of 6, 1: shared blocks 0, 1), 1.24 B parameters, 5.0 GB,
+# no optimizer state. Random weights make the model chaotic: on an H100
+# (`--zamba2-drift`, three seeds each) float32's own rounding reaches the
+# last decode at 1.1e-4-1.2e-4 of max |logit| at 7 layers, 1.7e-4-2.3e-4
+# at 13, 3.2e-4-2.4e-3 at 19, and bfloat16's at 0.26-0.48 at 12 layers and
+# 0.51-1.26 at 18-24 (0.0061-0.0207 after `_lm_run`'s training steps), so
+# the bfloat16 drift is reported, not gated. The limit sits 8x above the
+# float32 readings at 7 layers and 6x below the smallest bfloat16 one.
+ZAMBA_F32_LAYERS = 7
+ZAMBA_F32_TOL = 1e-3
+
+
+def phase_zamba2(dev):
+    """The Zamba2 hybrid (`models.zamba2` over `models.mamba2`: the chunked
+    SSD, the causal conv, the shared attention + MLP blocks re-reading the
+    token embedding) at its published widths (d_model 3584, d_ff 14336,
+    vocab 32000, 32 heads of 112, SSM state 64, heads of 64, expand 2,
+    chunk 128, a shared block every 6). Through `_lm_run`, in bfloat16,
+    remat "full" (the mamba body only, as the reference), cut to
+    ZAMBA_LAYERS layers: TF_STEPS train steps at 1 x TF_SEQ tokens, a
+    profiled step, then with ZAMBA_LEAVES drawn away from their initial
+    values a TF_SEQ-token prefill and TF_DECODE decode steps against a
+    no-grad forward, the drift reported. Then the same prefill and decode
+    in float32 at ZAMBA_F32_LAYERS layers (`_decode_errs`), held to the
+    forward within ZAMBA_F32_TOL. No kernel of the port runs. Returns
+    ({kernel: launches}, times)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import zamba2
+
+    build.launches.clear()
+    phase_t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ZAMBA_ARCH), n_layers=ZAMBA_LAYERS)
+    key = f"zamba2 {ZAMBA_ARCH}"
+    times = _lm_run(dev, zamba2, cfg, TF_SEQ, key, key, norms=ZAMBA_LEAVES)
+    if not np.isfinite([times[f"{key} prefill err"], times[f"{key} decode err"]]).all():
+        raise AssertionError("zamba2: the bfloat16 decode drift is not finite")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=ZAMBA_F32_LAYERS, dtype="float32")
+    params = zamba2.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg32, device=dev)
+    _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 1), ZAMBA_LEAVES)
+    prefill_s, decode_s, errs = _decode_errs(zamba2, params, cfg32, cfg32, TF_SEQ)
+    del params
+    times.update({"zamba2 f32 layers": ZAMBA_F32_LAYERS, "zamba2 f32 prefill s": prefill_s,
+                  "zamba2 f32 decode ms": decode_s * 1e3, "zamba2 f32 prefill err": errs[0],
+                  "zamba2 f32 decode err": errs[1]})
+    print(f"zamba2: float32 at {ZAMBA_F32_LAYERS} layers: prefill of {TF_SEQ} tokens "
+          f"{prefill_s:.4f} s, {TF_DECODE} decode steps {decode_s * 1e3:.3f} ms each; prefill's "
+          f"last logits within {errs[0]:.3g}, the last decode's within {errs[1]:.3g} of max "
+          f"|logit| of the forward's (limit {ZAMBA_F32_TOL})")
+    if max(errs) > ZAMBA_F32_TOL:
+        raise AssertionError(f"zamba2: float32 prefill's last / the last decode logits differ "
+                             f"from the forward's by {errs[0]:.3g} / {errs[1]:.3g} of max "
+                             f"|logit| (limit {ZAMBA_F32_TOL})")
+    counts = dict(build.launches)
+    if counts:
+        raise AssertionError(f"zamba2: launches {counts}, want none (PyTorch operations only)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    times["zamba2 phase s"] = time.perf_counter() - phase_t0
+    print(f"zamba2: the phase took {times['zamba2 phase s']:.1f} s")
+    return counts, times
+
+
+# (dtype, layers) of the drift study, each at three seeds
+ZAMBA_DRIFT_RUNS = [("bfloat16", n) for n in (12, 18, 21, 22, 23, 24)]
+ZAMBA_DRIFT_RUNS += [("float32", n) for n in (7, 13, 19)]
+
+
+def zamba2_decode_drift(dev):
+    """`python3 chip_smoke.py --zamba2-drift`: the drift of zamba2-7b's
+    prefill and decode from its forward (`_decode_errs` over TF_SEQ
+    tokens, ZAMBA_LEAVES drawn away from their initial values, no
+    training) at its published widths, for each of ZAMBA_DRIFT_RUNS at
+    seeds 0, 1 and 2: the readings behind ZAMBA_F32_TOL. One line a run."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import zamba2
+
+    for dtype, layers in ZAMBA_DRIFT_RUNS:
+        cfg = dataclasses.replace(get_config(ZAMBA_ARCH), n_layers=layers, dtype=dtype)
+        for seed in range(3):
+            params = zamba2.init_params(torch.Generator(device=dev).manual_seed(SEED + seed),
+                                        cfg, device=dev)
+            _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 100 + seed),
+                        ZAMBA_LEAVES)
+            _, _, errs = _decode_errs(zamba2, params, cfg, cfg, TF_SEQ)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"zamba2 drift {dtype} {layers} layers seed {seed}: prefill {errs[0]:.4g} "
+                  f"decode {errs[1]:.4g} of max |logit|", flush=True)
 
 
 def main() -> int:
@@ -2815,14 +2970,17 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--zamba2-drift"]:
+        zamba2_decode_drift(dev)
+        return 0
     t0 = time.perf_counter()
     reports = build.build_all()
     print(f"built {sorted(reports)} with nvcc in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
             print(f"  {name}: {line.strip()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     intgemm_err = phase_intgemm(dev)
     die = phase_calibration(dev)
@@ -2864,6 +3022,7 @@ def main() -> int:
     dp_launches, dp_times = phase_train_dp(dev)
     _, lm_times = phase_lm(dev)
     _, tf_times = phase_transformer(dev)
+    _, zamba_times = phase_zamba2(dev)
     gru_err, gru_launches, gru_times = phase_gru_seq(dev)
     wkv_err, wkv_launches, wkv_times = phase_wkv6(dev)
 
@@ -2877,6 +3036,7 @@ def main() -> int:
     times.update(dp_times)
     times.update(lm_times)
     times.update(tf_times)
+    times.update(zamba_times)
     times.update(gru_times)
     times.update(wkv_times)
     print(f"step_batch at {N_STREAMS} streams (qat, raw audio, host slab in, host "

@@ -1,7 +1,12 @@
 // The row chain of the linear detector's weight gradient: (N,) d and
 // (N, C) xs float32 -> (C,) float32, out[j] = acc after
 // acc = fma(d[i], xs[i][j], acc) over the rows i in order from acc = 0,
-// each step rounded once.
+// each step rounded once. At C = 1 and N > 32 the first 8 rows are
+// multiplied and added apart (acc = d[0] xs[0], then acc + d[i] xs[i],
+// product and sum each rounded) and the fused chain runs from row 8:
+// XLA's CPU code takes a one-channel product as a column-major GEMV whose
+// first tile is peeled. Up to 32 rows it fuses the dot into the
+// elementwise work, whose loop is the fused chain from row 0.
 //
 // Replaces no Pallas kernel: the reference's fit takes this product inside
 // XLA's compiled gradient (src/repro/serving/cascade.py:280,
@@ -49,6 +54,7 @@ constexpr int kMaxCols = 256;     // channels a block: 8 chain warps
 constexpr int kMaxStages = 16;    // chunks in flight
 constexpr int kHelpers = 4;       // warps that turn a chunk column-major
 constexpr int kGroup = 8;         // rows a chain step loads ahead
+constexpr int kFusedRows = 32;    // at C = 1, rows up to which no head is peeled
 constexpr int kBarBytes = 3 * kMaxStages * 8;
 constexpr int kMaxSmem = kBarBytes + 192 * 1024;  // barriers + the ring
 constexpr int kMaxDevices = 64;
@@ -221,12 +227,21 @@ __global__ void fma_rows_kernel(const float* __restrict__ d, const float* __rest
     const float* d_s = ring + st * stage_words;
     const float* x_c = d_s + rows * (1 + ld) + jj * cstride;
     const int nr = min(rows, n - k * rows);
-    const int groups = nr / kGroup;
+    // at C = 1 and n > kFusedRows the first chunk's first kGroup rows (a
+    // chunk holds at least kGroup rows) are multiplied and added apart,
+    // XLA's peeled GEMV tile
+    const int head = (k == 0 && c == 1 && n > kFusedRows) ? kGroup : 0;
+    if (head) {
+      acc = __fmul_rn(d_s[0], x_c[0]);
+      for (int r = 1; r < head; ++r) acc = __fadd_rn(__fmul_rn(d_s[r], x_c[r]), acc);
+    }
+    const int groups = (nr - head) / kGroup;
     // the chunk's whole groups with nothing on the path but loads and
     // FMAs: the loads of the group after the last one read the stage's
-    // padding, not past it
-    const float* dp = d_s;
-    const float* xp = x_c;
+    // padding, not past it. They start a whole group in (after the head)
+    // or at the chunk's start, so the 16-byte loads stay aligned.
+    const float* dp = d_s + head;
+    const float* xp = x_c + head;
     auto load = [&](float4 (&dd)[2], float4 (&xx)[2]) {
       dd[0] = ld4(dp);
       dd[1] = ld4(dp + 4);
@@ -245,7 +260,7 @@ __global__ void fma_rows_kernel(const float* __restrict__ d, const float* __rest
       chain(db, xb);
     }
     if (g < groups) chain(da, xa);
-    for (int r = groups * kGroup; r < nr; ++r) acc = __fmaf_rn(d_s[r], x_c[r], acc);
+    for (int r = head + groups * kGroup; r < nr; ++r) acc = __fmaf_rn(d_s[r], x_c[r], acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[st]);  // every load of the chunk is done
     if (++st == stages) {

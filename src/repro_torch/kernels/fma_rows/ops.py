@@ -96,7 +96,9 @@ def fma_rows_geometry(n: int, c: int, d_aligned: bool = True,
 
 def fma_rows(d: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """acc = fma(d[i], xs[i], acc) over the rows i in order from acc = 0,
-    each step rounded once: (N,) and (N, C) float32 -> (C,) float32."""
+    each step rounded once: (N,) and (N, C) float32 -> (C,) float32. At
+    C = 1 and more than `ref.FUSED_ROWS` rows the first `ref.HEAD_ROWS`
+    rows are multiplied and added apart (`fma_rows_ref`)."""
     if not build.route(xs, "fma_rows"):
         return fma_rows_ref(d, xs)
     if d.dtype != torch.float32 or xs.dtype != torch.float32:

@@ -276,20 +276,11 @@ def _xla_sum(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _fit_grad(xs: torch.Tensor, ys: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
-    """(dL/dw, dL/db) of mean(softplus(xs @ w + b) - ys * (xs @ w + b)) as
-    the reference's compiled ``jit(grad(loss))`` computes it (jax 0.9.0,
-    the CPU), at every width C >= 2 (at C = 1 XLA folds the dot into the
-    elementwise fusion, an order not followed here). z = xs @ w is XLA's
-    row-major GEMV with 8-column tiles: the first C - C % 8 columns summed
-    in 8 lanes (column j in lane j mod 8, fused multiply-adds from 0, the
-    lanes added as an adjacent pairwise tree), the last C % 8 columns a
-    chain of fused multiply-adds from 0, and the two parts added (+ 0.0
-    where one is absent); then + b. dz = fma(exp(z - softplus(z)), 1/N,
-    -y/N), softplus as max(z, 0) + log1p(exp(-|z|)); dL/dw a chain of
-    fused multiply-adds over the rows from 0 (`kernels.fma_rows`); dL/db
-    `_xla_sum` of dz."""
+def _xla_logits(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """z = xs @ w + b in `_fit_grad`'s order."""
     n, c = xs.shape
+    if c == 1:
+        return fma_f32(xs[:, 0], w.expand(n), b.expand(n))
     tiled = c - c % 8
     parts = []
     if tiled:
@@ -304,7 +295,30 @@ def _fit_grad(xs: torch.Tensor, ys: torch.Tensor, w: torch.Tensor, b: torch.Tens
         for j in range(tiled, c):
             tail = fma_f32(xs[:, j], w[j].expand(n), tail)
         parts.append(tail)
-    z = (parts[0] + (parts[1] if len(parts) == 2 else 0.0)) + b
+    return (parts[0] + (parts[1] if len(parts) == 2 else 0.0)) + b
+
+
+def _fit_grad(xs: torch.Tensor, ys: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """(dL/dw, dL/db) of mean(softplus(xs @ w + b) - ys * (xs @ w + b)) as
+    the reference's compiled ``jit(grad(loss))`` computes it (jax 0.9.0,
+    the CPU). At C >= 2, z = xs @ w is XLA's row-major GEMV with 8-column
+    tiles: the first C - C % 8 columns summed in 8 lanes (column j in lane
+    j mod 8, fused multiply-adds from 0, the lanes added as an adjacent
+    pairwise tree), the last C % 8 columns a chain of fused multiply-adds
+    from 0, and the two parts added (+ 0.0 where one is absent); then + b.
+    At C = 1 XLA folds the product into the elementwise fusion, where it
+    contracts with + b: z = fma(xs, w, b). dz = fma(exp(z - softplus(z)),
+    1/N, -y/N), softplus as max(z, 0) + log1p(exp(-|z|)); dL/dw a chain
+    of fused multiply-adds over the rows from 0 (`kernels.fma_rows`; at
+    C = 1 and N > 32 its first 8 rows multiplied and added apart, XLA's
+    column-major GEMV; at C = 1 and N <= 32 XLA fuses the dot into the
+    elementwise work that forms dz, whose loop is the fused chain from
+    row 0); dL/db `_xla_sum` of dz. Read from the compiled code at N = 600
+    (C = 1, 5, 12, 20) and N = 16 (C = 1). Held equal at C = 1 for every
+    N, and at C = 5, 12, 16, 20 for N a multiple of 8; other widths and
+    row counts are not followed (ROADMAP, F5's residue at C >= 2)."""
+    n = xs.shape[0]
+    z = _xla_logits(xs, w, b)
     y, pow2n = _exp_parts(-z.abs())
     softplus = torch.clamp_min(z, 0.0) + _xla_log1p(y * pow2n)
     y, pow2n = _exp_parts(z - softplus)

@@ -12,8 +12,8 @@ rules are not ported: the step runs on one device. Its abstract lowering
     python -m repro_torch.training.train_loop [--arch rwkv6-7b] [--steps 30]
         [--device cpu]
 
-trains the arch's reduced config (any ported backbone: rwkv6 and the
-eight transformer configs) on random weights from a seed, with the
+trains the arch's reduced config (every config: rwkv6, the eight
+transformer configs and zamba2) on random weights from a seed, with the
 reference's batch recipe: tokens (steps, 8, 33) drawn from
 ``numpy.random.default_rng(0)``, inputs ``[:, :-1]``, labels ``[:, 1:]``;
 an embedding frontend (musicgen, llava) takes random frame embeddings in
@@ -127,11 +127,7 @@ def main(argv=None) -> int:
                     help="torch device (default: the card; 'cpu' runs there)")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch).reduced()
-    try:
-        backbone = get_backbone(cfg)
-    except NotImplementedError as e:
-        print(f"train_loop: {e}", file=sys.stderr)
-        return 2
+    backbone = get_backbone(cfg)
     device = resolve_device(args.device)
     print(f"== {args.arch} (reduced: {cfg.n_layers}L d={cfg.d_model}) on {device} ==")
     gen = torch.Generator(device="cpu").manual_seed(args.seed)

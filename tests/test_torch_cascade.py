@@ -10,8 +10,12 @@ branch of the serving tick) against the reference's XLA tier.
 - `gate_step` and `wake_rate` array-equal on seeded score trajectories;
   `fit_linear_detector` array-equal to the reference's fit (the port's
   gradient in the order of the reference's compiled jit(grad)) over
-  seeds 0-4 at 100 and 200 full-batch steps and 5, 12, 16 and 20
-  channels, both separating.
+  seeds 0-4 at 100 and 200 full-batch steps and 1, 5, 12, 16 and 20
+  channels, both separating; at one channel also over 1-17 frames, and
+  its gradient equal to the reference's compiled ``jit(grad)`` at 1-64
+  rows. ``python tests/test_torch_cascade.py`` prints, for widths 1-24
+  and 2-602 rows, where the gradient is not yet the reference's (ROADMAP
+  queue 3, F5's residue at C >= 2).
 - Servers against the reference's ``tick_impl="xla"`` servers:
   `always_on()` against the ungated server for every backend, the
   reference's LOUD / SILENCE cases, and energy / linear gates on
@@ -219,14 +223,67 @@ def _detector_frames(seed, channels=16):
 
 
 # Widths on both sides of XLA's 8-column GEMV tiles: no tail (16), a tail
-# alone (5), one tile and a tail (12), two tiles and a tail (20).
-@pytest.mark.parametrize("channels", [5, 12, 16, 20])
+# alone (5), one tile and a tail (12), two tiles and a tail (20); and one
+# channel, where XLA contracts the product with + b and peels the weight
+# gradient's first 8 rows.
+@pytest.mark.parametrize("channels", [1, 5, 12, 16, 20])
 @pytest.mark.parametrize("steps", [100, 200])
 @pytest.mark.parametrize("seed", range(5))
 def test_fit_linear_detector_over_seeds(seed, steps, channels):
     speech, silence = _detector_frames(seed, channels)
     jw, jb = jc.fit_linear_detector(speech, silence, steps=steps)
     tw, tb = tc.fit_linear_detector(speech, silence, steps=steps)
+    np.testing.assert_allclose(tw, jw, rtol=0, atol=FIT_W_ATOL)
+    assert tb == pytest.approx(jb, abs=FIT_B_ATOL)
+
+
+def _compiled_fit_grad(xs, ys):
+    """The reference's fit step, ``jax.jit(jax.grad(loss))`` over xs / ys
+    taken as constants, as `repro.serving.cascade.fit_linear_detector`
+    builds it."""
+    xs, ys = jnp.asarray(xs), jnp.asarray(ys)
+
+    def loss(wb):
+        w, b = wb
+        z = xs @ w + b
+        return jnp.mean(jax.nn.softplus(z) - ys * z)
+
+    return jax.jit(jax.grad(loss))
+
+
+def _fit_grad_mismatches(n, channels, draws):
+    """How many of ``draws`` seeded (w, b) give a dL/dw / a dL/db of the
+    port's `_fit_grad` unequal to the reference's compiled one, on seeded
+    (n, channels) rows, the first half labelled 1."""
+    rng = np.random.default_rng(n * 100 + channels)
+    xs = rng.normal(0, 1, (n, channels)).astype(np.float32)
+    ys = (np.arange(n) < n // 2).astype(np.float32)
+    grad = _compiled_fit_grad(xs, ys)
+    bad_w = bad_b = 0
+    for _ in range(draws):
+        w = rng.normal(size=channels).astype(np.float32)
+        b = np.float32(rng.normal())
+        jw, jb = grad((jnp.asarray(w), jnp.float32(b)))
+        tw, tb = tc._fit_grad(torch.from_numpy(xs), torch.from_numpy(ys), torch.from_numpy(w),
+                              torch.tensor(b))
+        bad_w += bool((np.asarray(jw) != tw.numpy()).any())
+        bad_b += float(jb) != float(tb)
+    return bad_w, bad_b
+
+
+# One channel on both sides of 32 rows: up to 32 XLA fuses the weight
+# gradient's dot into the elementwise work (a fused chain from row 0),
+# past them it peels the column-major GEMV's first 8 rows.
+@pytest.mark.parametrize("n", [1, 2, 5, 8, 16, 17, 31, 32, 33, 34, 64])
+def test_fit_grad_at_one_channel_equals_the_compiled_gradient(n):
+    assert _fit_grad_mismatches(n, 1, draws=20) == (0, 0)
+
+
+@pytest.mark.parametrize("frames", [1, 8, 16, 17])
+def test_fit_linear_detector_at_one_channel_over_few_frames(frames):
+    speech, silence = _detector_frames(frames, 1)
+    jw, jb = jc.fit_linear_detector(speech[:frames], silence[:frames], steps=100)
+    tw, tb = tc.fit_linear_detector(speech[:frames], silence[:frames], steps=100)
     np.testing.assert_allclose(tw, jw, rtol=0, atol=FIT_W_ATOL)
     assert tb == pytest.approx(jb, abs=FIT_B_ATOL)
 
@@ -553,3 +610,12 @@ def test_frontend_state_kinds_are_unchanged_by_the_cascade(setup):
                        norm_stats=setup[2])
     assert isinstance(pipe.state, FrontendState)
     assert set(pipe.streaming_features_init(2, "cpu")) == {"s1", "s2"}
+
+
+if __name__ == "__main__":
+    # The map behind F5's residue: for each width and row count, how many
+    # of 20 seeded (w, b) give a dL/dw, and a dL/db, of `_fit_grad` unequal
+    # to the reference's compiled gradient.
+    for c in (1, 2, 3, 5, 7, 8, 9, 12, 16, 17, 20, 24):
+        print(f"C={c}", {n: _fit_grad_mismatches(n, c, draws=20)
+                         for n in (2, 6, 8, 14, 16, 24, 32, 34, 48, 96, 104, 600, 602)})

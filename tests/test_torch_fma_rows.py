@@ -2,9 +2,10 @@
 its plain version against the chain of single-rounded fused multiply-adds
 taken step by step (`core.fex.fma_f32`), on seeded rows (also rows whose
 sums fall below the smallest normal) and where float64 lands on a
-float32 midpoint; the devices its wrapper refuses; and the kernel's launch
-geometry (`fma_rows_geometry`: rows a chunk, chunks in flight, channels a
-block, which inputs go by bulk copy, what raises). The kernel against the
+float32 midpoint; at one channel against the reference's compiled dot;
+the devices its wrapper refuses; and the kernel's launch geometry
+(`fma_rows_geometry`: rows a chunk, chunks in flight, channels a block,
+which inputs go by bulk copy, what raises). The kernel against the
 plain version is in tests/test_torch_kernels_gpu.py."""
 
 import numpy as np
@@ -15,6 +16,7 @@ from repro_torch.core.fex import fma_f32
 from repro_torch.kernels.fma_rows import fma_rows
 from repro_torch.kernels.fma_rows import ops as fma_ops
 from repro_torch.kernels.fma_rows.ops import fma_rows_geometry
+from repro_torch.kernels.fma_rows.ref import FUSED_ROWS, HEAD_ROWS
 
 # acc, then p = d1 * x1: float64 rounds acc + p onto a float32 midpoint,
 # which float32 rounds to even (the last value) while the fused step
@@ -27,15 +29,22 @@ MIDPOINTS = {
 
 
 def _chain(d, xs):
+    """The chain step by step; at one channel and more than 32 rows its
+    first 8 rows multiplied and added apart."""
+    head = HEAD_ROWS if xs.shape[1] == 1 and xs.shape[0] > FUSED_ROWS else 0
     acc = torch.zeros(xs.shape[1])
     for i in range(xs.shape[0]):
-        acc = fma_f32(d[i].expand_as(acc), xs[i], acc)
+        if i < head:
+            acc = d[i] * xs[i] if i == 0 else acc + d[i] * xs[i]
+        else:
+            acc = fma_f32(d[i].expand_as(acc), xs[i], acc)
     return acc
 
 
 @pytest.mark.parametrize("n,c,tiny", [(0, 3, False), (1, 1, False), (7, 5, False),
                                       (300, 16, False), (992, 16, False), (64, 33, False),
-                                      (50, 8, True)])
+                                      (50, 8, True), (5, 1, False), (32, 1, False),
+                                      (33, 1, False), (600, 1, False), (50, 1, True)])
 def test_plain_version_is_the_fused_chain(n, c, tiny):
     """``tiny``: products of ~1e-30 and ~1e-10, summed in float32's
     subnormal range."""
@@ -59,6 +68,27 @@ def test_a_float64_midpoint_takes_the_fused_chain(case):
     got = fma_rows(d, xs)
     assert got.item() == acc
     assert torch.equal(got, _chain(d, xs))
+
+
+@pytest.mark.parametrize("n", [33, 64, 600, 605, 1000])
+def test_one_channel_is_xlas_column_major_gemv(n):
+    """At one channel and more than 32 rows the chain is the reference's
+    compiled vector dot: its first 8 rows multiplied and added apart, the
+    rest fused. A midpoint in the head rounds twice, where the fused chain
+    would not. (Up to 32 rows the fit's dot is fused into its elementwise
+    work, unlike a dot of its own: tests/test_torch_cascade.py holds that.)"""
+    jax = pytest.importorskip("jax")
+    dot = jax.jit(lambda a, b: a @ b)
+    for seed in range(10):
+        rng = np.random.default_rng(seed)
+        d = rng.normal(size=n).astype(np.float32) * np.float32(1e-3)
+        x = rng.normal(size=n).astype(np.float32)
+        got = fma_rows(torch.from_numpy(d), torch.from_numpy(x)[:, None])
+        assert got.item() == float(dot(d, x))
+    acc, d1, x1, twice = MIDPOINTS["normal"]
+    zeros = [0.0] * (FUSED_ROWS - 1)  # rows past the head, so that it is taken
+    d = torch.tensor([1.0, d1] + zeros)
+    assert fma_rows(d, torch.tensor([acc, x1] + zeros)[:, None]).item() == twice
 
 
 def test_wrapper_refuses_a_device_without_kernel_or_plain_version():

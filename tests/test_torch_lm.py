@@ -528,17 +528,16 @@ def _f10_study():
 
 
 def test_registry_and_command_line(capsys):
-    """rwkv6 and the transformer resolve (qwen3 trains from the command
-    line); zamba2 is not ported yet and exits 2."""
+    """rwkv6, the transformer and zamba2 resolve to the port's modules, and
+    each trains from the command line (rwkv6 is the default arch)."""
     from repro_torch.models import transformer as tt
+    from repro_torch.models import zamba2 as tz
 
     assert get_backbone(tconfigs.get_config("rwkv6-7b")) is tr
     assert get_backbone(tconfigs.get_config("qwen3-4b")) is tt
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5d"):
-        get_backbone(tconfigs.get_config("zamba2-7b"))
-    assert ttl.main(["--arch", "zamba2-7b", "--device", "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
-    for argv in (["--steps", "2"], ["--arch", "qwen3-4b", "--steps", "2"]):
+    assert get_backbone(tconfigs.get_config("zamba2-7b")) is tz
+    for argv in (["--steps", "2"], ["--arch", "qwen3-4b", "--steps", "2"],
+                 ["--arch", "zamba2-7b", "--steps", "2"]):
         assert ttl.main(argv + ["--device", "cpu"]) == 0
         assert "smoke train OK" in capsys.readouterr().out
 
