@@ -2502,6 +2502,57 @@ LM_ZERO_LEAVES = ("bonus_u", "mix_x", "mix_base", "cm_mix_k", "cm_mix_r", "ln1",
 # float32; measured 0.0062 on an H100 at rwkv6-7b's full width, 2 layers,
 # with LM_ZERO_LEAVES drawn away from zero
 LM_DECODE_TOL = 0.02
+# A train step's peak as `training.train_loop.lower_train_step` predicts it
+# (the step traced on fake tensors on the card, the parameters, AdamW's
+# state and the batch held) against max_memory_allocated over the run's
+# steps: |predicted - measured| within this share of the measured peak.
+LM_PEAK_TOL = 0.10
+
+
+def _predict_step(dev, cfg, label, seq):
+    """`lower_train_step`'s prediction for one AdamW (3e-3) step of ``cfg``
+    at 1 x ``seq`` tokens on ``dev``: (analysis, modelled step s, seconds
+    the trace took). Prints its line under ``label``."""
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.roofline import make_report
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, lower_train_step
+
+    shape = torch.empty((1, seq), dtype=torch.int32, device="meta")
+    t0 = time.perf_counter()
+    analysis, _, _ = lower_train_step(cfg, {"tokens": shape, "labels": shape},
+                                      TrainConfig(optimizer=AdamWConfig(lr=3e-3)), dev)
+    trace_s = time.perf_counter() - t0
+    report = make_report(cfg, SHAPES["train_4k"], analysis, "train")
+    print(f"{label}: lower_train_step predicts (traced on fake tensors in {trace_s:.1f} s) a "
+          f"peak of {analysis.peak_bytes / 1e9:.3f} GB ({analysis.held_bytes / 1e9:.3f} GB "
+          f"held), graph flops {analysis.flops:.4e} "
+          f"({', '.join(f'{k} {v:.3e}' for k, v in sorted(analysis.flops_by_dtype.items()))}), "
+          f"bytes {analysis.hbm_bytes:.4e}, a modelled step of {report.step_time_s:.4f} s "
+          f"({report.dominant}-bound: compute {report.compute_s:.4f} s, memory "
+          f"{report.memory_s:.4f} s)")
+    return analysis, report.step_time_s, trace_s
+
+
+def _hold_prediction(key, label, analysis, modelled_s, trace_s, train_peak, warm):
+    """The predicted peak against the measured one within LM_PEAK_TOL
+    (raises otherwise); the measured warm step against the modelled one
+    (printed, not held). Returns the times under ``key``."""
+    err = (analysis.peak_bytes - train_peak) / train_peak
+    print(f"{label}: predicted peak {analysis.peak_bytes / 1e9:.3f} GB, measured "
+          f"{train_peak / 1e9:.3f} GB ({err:+.2%}, limit {LM_PEAK_TOL:.0%}); graph flops "
+          f"{analysis.flops:.4e}; modelled step {modelled_s:.4f} s, measured warm step "
+          f"{warm:.4f} s (measured / modelled {warm / modelled_s:.3f})")
+    if abs(err) > LM_PEAK_TOL:
+        raise AssertionError(f"{label}: predicted peak {analysis.peak_bytes / 1e9:.3f} GB is "
+                             f"{err:+.2%} off the measured {train_peak / 1e9:.3f} GB (limit "
+                             f"{LM_PEAK_TOL:.0%})")
+    return {f"{key} predicted peak GB": analysis.peak_bytes / 1e9,
+            f"{key} predicted peak err": err, f"{key} graph flops": analysis.flops,
+            f"{key} graph bytes": analysis.hbm_bytes, f"{key} modelled step s": modelled_s,
+            f"{key} step / modelled": warm / modelled_s, f"{key} lowering s": trace_s}
 
 
 def phase_lm(dev):
@@ -2515,7 +2566,10 @@ def phase_lm(dev):
     as drawn) drawn away from zero, the last decode's logits against the
     full forward's at the same position within LM_DECODE_TOL. No kernel
     of the port runs (the backbone trains through the chunked WKV6 form,
-    as the reference does). Returns ({kernel: launches}, times)."""
+    as the reference does). Before training, `lower_train_step` predicts
+    the step's peak from the port's graph on fake tensors; the measured
+    peak must be within LM_PEAK_TOL of it (`_hold_prediction`). Returns
+    ({kernel: launches}, times)."""
     import dataclasses
 
     import numpy as np
@@ -2528,6 +2582,7 @@ def phase_lm(dev):
     from repro_torch.training.train_loop import TrainConfig, build_train_step, lm_batches
 
     cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    predicted = _predict_step(dev, cfg, "lm", LM_SEQ)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()  # what the earlier phases still hold
     torch.cuda.reset_peak_memory_stats()
@@ -2598,6 +2653,7 @@ def phase_lm(dev):
              "lm params": n_params, "lm decode err": decode_err,
              "lm device activities a step": n_dev, "lm busy share": busy,
              "lm profiled step ms": prof_ms}
+    times.update(_hold_prediction("lm", "lm", *predicted, train_peak, warm))
     print(f"lm: {LM_ARCH} at full width ({cfg.d_model} / {cfg.d_ff} / vocab {cfg.vocab}, "
           f"{cfg.d_model // cfg.resolved_head_dim} heads of {cfg.resolved_head_dim}, "
           f"{cfg.dtype}, remat {cfg.remat}) cut to {LM_LAYERS} layers ({n_params} params): "
@@ -2702,9 +2758,11 @@ def _lm_run(dev, backbone, cfg, prompt, key, label, check=None, norms=TF_NORMS):
     the reference smoke's recipe with AdamW at 3e-3, one more under
     torch.profiler; then, with the leaves ``norms`` drawn away from their
     initial values, `_decode_errs` at ``check`` (default ``cfg``) over
-    ``prompt`` tokens. Returns its times under ``key`` (the decode errors
-    among them, for the caller to hold to its limit); prints under
-    ``label``."""
+    ``prompt`` tokens. Before training, `lower_train_step` predicts the
+    step's peak and its modelled time (`_predict_step`); the measured peak
+    is held to it within LM_PEAK_TOL (`_hold_prediction`). Returns its
+    times under ``key`` (the decode errors among them, for the caller to
+    hold to its limit); prints under ``label``."""
     import gc
 
     import numpy as np
@@ -2715,6 +2773,7 @@ def _lm_run(dev, backbone, cfg, prompt, key, label, check=None, norms=TF_NORMS):
     from repro_torch.training.train_loop import TrainConfig, build_train_step, lm_batches
 
     check = check or cfg
+    predicted = _predict_step(dev, cfg, label, TF_SEQ)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2758,6 +2817,7 @@ def _lm_run(dev, backbone, cfg, prompt, key, label, check=None, norms=TF_NORMS):
         f"{key} loss first": losses[0], f"{key} loss last": losses[-1],
         f"{key} device activities a step": n_dev, f"{key} busy share": busy,
         f"{key} profiled step ms": prof_ms}
+    times.update(_hold_prediction(key, label, *predicted, train_peak, warm))
     heads = (f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.resolved_head_dim}"
              if cfg.n_heads else "")
     print(f"{label}: published widths (d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "

@@ -71,9 +71,9 @@ _SIGNATURES = {
         "fex_fused_error_string": ([_I], ctypes.c_char_p),
     },
     "fma_rows": {
-        # d, xs, out, n, c, rows, stages, channels a block, flags, smem,
-        # stream
-        "fma_rows_launch": ([_P, _P, _P] + [_I] * 7 + [_P], _I),
+        # d, xs, out, n, c, the head channel, rows, stages, channels a
+        # block, flags, smem, stream
+        "fma_rows_launch": ([_P, _P, _P] + [_I] * 8 + [_P], _I),
         "fma_rows_error_string": ([_I], ctypes.c_char_p),
     },
     "gru_seq": {

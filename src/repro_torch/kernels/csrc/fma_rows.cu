@@ -1,12 +1,13 @@
 // The row chain of the linear detector's weight gradient: (N,) d and
 // (N, C) xs float32 -> (C,) float32, out[j] = acc after
 // acc = fma(d[i], xs[i][j], acc) over the rows i in order from acc = 0,
-// each step rounded once. At C = 1 and N > 32 the first 8 rows are
-// multiplied and added apart (acc = d[0] xs[0], then acc + d[i] xs[i],
-// product and sum each rounded) and the fused chain runs from row 8:
-// XLA's CPU code takes a one-channel product as a column-major GEMV whose
-// first tile is peeled. Up to 32 rows it fuses the dot into the
-// elementwise work, whose loop is the fused chain from row 0.
+// each step rounded once. On at most one channel, `head` (the wrapper's
+// `head_channel`: C = 1 past 32 rows, channel 0 at C = 2, channel C - 1 at
+// C = 8k + 1, from 3 rows), the first up to 8 rows are multiplied and
+// added apart (acc = d[0] xs[0], then acc + d[i] xs[i], product and sum
+// each rounded) and the fused chain runs from row 8: XLA's CPU code takes
+// the product as a column-major GEMV whose first row tile is compiled so
+// on that channel. Every other channel is the fused chain from row 0.
 //
 // Replaces no Pallas kernel: the reference's fit takes this product inside
 // XLA's compiled gradient (src/repro/serving/cascade.py:280,
@@ -54,7 +55,6 @@ constexpr int kMaxCols = 256;     // channels a block: 8 chain warps
 constexpr int kMaxStages = 16;    // chunks in flight
 constexpr int kHelpers = 4;       // warps that turn a chunk column-major
 constexpr int kGroup = 8;         // rows a chain step loads ahead
-constexpr int kFusedRows = 32;    // at C = 1, rows up to which no head is peeled
 constexpr int kBarBytes = 3 * kMaxStages * 8;
 constexpr int kMaxSmem = kBarBytes + 192 * 1024;  // barriers + the ring
 constexpr int kMaxDevices = 64;
@@ -80,8 +80,8 @@ __device__ __forceinline__ void mbar_wait_sleep(uint64_t* bar, unsigned parity) 
 }
 
 __global__ void fma_rows_kernel(const float* __restrict__ d, const float* __restrict__ xs,
-                                float* __restrict__ out, int n, int c, int rows, int stages,
-                                int cb, int flags) {
+                                float* __restrict__ out, int n, int c, int head_ch, int rows,
+                                int stages, int cb, int flags) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [kMaxStages] chunk landed
   uint64_t* ready = full + kMaxStages;                  // [kMaxStages] chunk column-major
@@ -209,6 +209,8 @@ __global__ void fma_rows_kernel(const float* __restrict__ d, const float* __rest
   // cycles a row on an H100, without them at ~4.6.
   const int j = warp * 32 + lane;
   const int jj = j < cols ? j : 0;
+  const int head_j = head_ch - j0;  // the head channel's lane in the block, if it is here
+  const bool head_warp = head_ch >= 0 && head_j >= warp * 32 && head_j < warp * 32 + 32;
   float acc = 0.0f;
   auto chain = [&](const float4 (&dd)[2], const float4 (&xx)[2]) {
     acc = __fmaf_rn(dd[0].x, xx[0].x, acc);
@@ -220,6 +222,23 @@ __global__ void fma_rows_kernel(const float* __restrict__ d, const float* __rest
     acc = __fmaf_rn(dd[1].z, xx[1].z, acc);
     acc = __fmaf_rn(dd[1].w, xx[1].w, acc);
   };
+  // In the warp that holds the head channel, the first chunk's first rows
+  // (up to kGroup) go first, before the chunk loop: multiplied and added
+  // apart on that lane (XLA's GEMV tile as compiled there), the fused
+  // chain on the others; the loop then starts chunk 0 past them.
+  int head_rows = 0;
+  if (head_warp && chunks > 0) {
+    mbar_wait(&ready[0], 0);
+    const float* d_s = ring;
+    const float* x_c = d_s + rows * (1 + ld) + jj * cstride;
+    head_rows = min(kGroup, n);
+    if (j == head_j) {
+      acc = __fmul_rn(d_s[0], x_c[0]);
+      for (int r = 1; r < head_rows; ++r) acc = __fadd_rn(__fmul_rn(d_s[r], x_c[r]), acc);
+    } else {
+      for (int r = 0; r < head_rows; ++r) acc = __fmaf_rn(d_s[r], x_c[r], acc);
+    }
+  }
   int st = 0;           // the stage of chunk k
   unsigned parity = 0;  // its ready barrier's phase parity
   for (int k = 0; k < chunks; ++k) {
@@ -227,21 +246,15 @@ __global__ void fma_rows_kernel(const float* __restrict__ d, const float* __rest
     const float* d_s = ring + st * stage_words;
     const float* x_c = d_s + rows * (1 + ld) + jj * cstride;
     const int nr = min(rows, n - k * rows);
-    // at C = 1 and n > kFusedRows the first chunk's first kGroup rows (a
-    // chunk holds at least kGroup rows) are multiplied and added apart,
-    // XLA's peeled GEMV tile
-    const int head = (k == 0 && c == 1 && n > kFusedRows) ? kGroup : 0;
-    if (head) {
-      acc = __fmul_rn(d_s[0], x_c[0]);
-      for (int r = 1; r < head; ++r) acc = __fadd_rn(__fmul_rn(d_s[r], x_c[r]), acc);
-    }
+    const int head = k == 0 ? head_rows : 0;
     const int groups = (nr - head) / kGroup;
     // the chunk's whole groups with nothing on the path but loads and
     // FMAs: the loads of the group after the last one read the stage's
-    // padding, not past it. They start a whole group in (after the head)
-    // or at the chunk's start, so the 16-byte loads stay aligned.
-    const float* dp = d_s + head;
-    const float* xp = x_c + head;
+    // padding, not past it. They start a whole group in (after a head,
+    // which is a whole group wherever a group follows it) or at the
+    // chunk's start, so the 16-byte loads stay aligned.
+    const float* dp = d_s + (head ? kGroup : 0);
+    const float* xp = x_c + (head ? kGroup : 0);
     auto load = [&](float4 (&dd)[2], float4 (&xx)[2]) {
       dd[0] = ld4(dp);
       dd[1] = ld4(dp + 4);
@@ -273,14 +286,16 @@ __global__ void fma_rows_kernel(const float* __restrict__ d, const float* __rest
 
 }  // namespace
 
-// d (n,) and xs (n, c) contiguous float32; out (c,) float32. rows (a
-// multiple of 8), stages, cb (channels a block) and flags (bit 0: d by bulk
-// copy, bit 1: xs by bulk copy, bit 2: no word copies at all) from the
-// wrapper's fma_rows_geometry;
+// d (n,) and xs (n, c) contiguous float32; out (c,) float32. head: the
+// channel whose first rows are taken apart, or -1 (the wrapper's
+// head_channel). rows (a multiple of 8), stages, cb (channels a block) and
+// flags (bit 0: d by bulk copy, bit 1: xs by bulk copy, bit 2: no word
+// copies at all) from the wrapper's fma_rows_geometry;
 // smem = 384 + stages * (rows * (1 + row words) + cb * (rows + 4) + 8) * 4.
-extern "C" int fma_rows_launch(const void* d, const void* xs, void* out, int n, int c, int rows,
-                               int stages, int cb, int flags, int smem, void* stream) {
-  if (n < 0 || c <= 0 || rows <= 0 || rows % kGroup || stages <= 0 || stages > kMaxStages ||
+extern "C" int fma_rows_launch(const void* d, const void* xs, void* out, int n, int c, int head,
+                               int rows, int stages, int cb, int flags, int smem, void* stream) {
+  if (n < 0 || c <= 0 || head < -1 || head >= c || rows <= 0 || rows % kGroup || stages <= 0 ||
+      stages > kMaxStages ||
       cb <= 0 || cb > kMaxCols || flags < 0 || flags > 7 || smem > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -298,7 +313,7 @@ extern "C" int fma_rows_launch(const void* d, const void* xs, void* out, int n, 
   const int threads = 32 * ((min(cb, c) + 31) / 32 + 1 + kHelpers);
   fma_rows_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(d), static_cast<const float*>(xs), static_cast<float*>(out), n, c,
-      rows, stages, cb, flags);
+      head, rows, stages, cb, flags);
   return static_cast<int>(cudaGetLastError());
 }
 

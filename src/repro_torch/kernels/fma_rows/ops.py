@@ -13,7 +13,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fma_rows.ref import fma_rows_ref
+from repro_torch.kernels.fma_rows.ref import fma_rows_ref, head_channel
 
 __all__ = ["FmaRowsGeometry", "fma_rows", "fma_rows_geometry", "stage_bytes"]
 
@@ -96,9 +96,9 @@ def fma_rows_geometry(n: int, c: int, d_aligned: bool = True,
 
 def fma_rows(d: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """acc = fma(d[i], xs[i], acc) over the rows i in order from acc = 0,
-    each step rounded once: (N,) and (N, C) float32 -> (C,) float32. At
-    C = 1 and more than `ref.FUSED_ROWS` rows the first `ref.HEAD_ROWS`
-    rows are multiplied and added apart (`fma_rows_ref`)."""
+    each step rounded once: (N,) and (N, C) float32 -> (C,) float32. On
+    the channel `ref.head_channel` names, the first rows (up to
+    `ref.HEAD_ROWS`) are multiplied and added apart (`fma_rows_ref`)."""
     if not build.route(xs, "fma_rows"):
         return fma_rows_ref(d, xs)
     if d.dtype != torch.float32 or xs.dtype != torch.float32:
@@ -116,8 +116,9 @@ def fma_rows(d: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     geo = fma_rows_geometry(n, c, d.data_ptr() % 16 == 0, xs.data_ptr() % 16 == 0)
     lib = build.library("fma_rows")
     with torch.cuda.device(xs.device):
-        rc = lib.fma_rows_launch(d.data_ptr(), xs.data_ptr(), out.data_ptr(), n, c, geo.rows,
-                                 geo.stages, geo.cols, geo.flags, geo.smem,
+        rc = lib.fma_rows_launch(d.data_ptr(), xs.data_ptr(), out.data_ptr(), n, c,
+                                 head_channel(n, c), geo.rows, geo.stages, geo.cols, geo.flags,
+                                 geo.smem,
                                  torch.cuda.current_stream(xs.device).cuda_stream)
     build.check("fma_rows", rc)
     build.launches["fma_rows"] += 1

@@ -279,17 +279,24 @@ def _xla_sum(v: torch.Tensor) -> torch.Tensor:
 def _xla_logits(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """z = xs @ w + b in `_fit_grad`'s order."""
     n, c = xs.shape
-    if c == 1:
-        return fma_f32(xs[:, 0], w.expand(n), b.expand(n))
+    if c == 1 or n == 1:  # a chain of fused multiply-adds from b
+        acc = b.expand(n)
+        for j in range(c):
+            acc = fma_f32(xs[:, j], w[j].expand(n), acc)
+        return acc
     tiled = c - c % 8
     parts = []
     if tiled:
         lanes = torch.zeros((n, 8), dtype=xs.dtype, device=xs.device)
         for c0 in range(0, tiled, 8):
             lanes = fma_f32(xs[:, c0:c0 + 8], w[c0:c0 + 8].expand(n, 8), lanes)
-        while lanes.shape[1] > 1:
-            lanes = lanes[:, 0::2] + lanes[:, 1::2]
-        parts.append(lanes[:, 0])
+        whole = n - n % 8  # rows in whole 8-row tiles: an adjacent pairwise tree
+        pairs, halves = lanes[:whole], lanes[whole:]  # the last rows: lane i + lane i + 4, ...
+        while pairs.shape[1] > 1:
+            pairs = pairs[:, 0::2] + pairs[:, 1::2]
+            half = halves.shape[1] // 2
+            halves = halves[:, :half] + halves[:, half:]
+        parts.append(torch.cat([pairs[:, 0], halves[:, 0]]))
     if tiled < c:
         tail = torch.zeros(n, dtype=xs.dtype, device=xs.device)
         for j in range(tiled, c):
@@ -301,22 +308,25 @@ def _xla_logits(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 def _fit_grad(xs: torch.Tensor, ys: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     """(dL/dw, dL/db) of mean(softplus(xs @ w + b) - ys * (xs @ w + b)) as
     the reference's compiled ``jit(grad(loss))`` computes it (jax 0.9.0,
-    the CPU). At C >= 2, z = xs @ w is XLA's row-major GEMV with 8-column
-    tiles: the first C - C % 8 columns summed in 8 lanes (column j in lane
-    j mod 8, fused multiply-adds from 0, the lanes added as an adjacent
-    pairwise tree), the last C % 8 columns a chain of fused multiply-adds
+    the CPU). At C >= 2 and N >= 2, z = xs @ w is XLA's row-major GEMV
+    with 8-row, 8-column tiles: the first C - C % 8 columns summed in 8
+    lanes (column j in lane j mod 8, fused multiply-adds from 0), the lanes
+    added as an adjacent pairwise tree in a whole 8-row tile and as a
+    halving tree (lane i + lane i + 4, then i + i + 2, then 0 + 1) in the
+    last N % 8 rows; the last C % 8 columns a chain of fused multiply-adds
     from 0, and the two parts added (+ 0.0 where one is absent); then + b.
-    At C = 1 XLA folds the product into the elementwise fusion, where it
-    contracts with + b: z = fma(xs, w, b). dz = fma(exp(z - softplus(z)),
-    1/N, -y/N), softplus as max(z, 0) + log1p(exp(-|z|)); dL/dw a chain
-    of fused multiply-adds over the rows from 0 (`kernels.fma_rows`; at
-    C = 1 and N > 32 its first 8 rows multiplied and added apart, XLA's
-    column-major GEMV; at C = 1 and N <= 32 XLA fuses the dot into the
-    elementwise work that forms dz, whose loop is the fused chain from
-    row 0); dL/db `_xla_sum` of dz. Read from the compiled code at N = 600
-    (C = 1, 5, 12, 20) and N = 16 (C = 1). Held equal at C = 1 for every
-    N, and at C = 5, 12, 16, 20 for N a multiple of 8; other widths and
-    row counts are not followed (ROADMAP, F5's residue at C >= 2)."""
+    At C = 1 or N = 1 the product is a chain of fused multiply-adds from
+    b over the channels. dz = fma(exp(z - softplus(z)), 1/N, -y/N),
+    softplus as max(z, 0) + log1p(exp(-|z|)); dL/dw XLA's column-major
+    GEMV, a chain of fused multiply-adds over the rows from 0
+    (`kernels.fma_rows`), but on one channel, `fma_rows.ref.head_channel`
+    (C = 1 past 32 rows; channel 0 at C = 2 and the one channel past the
+    8-channel tiles at C = 8k + 1, from 3 rows), its first 8 rows
+    multiplied and added apart; dL/db `_xla_sum` of dz. Read from the
+    compiled code (``--xla_dump_to``: IR and object code) at N = 600
+    (C = 1, 5, 12, 20), N = 16 (C = 1, 5, 9, 16), N = 6 (C = 2, 5, 16),
+    N = 14 and 8 (C = 16) and N = 1 (C = 2, 16); held equal at every
+    width 1-24 and row count of `tests/test_torch_cascade.py`'s map."""
     n = xs.shape[0]
     z = _xla_logits(xs, w, b)
     y, pow2n = _exp_parts(-z.abs())

@@ -37,6 +37,12 @@ counterpart of the reference's one kernel per shard under ``shard_map``.
 state bitwise (`repro_torch.serving.autoscale.Autoscaler` drives it
 from occupancy and latency), and `recover_shard_loss` shrinks the fleet
 onto the surviving shards after one is lost.
+
+The LM side: `lower_prefill` and `lower_decode_step` trace a backbone's
+prefill and one decode step on fake tensors under
+`repro_torch.launch.roofline.GraphAnalysis` (the dry run's serving cells:
+FLOPs, HBM bytes, peak memory on one device, nothing allocated);
+`serve_batch_shape` / `prefill_batch_shape` give their inputs' shapes.
 """
 
 from __future__ import annotations
@@ -56,9 +62,93 @@ from repro_torch.serving.autoscale import StreamRouter, shard_of_slot
 from repro_torch.serving.ingress import TickHandle
 from repro_torch.serving.metrics import MetricsRegistry
 
-__all__ = ["ServerState", "StreamingKWSServer"]
+__all__ = ["ServerState", "StreamingKWSServer", "serve_batch_shape", "prefill_batch_shape",
+           "lower_decode_step", "lower_prefill"]
 
 _TICK_IMPLS = ("auto",)
+
+
+# --------------------------------------------------------------------------
+# LM serving: the dry run's prefill and decode cells
+# --------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def serve_batch_shape(arch_cfg, shape_spec) -> Dict[str, torch.Tensor]:
+    """One decode step's input for the given shape, as ``meta`` tensors
+    (the reference's ShapeDtypeStructs): a token, or an embedding, a row."""
+    b = shape_spec.global_batch
+    if arch_cfg.frontend == "embedding":
+        return {"embeddings": _meta((b, 1, arch_cfg.d_model), arch_cfg.activation_dtype)}
+    return {"tokens": _meta((b, 1), torch.int32)}
+
+
+def prefill_batch_shape(arch_cfg, shape_spec) -> Dict[str, torch.Tensor]:
+    """A prefill's prompt for the given shape, as ``meta`` tensors."""
+    b, s = shape_spec.global_batch, shape_spec.seq_len
+    if arch_cfg.frontend == "embedding":
+        return {"embeddings": _meta((b, s, arch_cfg.d_model), arch_cfg.activation_dtype)}
+    return {"tokens": _meta((b, s), torch.int32)}
+
+
+def lower_decode_step(arch_cfg, shape_spec, device=None):
+    """One decode step at (batch, cache length) = the shape's (global
+    batch, seq_len), traced on fake tensors: returns ``(analysis,
+    params_shape, cache_shape)``, the step's `GraphAnalysis` with the
+    parameters, the cache `init_cache` makes and the step's input held (the
+    new cache the step returns counts among its outputs); a config that
+    serves its experts quantized has int8 expert banks
+    (`models.moe_quant`). Unlike the reference's
+    ``lower_decode_step(arch_cfg, rules, shape_spec)`` it takes no sharding
+    rules but the ``device`` of the fake tensors (default: the card)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.build import resolve_device
+    from repro_torch.launch.roofline import GraphAnalysis
+    from repro_torch.models.moe_quant import quantize_expert_params
+    from repro_torch.models.registry import get_backbone
+    from repro_torch.training.train_loop import fake_like
+
+    device = resolve_device(device)
+    backbone = get_backbone(arch_cfg)
+    b, s = shape_spec.global_batch, shape_spec.seq_len
+    with FakeTensorMode():
+        params = backbone.init_params(torch.Generator().manual_seed(0), arch_cfg, device=device)
+        if arch_cfg.serve_quant:
+            params = quantize_expert_params(params)
+        cache = backbone.init_cache(arch_cfg, b, s, device=device)
+        batch = fake_like(serve_batch_shape(arch_cfg, shape_spec), device)
+        cache_len = torch.zeros((), dtype=torch.int32, device=device)
+        analysis = GraphAnalysis()
+        analysis.hold((params, cache, batch, cache_len))
+        with analysis:
+            backbone.decode_step(params, cache, cache_len, batch, arch_cfg)
+    return analysis, params, cache
+
+
+def lower_prefill(arch_cfg, shape_spec, device=None):
+    """A prefill of the shape's (global batch, seq_len) prompt traced on
+    fake tensors: returns ``(analysis, params_shape)``, the parameters and
+    the prompt held. No sharding rules: one device (default: the card)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.build import resolve_device
+    from repro_torch.launch.roofline import GraphAnalysis
+    from repro_torch.models.registry import get_backbone
+    from repro_torch.training.train_loop import fake_like
+
+    device = resolve_device(device)
+    backbone = get_backbone(arch_cfg)
+    with FakeTensorMode():
+        params = backbone.init_params(torch.Generator().manual_seed(0), arch_cfg, device=device)
+        batch = fake_like(prefill_batch_shape(arch_cfg, shape_spec), device)
+        analysis = GraphAnalysis()
+        analysis.hold((params, batch))
+        with analysis:
+            backbone.prefill(params, batch, arch_cfg)
+    return analysis, params
 
 
 @dataclasses.dataclass

@@ -6,8 +6,10 @@ accumulation over microbatches (float32 sums from zeros, then ``/ mb``;
 the loss the mean of the microbatches' losses), a schedule-driven
 learning rate, `adamw_update` with its global-norm clip, and the
 metrics ``loss`` and ``grad_norm``. The reference's mesh and sharding
-rules are not ported: the step runs on one device. Its abstract lowering
-(`lower_train_step`, the dry run's entry) waits for ``launch/*``.
+rules are not ported: the step runs on one device. `lower_train_step`,
+the dry run's entry (`repro_torch.launch.dryrun`), traces the step on fake
+tensors under `launch.roofline.GraphAnalysis`: its FLOPs, HBM bytes and
+peak memory, nothing allocated.
 
     python -m repro_torch.training.train_loop [--arch rwkv6-7b] [--steps 30]
         [--device cpu]
@@ -35,7 +37,8 @@ from repro_torch.kernels.build import resolve_device
 from repro_torch.models.registry import get_backbone
 from repro_torch.training.optimizer import AdamWConfig, adamw_update, init_opt_state, tree_map
 
-__all__ = ["TrainConfig", "build_train_step", "value_and_grad", "lm_batches", "main"]
+__all__ = ["TrainConfig", "build_train_step", "value_and_grad", "lm_batches",
+           "lower_train_step", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +99,48 @@ def build_train_step(arch_cfg, train_cfg: TrainConfig = TrainConfig(), device=No
         return params, opt_state, metrics
 
     return train_step
+
+
+def fake_like(shapes, device) -> dict:
+    """Zero tensors of ``shapes``' shapes and dtypes (a dict of tensors,
+    e.g. on ``meta``, standing in for the reference's ShapeDtypeStructs)
+    on ``device``; called under a `FakeTensorMode`, they allocate nothing."""
+    return {k: torch.zeros(tuple(v.shape), dtype=v.dtype, device=device)
+            for k, v in shapes.items()}
+
+
+def lower_train_step(arch_cfg, batch_shape, train_cfg: TrainConfig = TrainConfig(),
+                     device=None):
+    """The dry run's entry: one update step of ``arch_cfg`` traced on fake
+    tensors, nothing allocated. Returns ``(analysis, params_shape,
+    opt_shape)``: the step's `launch.roofline.GraphAnalysis` (FLOPs by
+    dtype, HBM bytes, the peak of live bytes with the parameters, the
+    optimizer state and the batch held throughout, as a training loop holds
+    them) and the fake parameter and optimizer-state trees.
+
+    Unlike the reference's ``lower_train_step(arch_cfg, rules, batch_shape,
+    train_cfg)`` it takes no sharding rules (one device) but the
+    ``device`` the fake tensors live on (default: the card through
+    `resolve_device`); ``batch_shape`` is a dict of tensors (``meta`` ones
+    will do) whose shapes and dtypes stand in for ShapeDtypeStructs. The
+    parameters are drawn from a CPU `torch.Generator` as `init_params` draws
+    them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.roofline import GraphAnalysis
+
+    device = resolve_device(device)
+    backbone = get_backbone(arch_cfg)
+    with FakeTensorMode():
+        params = backbone.init_params(torch.Generator().manual_seed(0), arch_cfg, device=device)
+        opt = init_opt_state(params, train_cfg.optimizer)
+        batch = fake_like(batch_shape, device)
+        step = build_train_step(arch_cfg, train_cfg, device)
+        analysis = GraphAnalysis()
+        analysis.hold((params, opt, batch))
+        with analysis:
+            step(params, opt, batch)
+    return analysis, params, opt
 
 
 def lm_batches(vocab: int, steps: int, batch: int = 8, seq: int = 32, seed: int = 0,

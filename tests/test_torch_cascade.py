@@ -11,11 +11,13 @@ branch of the serving tick) against the reference's XLA tier.
   `fit_linear_detector` array-equal to the reference's fit (the port's
   gradient in the order of the reference's compiled jit(grad)) over
   seeds 0-4 at 100 and 200 full-batch steps and 1, 5, 12, 16 and 20
-  channels, both separating; at one channel also over 1-17 frames, and
-  its gradient equal to the reference's compiled ``jit(grad)`` at 1-64
-  rows. ``python tests/test_torch_cascade.py`` prints, for widths 1-24
-  and 2-602 rows, where the gradient is not yet the reference's (ROADMAP
-  queue 3, F5's residue at C >= 2).
+  channels, both separating; at one channel also over 1-17 frames, at
+  16 channels over 3, 7, 13 and 150 frames; its gradient equal to the
+  reference's compiled ``jit(grad)`` at one channel and 1-64 rows, at 16
+  channels and 1-64, 600, 602, 992 and 994 rows, and at the (width, rows)
+  cells where F11 was found. ``python tests/test_torch_cascade.py``
+  prints, for widths 1-33 and 1-602 rows, how many draws give a gradient
+  unequal to the reference's (ROADMAP queue 3, F5 and F11).
 - Servers against the reference's ``tick_impl="xla"`` servers:
   `always_on()` against the ungated server for every backend, the
   reference's LOUD / SILENCE cases, and energy / linear gates on
@@ -279,9 +281,39 @@ def test_fit_grad_at_one_channel_equals_the_compiled_gradient(n):
     assert _fit_grad_mismatches(n, 1, draws=20) == (0, 0)
 
 
+# F11, repaired: the cells where the gradient at C >= 2 was not the
+# reference's (C = 2 from 6 rows; C >= 8 at row counts off 8; C = 8k + 1 at
+# multiples of 8 too; one row at every width), now equal on every draw.
+F11_CELLS = ([(c, n) for c in (2, 8, 9, 12, 17, 20, 24) for n in (1, 2, 3, 6, 14, 34, 602)]
+             + [(c, n) for c in (2, 9, 17) for n in (8, 16, 24, 32, 48, 96, 104)])
+
+
+@pytest.mark.parametrize("channels,n", F11_CELLS)
+def test_fit_grad_equals_the_compiled_gradient(channels, n):
+    assert _fit_grad_mismatches(n, channels, draws=20) == (0, 0)
+
+
+# The die's width at every row count: the last N % 8 rows of z's GEMV sum
+# their lanes as a halving tree, one row is a chain from b.
+@pytest.mark.parametrize("n", list(range(1, 65)) + [600, 602, 992, 994])
+def test_fit_grad_at_the_dies_width_equals_the_compiled_gradient(n):
+    assert _fit_grad_mismatches(n, 16, draws=10) == (0, 0)
+
+
 @pytest.mark.parametrize("frames", [1, 8, 16, 17])
 def test_fit_linear_detector_at_one_channel_over_few_frames(frames):
     speech, silence = _detector_frames(frames, 1)
+    jw, jb = jc.fit_linear_detector(speech[:frames], silence[:frames], steps=100)
+    tw, tb = tc.fit_linear_detector(speech[:frames], silence[:frames], steps=100)
+    np.testing.assert_allclose(tw, jw, rtol=0, atol=FIT_W_ATOL)
+    assert tb == pytest.approx(jb, abs=FIT_B_ATOL)
+
+
+# the die's width over frame counts that are not multiples of 4 (N = 2 x
+# frames rows, off XLA's 8-row tiles)
+@pytest.mark.parametrize("frames", [3, 7, 13, 150])
+def test_fit_linear_detector_at_the_dies_width_over_any_frame_count(frames):
+    speech, silence = _detector_frames(frames, 16)
     jw, jb = jc.fit_linear_detector(speech[:frames], silence[:frames], steps=100)
     tw, tb = tc.fit_linear_detector(speech[:frames], silence[:frames], steps=100)
     np.testing.assert_allclose(tw, jw, rtol=0, atol=FIT_W_ATOL)
@@ -613,9 +645,9 @@ def test_frontend_state_kinds_are_unchanged_by_the_cascade(setup):
 
 
 if __name__ == "__main__":
-    # The map behind F5's residue: for each width and row count, how many
-    # of 20 seeded (w, b) give a dL/dw, and a dL/db, of `_fit_grad` unequal
-    # to the reference's compiled gradient.
-    for c in (1, 2, 3, 5, 7, 8, 9, 12, 16, 17, 20, 24):
+    # The map behind F5 and F11: for each width and row count, how many of
+    # 20 seeded (w, b) give a dL/dw, and a dL/db, of `_fit_grad` unequal to
+    # the reference's compiled gradient.
+    for c in (1, 2, 3, 5, 7, 8, 9, 12, 16, 17, 20, 24, 25, 26, 33):
         print(f"C={c}", {n: _fit_grad_mismatches(n, c, draws=20)
-                         for n in (2, 6, 8, 14, 16, 24, 32, 34, 48, 96, 104, 600, 602)})
+                         for n in (1, 2, 3, 6, 8, 14, 16, 24, 32, 34, 48, 96, 104, 600, 602)})

@@ -16,7 +16,7 @@ from repro_torch.core.fex import fma_f32
 from repro_torch.kernels.fma_rows import fma_rows
 from repro_torch.kernels.fma_rows import ops as fma_ops
 from repro_torch.kernels.fma_rows.ops import fma_rows_geometry
-from repro_torch.kernels.fma_rows.ref import FUSED_ROWS, HEAD_ROWS
+from repro_torch.kernels.fma_rows.ref import FUSED_ROWS, HEAD_ROWS, head_channel
 
 # acc, then p = d1 * x1: float64 rounds acc + p onto a float32 midpoint,
 # which float32 rounds to even (the last value) while the fused step
@@ -29,22 +29,38 @@ MIDPOINTS = {
 
 
 def _chain(d, xs):
-    """The chain step by step; at one channel and more than 32 rows its
-    first 8 rows multiplied and added apart."""
-    head = HEAD_ROWS if xs.shape[1] == 1 and xs.shape[0] > FUSED_ROWS else 0
-    acc = torch.zeros(xs.shape[1])
-    for i in range(xs.shape[0]):
-        if i < head:
-            acc = d[i] * xs[i] if i == 0 else acc + d[i] * xs[i]
-        else:
-            acc = fma_f32(d[i].expand_as(acc), xs[i], acc)
-    return acc
+    """The chain step by step, channel by channel; on the head channel (at
+    one channel past 32 rows; channel 0 at C = 2 and channel C - 1 at
+    C = 8k + 1, from 3 rows) its first 8 rows multiplied and added apart."""
+    n, c = xs.shape
+    out = torch.zeros(c)
+    for j in range(c):
+        head = HEAD_ROWS if j == head_channel(n, c) else 0
+        acc = torch.zeros(())
+        for i in range(n):
+            if i < head:
+                acc = d[i] * xs[i, j] if i == 0 else acc + d[i] * xs[i, j]
+            else:
+                acc = fma_f32(d[i], xs[i, j], acc)
+        out[j] = acc
+    return out
+
+
+@pytest.mark.parametrize("n,c,want", [
+    (0, 1, -1), (32, 1, -1), (33, 1, 0), (2, 2, -1), (3, 2, 0), (600, 2, 0), (2, 9, -1),
+    (3, 9, 8), (602, 17, 16), (992, 16, -1), (5, 3, -1), (600, 10, -1), (40, 257, 256)])
+def test_head_channel(n, c, want):
+    """The channel XLA's compiled GEMV takes apart in its first row tile."""
+    assert head_channel(n, c) == want
 
 
 @pytest.mark.parametrize("n,c,tiny", [(0, 3, False), (1, 1, False), (7, 5, False),
                                       (300, 16, False), (992, 16, False), (64, 33, False),
                                       (50, 8, True), (5, 1, False), (32, 1, False),
-                                      (33, 1, False), (600, 1, False), (50, 1, True)])
+                                      (33, 1, False), (600, 1, False), (50, 1, True),
+                                      (2, 2, False), (3, 2, False), (602, 2, False),
+                                      (6, 9, False), (994, 17, False), (50, 9, True),
+                                      (300, 257, False)])
 def test_plain_version_is_the_fused_chain(n, c, tiny):
     """``tiny``: products of ~1e-30 and ~1e-10, summed in float32's
     subnormal range."""

@@ -1132,10 +1132,15 @@ def test_wkv6_wrapper_rejects_dtypes_and_head_sizes(dev):
 # the fit's (992, 16); a row group's tail (1001, 5 rows); more chunks than
 # stages (4000, 33); slices of rows by words (10, 300); no rows; one
 # channel, its first 8 rows apart (600, 1), no head up to 32 rows (5, 1),
-# (32, 1) and a head past them (33, 1), a head then one more chunk (257, 1)
+# (32, 1) and a head past them (33, 1), a head then one more chunk (257, 1);
+# the head channel at C = 2 and C = 8k + 1 (none at 2 rows, a head shorter
+# than 8 rows at 3 and 6, one in the second block at C = 257 and 265) and
+# the die's width at row counts off 8 (994, 14) and at one row
 @pytest.mark.parametrize("n,c", [(1, 1), (992, 16), (5, 200), (1001, 7), (4000, 33), (0, 4),
                                  (10, 300), (600, 5), (600, 1), (5, 1), (32, 1), (33, 1),
-                                 (257, 1)])
+                                 (257, 1), (2, 2), (3, 2), (602, 2), (3, 9), (6, 9), (16, 9),
+                                 (994, 17), (300, 257), (40, 265), (994, 16), (14, 16),
+                                 (1, 16)])
 def test_fma_rows_kernel_equals_plain(dev, n, c):
     g = torch.Generator(device=dev).manual_seed(n + c)
     d = torch.randn(n, generator=g, device=dev) * 1e-3
@@ -1552,3 +1557,46 @@ def test_transformer_train_step_and_decode_on_the_card_equal_the_cpus(dev, arch)
     for got, want in ((logits, clogits), (logits2, clogits2)):
         assert got.is_cuda
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-3b-a800m", "rwkv6-7b", "zamba2-7b"])
+def test_lower_train_step_predicts_the_cards_peak(dev, arch):
+    """The reduced config's train step at 4 x 512 tokens: the peak
+    `lower_train_step` predicts from the port's graph on fake tensors on
+    the card, against max_memory_allocated over the same step run for real
+    (parameters drawn on the card, after one untimed step that makes the
+    process's one-time allocations, cuBLAS's workspace among them), within
+    2 %; no kernel of the port launches. The graph's FLOPs and bytes on
+    the card are the CPU's (the backward's operations, which run on the
+    autograd engine's device thread, are counted)."""
+    import gc
+
+    from repro_torch.launch.dryrun import train_batch_shape
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.models.registry import get_backbone
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import TrainConfig, build_train_step, lower_train_step
+
+    cfg = get_config(arch).reduced()
+    shape = train_batch_shape(cfg, ShapeSpec("t", "train", 512, 4))
+    predicted, _, _ = lower_train_step(cfg, shape, TrainConfig(), dev)
+    on_cpu, _, _ = lower_train_step(cfg, shape, TrainConfig(), "cpu")
+    assert (predicted.flops, predicted.hbm_bytes) == (on_cpu.flops, on_cpu.hbm_bytes)
+    backbone, step = get_backbone(cfg), build_train_step(cfg, TrainConfig(), dev)
+    build.launches.clear()
+    peaks = []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = backbone.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        opt = init_opt_state(params, TrainConfig().optimizer)
+        batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev) for k, v in shape.items()}
+        _, _, metrics = step(params, opt, batch)
+        assert torch.isfinite(metrics["loss"])
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        del params, opt, batch, metrics
+    assert not build.launches
+    assert abs(predicted.peak_bytes - peaks[-1]) <= 0.02 * peaks[-1], (predicted.peak_bytes, peaks)
