@@ -72,10 +72,10 @@ plain PyTorch version on the card:
      features) equal to the CPU plain path;
  12. QAT training through `training.kws.train` (the entry point of
      ``python -m repro_torch.training.kws``): the synthetic corpus (24
-     clips a class, test set seed 1) recorded on the card (K1), 100 steps
+     clips a class, test set seed 1) recorded on the card (K1), 50 steps
      at batch 64 with AdamW and ReduceLROnPlateau and a checkpoint, whose
      leaves are held equal to the state it saved, then a run resumed from
-     it to step 200; the loss falls, test accuracy beats 1/12, the integer
+     it to step 100; the loss falls, test accuracy beats 1/12, the integer
      replay (K2) gives the QAT model's logits and confusion matrix; one
      step's gradients on the card within 1e-5 of max |g| of the same step
      on the CPU; a warm step's time, and its device activities and busy
@@ -109,7 +109,7 @@ plain PyTorch version on the card:
      time, plain time and bound), then all kernels in one JSON line;
  16. data-parallel QAT training through `training.kws.train(dp=4,
      compress_grads=True, devices=["cuda:0"] * 4)`: the reference
-     example's recipe on four shards of the one card, 20 steps (the
+     example's recipe on four shards of the one card, 10 steps (the
      corpus by K1, the integer replay by K2); the first step's loss,
      synced gradients and per-shard residuals against the same step on
      the CPU, a plain DP step against the single-device step; s a step;
@@ -125,7 +125,15 @@ plain PyTorch version on the card:
      of a profiled step), a prefill and 16 decode steps whose logits equal
      a full forward's within a bfloat16 tolerance (gemma2's 4100-token
      prompt wraps its local rings);
- 19. the result line ``{"ok": true, "device": {...}}``.
+ 19. the model-axis MoE route (`phase_moe_grid`) on device grids whose
+     entries are all the card: granite-moe-3b at full width on a (1, 16)
+     grid, 40 experts padded to 48, at the depth `lower_train_step(...,
+     rules=)` predicts to fit 80 GB (the measured peak held to it), its
+     first step against the one-card route's within a bfloat16 bound, 3
+     steps; kimi-k2's full-width MoE layer on a (2, 8) grid with FSDP, 128
+     decode tokens on the weights-stationary path, bf16 and int8 banks, y
+     against the one-card route's, ms a layer and its busy share;
+ 20. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
@@ -2216,7 +2224,9 @@ def _entry_points(dev):
 
 
 TRAIN_PER_CLASS = 24  # the reference example's corpus: 24 clips a class, test set seed 1
-TRAIN_STEPS = 200  # two runs of 100: the second resumes from the first's checkpoint
+# two runs of 50: the second resumes from the first's checkpoint (200 until
+# the script's time grew past three quarters of its limit)
+TRAIN_STEPS = 100
 TRAIN_BATCH = 64
 # a step's gradients on the card against the same step on the CPU, per
 # leaf, max |difference| / max |gradient|: the forward is equal on the
@@ -2393,7 +2403,7 @@ def phase_train(dev):
 
 
 DP_SHARDS = 4  # data-parallel shards, all on the one card
-DP_STEPS = 20
+DP_STEPS = 10  # 20 until the script's time grew past three quarters of its limit
 
 
 def phase_train_dp(dev):
@@ -2509,9 +2519,10 @@ LM_DECODE_TOL = 0.02
 LM_PEAK_TOL = 0.10
 
 
-def _predict_step(dev, cfg, label, seq):
+def _predict_step(dev, cfg, label, seq, rules=None):
     """`lower_train_step`'s prediction for one AdamW (3e-3) step of ``cfg``
-    at 1 x ``seq`` tokens on ``dev``: (analysis, modelled step s, seconds
+    at 1 x ``seq`` tokens on ``dev`` (with sharding ``rules``, every body
+    of the MoE route's device grid): (analysis, modelled step s, seconds
     the trace took). Prints its line under ``label``."""
     import torch
 
@@ -2523,7 +2534,7 @@ def _predict_step(dev, cfg, label, seq):
     shape = torch.empty((1, seq), dtype=torch.int32, device="meta")
     t0 = time.perf_counter()
     analysis, _, _ = lower_train_step(cfg, {"tokens": shape, "labels": shape},
-                                      TrainConfig(optimizer=AdamWConfig(lr=3e-3)), dev)
+                                      TrainConfig(optimizer=AdamWConfig(lr=3e-3)), dev, rules)
     trace_s = time.perf_counter() - t0
     report = make_report(cfg, SHAPES["train_4k"], analysis, "train")
     print(f"{label}: lower_train_step predicts (traced on fake tensors in {trace_s:.1f} s) a "
@@ -2887,6 +2898,264 @@ def phase_transformer(dev):
     return counts, times
 
 
+GRID_ARCH = "granite-moe-3b-a800m"
+GRID_SHAPE = (1, 16)  # ("data", "model"): 40 experts padded to 48, 3 a model shard
+# The deepest stack `lower_train_step(cfg, ..., rules=)` predicts to fit
+# GRID_MEMORY at 1 x TF_SEQ tokens on the (1, 16) grid (fake tensors, the
+# port's own graph): 20 layers 76.949 GB, 21 layers 80.713 GB. The phase
+# traces 20 again on the card and holds the measured peak to it.
+GRID_LAYERS = 20
+GRID_MEMORY = 80e9
+GRID_STEPS = 3
+# bfloat16: the grid's first step against the one-card route's on the same
+# weights, |relative difference| of the loss and of grad_norm. At one data
+# shard the capacity is the one-card route's and the padded experts are
+# never routed, so only the psum's order over the 16 model shards differs;
+# bf16 rounding then moves later layers' routing near its ties. The bounds
+# are ~3x the one-card route's own bf16 error against float32 (0.0027 loss,
+# 0.016 grad_norm) and ~10x the grid's distance from it (0.00089, 0.0094),
+# both measured on a narrow granite (d_model 256, 4 layers, 40 experts of
+# 64, top-8, (1, 16) grid): `python tests/test_torch_moe_grid.py`.
+GRID_LOSS_TOL = 1e-2
+GRID_GNORM_TOL = 5e-2
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_GRID = (2, 8)  # FSDP over "data": t_loc * top_k = 64 * 8 <= 4096, stationary
+KIMI_TOKENS = 128  # decode_32k's global batch, one token each
+KIMI_CHUNK = 32  # experts a chunk when drawing and quantizing the banks
+KIMI_REPS = 5
+# bfloat16 y of the grid's stationary path against the one-card route, max
+# |difference| / max |y|: up and gate are summed over the two FSDP pieces
+# of d_model in bf16. ~3x the one-card route's own bf16 error against
+# float32 at narrow widths (<= 0.0094 at d_model 1024; the grid's distance
+# <= 0.0097): `python tests/test_torch_moe_grid.py`.
+KIMI_Y_TOL = 0.03
+
+
+def _draw_bank(gen, shape, fan_in, dtype):
+    """A (E, a, b) expert bank of N(0, 1 / fan_in) in ``dtype``, drawn on
+    ``gen``'s device KIMI_CHUNK experts at a time (the float32 draw of a
+    whole kimi bank is 22.5 GB)."""
+    import torch
+
+    from repro_torch.models.layers import dense_init
+
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for e0 in range(0, shape[0], KIMI_CHUNK):
+        n = min(KIMI_CHUNK, shape[0] - e0)
+        out[e0:e0 + n] = dense_init(gen, (n,) + tuple(shape[1:]), fan_in=fan_in).to(dtype)
+    return out
+
+
+def _quantize_bank(w):
+    """`models.moe_quant.quantize_expert_params` of one bank, KIMI_CHUNK
+    experts at a time (row scales: the chunks are exact)."""
+    import torch
+
+    from repro_torch.models.moe_quant import quantize_expert_params
+
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty(tuple(w.shape[:-1]) + (1,), dtype=torch.float32, device=w.device)
+    for e0 in range(0, w.shape[0], KIMI_CHUNK):
+        part = quantize_expert_params({"moe": {"w_up": w[e0:e0 + KIMI_CHUNK]}})["moe"]["w_up"]
+        q[e0:e0 + KIMI_CHUNK] = part["q"]
+        s[e0:e0 + KIMI_CHUNK] = part["s"]
+    return {"q": q, "s": s}
+
+
+def _grid_granite(dev, times):
+    """granite-moe-3b at full width on a GRID_SHAPE grid of the card,
+    GRID_LAYERS deep: the predicted peak held, the first step against the
+    one-card route on the same weights, GRID_STEPS steps timed."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh, ShardingRules, make_mesh_context
+    from repro_torch.models import transformer
+    from repro_torch.training.optimizer import AdamWConfig, global_norm, init_opt_state
+    from repro_torch.training.train_loop import (TrainConfig, build_train_step, lm_batches,
+                                                 value_and_grad)
+
+    cfg = dataclasses.replace(get_config(GRID_ARCH), n_layers=GRID_LAYERS)
+    rules = ShardingRules(mesh=Mesh(GRID_SHAPE, ("data", "model"), dev))
+    label = f"moe grid {GRID_ARCH} {GRID_SHAPE}"
+    predicted = _predict_step(dev, cfg, label, TF_SEQ, rules)
+    if predicted[0].peak_bytes > GRID_MEMORY:
+        raise AssertionError(f"{label}: {GRID_LAYERS} layers predicted at "
+                             f"{predicted[0].peak_bytes / 1e9:.3f} GB, past {GRID_MEMORY / 1e9} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what the earlier phases still hold
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                                     make_mesh_context(rules), device=dev)
+    e_pad = params["layers"]["slot0_moe"]["moe"]["w_up"].shape[1]
+    if e_pad != 48:
+        raise AssertionError(f"{label}: {e_pad} experts, want 40 padded to 48")
+    batches = list(lm_batches(cfg.vocab, GRID_STEPS, batch=1, seq=TF_SEQ))
+    # the one-card route (no mesh context) on the same weights and batch
+    one_loss, grads = value_and_grad(
+        lambda p, b: transformer.loss_fn(p, {k: v.to(dev) for k, v in b.items()}, cfg),
+        params, batches[0])
+    one_loss, one_gnorm = float(one_loss), float(global_norm(grads))
+    del grads
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    opt = init_opt_state(params, AdamWConfig(lr=3e-3))
+    step = build_train_step(cfg, TrainConfig(optimizer=AdamWConfig(lr=3e-3)), dev, rules)
+    losses, gnorms, step_s = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    train_peak = torch.cuda.max_memory_allocated() - base
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    del params, opt, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_err = abs(losses[0] / one_loss - 1)
+    gnorm_err = abs(gnorms[0] / one_gnorm - 1)
+    warm = float(np.median(step_s[1:]))
+    key = "grid granite"
+    times.update({
+        f"{key} layers": GRID_LAYERS, f"{key} step s": warm, f"{key} first step s": step_s[0],
+        f"{key} tokens per s": TF_SEQ / warm, f"{key} train peak GB": train_peak / 1e9,
+        f"{key} alloc retries": retries, f"{key} loss first": losses[0],
+        f"{key} loss last": losses[-1], f"{key} one-card loss": one_loss,
+        f"{key} one-card grad_norm": one_gnorm, f"{key} grad_norm first": gnorms[0],
+        f"{key} loss rel err": loss_err, f"{key} grad_norm rel err": gnorm_err})
+    times.update(_hold_prediction(key, label, *predicted, train_peak, warm))
+    print(f"{label}: published widths (d_model {cfg.d_model}, 40 experts of "
+          f"{cfg.moe.d_expert} padded to {e_pad}, {e_pad // GRID_SHAPE[1]} a model shard, "
+          f"top-{cfg.moe.top_k}, capacity factor {cfg.moe.capacity_factor}, {cfg.dtype}) at "
+          f"{GRID_LAYERS} layers: {GRID_STEPS} train steps at 1 x {TF_SEQ} tokens, a warm step "
+          f"{warm:.4f} s, the first {step_s[0]:.3f} s, {TF_SEQ / warm:.1f} tokens a second, peak "
+          f"{train_peak / 1e9:.3f} GB, {retries} allocator retries; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    print(f"{label}: first step loss {losses[0]:.6f} / grad_norm {gnorms[0]:.6f} against the "
+          f"one-card route's {one_loss:.6f} / {one_gnorm:.6f} on the same weights: relative "
+          f"{loss_err:.3g} (limit {GRID_LOSS_TOL}) / {gnorm_err:.3g} (limit {GRID_GNORM_TOL})")
+    if loss_err > GRID_LOSS_TOL or gnorm_err > GRID_GNORM_TOL:
+        raise AssertionError(f"{label}: the first step's loss / grad_norm differ from the "
+                             f"one-card route's by {loss_err:.3g} / {gnorm_err:.3g} (limits "
+                             f"{GRID_LOSS_TOL} / {GRID_GNORM_TOL})")
+
+
+def _grid_kimi(dev, times):
+    """kimi-k2's MoE layer at full width (384 experts of 7168 -> 2048,
+    top-8, the shared expert) on a KIMI_GRID grid of the card with FSDP
+    over "data": KIMI_TOKENS decode tokens take the stationary path. bf16
+    banks, then int8 ones quantized bank by bank (the bf16 bank freed as
+    its codes land), each held to the one-card route within KIMI_Y_TOL."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh, ShardingRules, make_mesh_context
+    from repro_torch.models import moe
+    from repro_torch.models.layers import dense_init, mlp_init
+
+    cfg = get_config(KIMI_ARCH)
+    m, d, f = cfg.moe, cfg.d_model, cfg.moe.d_expert
+    mc = make_mesh_context(ShardingRules(mesh=Mesh(KIMI_GRID, ("data", "model"), dev)))
+    t_loc = KIMI_TOKENS // KIMI_GRID[0]
+    if not (mc.fsdp_axes and t_loc * m.top_k <= m.stationary_threshold):
+        raise AssertionError(f"kimi grid: {t_loc} tokens a data shard do not take the "
+                             "stationary path")
+    e_pad = moe.padded_num_experts(m.num_experts, mc)
+    dt = cfg.activation_dtype
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    p = {"router": dense_init(gen, (d, e_pad)).to(dt),
+         # fan_in = E_pad for the up and gate banks, as moe_init draws them
+         "w_up": _draw_bank(gen, (e_pad, d, f), e_pad, dt),
+         "w_gate": _draw_bank(gen, (e_pad, d, f), e_pad, dt),
+         "w_down": _draw_bank(gen, (e_pad, f, d), f, dt),
+         "shared": {k: v.to(dt) for k, v in mlp_init(gen, d, f * m.num_shared_experts,
+                                                    cfg.mlp_act).items()}}
+    x = torch.randn((KIMI_TOKENS, 1, d), generator=gen, device=dev).to(dt)
+    label = f"moe grid {KIMI_ARCH} layer {KIMI_GRID}"
+    for banks in ("bf16", "int8"):
+        if banks == "int8":
+            for name in ("w_up", "w_gate", "w_down"):
+                p[name] = _quantize_bank(p[name])
+                gc.collect()
+            torch.cuda.empty_cache()
+        bank_gb = sum(t.numel() * t.element_size() for name in ("w_up", "w_gate", "w_down")
+                      for t in (p[name].values() if isinstance(p[name], dict) else [p[name]])) / 1e9
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            y1, a1 = moe.moe_apply(p, x, cfg)
+            yg, ag = moe.moe_apply(p, x, cfg, mc)
+            err = float((yg.float() - y1.float()).abs().max() / y1.float().abs().max())
+            aux_err = abs(float(ag) / float(a1) - 1)
+            del y1, yg
+            grid_ms, grid_us = _cuda_ms(lambda: moe.moe_apply(p, x, cfg, mc), KIMI_REPS, 1)
+            one_ms, _ = _cuda_ms(lambda: moe.moe_apply(p, x, cfg), KIMI_REPS, 1)
+            # the host cost of the grid's 16 bodies: one layer under the profiler
+            n_dev, busy, _ = _profile_step(lambda: moe.moe_apply(p, x, cfg, mc))
+        peak = torch.cuda.max_memory_allocated()
+        key = f"grid kimi {banks}"
+        times.update({f"{key} y rel err": err, f"{key} aux rel err": aux_err,
+                      f"{key} layer ms": grid_ms, f"{key} layer host us": grid_us,
+                      f"{key} one-card layer ms": one_ms, f"{key} bank GB": bank_gb,
+                      f"{key} peak GB": peak / 1e9, f"{key} device activities": n_dev,
+                      f"{key} busy share": busy})
+        print(f"{label} {banks} banks ({bank_gb:.3f} GB): {KIMI_TOKENS} tokens, stationary path "
+              f"(capacity {moe._capacity(KIMI_TOKENS, m)} a shard's expert, {e_pad // KIMI_GRID[1]} "
+              f"experts a model shard, d_model in {KIMI_GRID[0]} FSDP pieces): y within "
+              f"{err:.3g} of max |y| of the one-card route's (limit {KIMI_Y_TOL}), aux within "
+              f"{aux_err:.3g}; {grid_ms:.3f} ms a layer ({grid_us:.0f} us on the host to enqueue "
+              f"it; under torch.profiler {n_dev} device activities, the device busy "
+              f"{busy if busy is None else round(busy, 4)} of the span), the one-card route "
+              f"{one_ms:.3f} ms; peak {peak / 1e9:.3f} GB")
+        if err > KIMI_Y_TOL or aux_err > 1e-6:
+            raise AssertionError(f"{label} {banks}: y / aux differ from the one-card route's by "
+                                 f"{err:.3g} / {aux_err:.3g} (limits {KIMI_Y_TOL} / 1e-6)")
+    del p, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_grid(dev):
+    """The model-axis MoE route (`models.moe.moe_apply` with a
+    `MeshContext` over a `distributed.sharding.Mesh` whose entries are all
+    the card): granite-moe-3b trained at full width on a GRID_SHAPE grid
+    through `training.train_loop.build_train_step(..., rules=)`
+    (`_grid_granite`), and kimi-k2's full-width MoE layer on the
+    stationary path in bf16 and int8 (`_grid_kimi`). The reference's MoE
+    reaches no Pallas kernel: no kernel of the port launches. Returns
+    ({kernel: launches}, times)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    times = {}
+    build.launches.clear()
+    phase_t0 = time.perf_counter()
+    _grid_granite(dev, times)
+    _grid_kimi(dev, times)
+    counts = dict(build.launches)
+    if counts:
+        raise AssertionError(f"moe grid: launches {counts}, want none (PyTorch operations only)")
+    torch.cuda.synchronize()
+    times["grid phase s"] = time.perf_counter() - phase_t0
+    print(f"moe grid: the phase took {times['grid phase s']:.1f} s")
+    return counts, times
+
+
 ZAMBA_ARCH = "zamba2-7b"
 # zamba2-7b's 81 mamba layers (78.0 M parameters each) and 2 shared blocks
 # (231 M each) with embed and head are 7.0 B parameters, 154 GB at 22 bytes
@@ -3082,6 +3351,7 @@ def main() -> int:
     dp_launches, dp_times = phase_train_dp(dev)
     _, lm_times = phase_lm(dev)
     _, tf_times = phase_transformer(dev)
+    _, grid_times = phase_moe_grid(dev)
     _, zamba_times = phase_zamba2(dev)
     gru_err, gru_launches, gru_times = phase_gru_seq(dev)
     wkv_err, wkv_launches, wkv_times = phase_wkv6(dev)
@@ -3096,6 +3366,7 @@ def main() -> int:
     times.update(dp_times)
     times.update(lm_times)
     times.update(tf_times)
+    times.update(grid_times)
     times.update(zamba_times)
     times.update(gru_times)
     times.update(wkv_times)

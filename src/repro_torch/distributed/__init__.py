@@ -1,2 +1,3 @@
-"""The serving fleet's device placement (`sharding`) and its fault
-tolerance (`fault_tolerance`)."""
+"""The LM's sharding rules and device grids, the serving fleet's device
+placement (`sharding`), the data-parallel collectives (`collectives`)
+and the fleet's fault tolerance (`fault_tolerance`)."""

@@ -52,9 +52,12 @@ def cell_a(out, device=None):
 
 def cell_b(out, device=None):
     """kimi-k2 x decode_32k: weights-stationary expert parallelism moves
-    tokens, not experts, across a model axis. One card has none."""
-    print("#### CELL B: kimi-k2-1t-a32b x decode_32k: waits for multi-card work (ROADMAP "
-          "item 6): its expert-parallel paths need a model axis over several cards")
+    tokens, not experts, across a model axis. The route runs on a device
+    grid (`models.moe`); the cell's per-device numbers on the abstract
+    (16, 16) mesh wait for a per-shard trace."""
+    print("#### CELL B: kimi-k2-1t-a32b x decode_32k: waits for multi-card work on the "
+          "abstract production meshes (ROADMAP queue 1): per-device FLOPs, bytes and peak "
+          "need a per-shard trace of every layer")
 
 
 def cell_c(out, device=None):

@@ -9,7 +9,8 @@ of a bfloat16 product, are scaled, soft-capped and masked with NEG_INF
 in bfloat16, the softmax runs in float32 (`layers.wide`) and is cast
 back before the PV product. No fused attention (``scaled_dot_product_
 attention``) is used: it carries no soft-cap and rounds elsewhere.
-``mesh_ctx`` is accepted and ignored (one card); ``head_pad`` is the
+``mesh_ctx`` is accepted and ignored (its ``constrain_heads`` only
+places data in the reference); ``head_pad`` is the
 reference's layout padding, kept so the arithmetic is the same.
 
 Shapes: q (B, S, H, D); k, v (B, Skv, KV, D) with H % KV == 0.

@@ -9,8 +9,10 @@ carry a leading (n_steps,) axis, and MoE stacks may put
 ``first_k_dense`` dense layers in front (``dense_prefix``, Kimi-K2).
 The reference's ``lax.scan`` over the steps is a loop over them, and its
 ``jax.checkpoint`` of a whole step one ``torch.utils.checkpoint`` a step
-(`layers.remat`). ``mesh_ctx`` is accepted and ignored (one card), but
-`moe.moe_apply` raises for a model axis.
+(`layers.remat`). ``mesh_ctx`` (`moe.MeshContext`) reaches the MoE
+layers, which take the model-axis route over its device grid; the rest
+of the model runs on the parameters' device, where the reference's
+sharding constraints only place data.
 
 API (shared by every backbone through `models.registry`):
     init_params(gen, cfg, mesh_ctx, device)      -> params

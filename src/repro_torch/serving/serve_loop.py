@@ -93,61 +93,67 @@ def prefill_batch_shape(arch_cfg, shape_spec) -> Dict[str, torch.Tensor]:
     return {"tokens": _meta((b, s), torch.int32)}
 
 
-def lower_decode_step(arch_cfg, shape_spec, device=None):
+def lower_decode_step(arch_cfg, shape_spec, device=None, rules=None):
     """One decode step at (batch, cache length) = the shape's (global
     batch, seq_len), traced on fake tensors: returns ``(analysis,
     params_shape, cache_shape)``, the step's `GraphAnalysis` with the
     parameters, the cache `init_cache` makes and the step's input held (the
     new cache the step returns counts among its outputs); a config that
     serves its experts quantized has int8 expert banks
-    (`models.moe_quant`). Unlike the reference's
-    ``lower_decode_step(arch_cfg, rules, shape_spec)`` it takes no sharding
-    rules but the ``device`` of the fake tensors (default: the card)."""
+    (`models.moe_quant`). Beside the reference's arguments it takes the
+    ``device`` of the fake tensors (default: the card); ``rules``
+    (optional) runs the step under `make_mesh_context(rules)`, every grid
+    body of the MoE route counted on the one device."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.kernels.build import resolve_device
     from repro_torch.launch.roofline import GraphAnalysis
     from repro_torch.models.moe_quant import quantize_expert_params
     from repro_torch.models.registry import get_backbone
-    from repro_torch.training.train_loop import fake_like
+    from repro_torch.training.train_loop import _mesh_context, fake_like
 
     device = resolve_device(device)
     backbone = get_backbone(arch_cfg)
+    mesh_ctx = _mesh_context(rules)
     b, s = shape_spec.global_batch, shape_spec.seq_len
     with FakeTensorMode():
-        params = backbone.init_params(torch.Generator().manual_seed(0), arch_cfg, device=device)
+        params = backbone.init_params(torch.Generator().manual_seed(0), arch_cfg, mesh_ctx,
+                                      device=device)
         if arch_cfg.serve_quant:
             params = quantize_expert_params(params)
-        cache = backbone.init_cache(arch_cfg, b, s, device=device)
+        cache = backbone.init_cache(arch_cfg, b, s, mesh_ctx, device=device)
         batch = fake_like(serve_batch_shape(arch_cfg, shape_spec), device)
         cache_len = torch.zeros((), dtype=torch.int32, device=device)
         analysis = GraphAnalysis()
         analysis.hold((params, cache, batch, cache_len))
         with analysis:
-            backbone.decode_step(params, cache, cache_len, batch, arch_cfg)
+            backbone.decode_step(params, cache, cache_len, batch, arch_cfg, mesh_ctx)
     return analysis, params, cache
 
 
-def lower_prefill(arch_cfg, shape_spec, device=None):
+def lower_prefill(arch_cfg, shape_spec, device=None, rules=None):
     """A prefill of the shape's (global batch, seq_len) prompt traced on
     fake tensors: returns ``(analysis, params_shape)``, the parameters and
-    the prompt held. No sharding rules: one device (default: the card)."""
+    the prompt held, on ``device`` (default: the card); ``rules`` as
+    `lower_decode_step`'s."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.kernels.build import resolve_device
     from repro_torch.launch.roofline import GraphAnalysis
     from repro_torch.models.registry import get_backbone
-    from repro_torch.training.train_loop import fake_like
+    from repro_torch.training.train_loop import _mesh_context, fake_like
 
     device = resolve_device(device)
     backbone = get_backbone(arch_cfg)
+    mesh_ctx = _mesh_context(rules)
     with FakeTensorMode():
-        params = backbone.init_params(torch.Generator().manual_seed(0), arch_cfg, device=device)
+        params = backbone.init_params(torch.Generator().manual_seed(0), arch_cfg, mesh_ctx,
+                                      device=device)
         batch = fake_like(prefill_batch_shape(arch_cfg, shape_spec), device)
         analysis = GraphAnalysis()
         analysis.hold((params, batch))
         with analysis:
-            backbone.prefill(params, batch, arch_cfg)
+            backbone.prefill(params, batch, arch_cfg, mesh_ctx)
     return analysis, params
 
 

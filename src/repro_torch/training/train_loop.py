@@ -1,25 +1,32 @@
-"""The LM train step on one device: forward, backward and AdamW.
+"""The LM train step: forward, backward and AdamW.
 
 Counterpart of `repro.training.train_loop`'s `TrainConfig` and
 `build_train_step` (and of `examples/lm_smoke.py`): gradient
 accumulation over microbatches (float32 sums from zeros, then ``/ mb``;
 the loss the mean of the microbatches' losses), a schedule-driven
 learning rate, `adamw_update` with its global-norm clip, and the
-metrics ``loss`` and ``grad_norm``. The reference's mesh and sharding
-rules are not ported: the step runs on one device. `lower_train_step`,
-the dry run's entry (`repro_torch.launch.dryrun`), traces the step on fake
-tensors under `launch.roofline.GraphAnalysis`: its FLOPs, HBM bytes and
-peak memory, nothing allocated.
+metrics ``loss`` and ``grad_norm``. The step runs on one device; with
+sharding ``rules`` (`distributed.sharding.ShardingRules` over a device
+grid) the backbone gets `make_mesh_context(rules)`, so the MoE layers
+take the model-axis route, one body a grid coordinate on the grid's
+devices. `lower_train_step`, the dry run's entry
+(`repro_torch.launch.dryrun`), traces the step on fake tensors under
+`launch.roofline.GraphAnalysis`: its FLOPs, HBM bytes and peak memory,
+nothing allocated; with rules, the whole grid's work on the one device.
 
     python -m repro_torch.training.train_loop [--arch rwkv6-7b] [--steps 30]
-        [--device cpu]
+        [--device cpu] [--mesh 2x4 --devices cuda:0 ...]
 
 trains the arch's reduced config (every config: rwkv6, the eight
 transformer configs and zamba2) on random weights from a seed, with the
 reference's batch recipe: tokens (steps, 8, 33) drawn from
 ``numpy.random.default_rng(0)``, inputs ``[:, :-1]``, labels ``[:, 1:]``;
 an embedding frontend (musicgen, llava) takes random frame embeddings in
-place of the inputs.
+place of the inputs. ``--mesh DxM`` runs the sharded step of the
+reference's smoke on a (D, M) ("data", "model") grid with its default
+rules (FSDP over "data"): ``--devices`` lists the grid's D * M devices
+row-major, or one device for all of them; the parameters and the batch
+live on the first.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import Mesh, ShardingRules, make_mesh_context
 from repro_torch.kernels.build import resolve_device
 from repro_torch.models.registry import get_backbone
 from repro_torch.training.optimizer import AdamWConfig, adamw_update, init_opt_state, tree_map
@@ -60,18 +68,22 @@ def value_and_grad(loss: Callable, params, *args):
         lambda p: torch.zeros_like(p) if p.grad is None else p.grad, leaves)
 
 
-def build_train_step(arch_cfg, train_cfg: TrainConfig = TrainConfig(), device=None):
+def build_train_step(arch_cfg, train_cfg: TrainConfig = TrainConfig(), device=None,
+                     rules=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on ``device`` (default: the card through `resolve_device`),
-    where the batch's tensors are moved. TF32 stays off on the card."""
+    where the batch's tensors are moved. TF32 stays off on the card.
+    ``rules`` (`distributed.sharding.ShardingRules`): the backbone runs
+    under `make_mesh_context(rules)`, as the reference's step does."""
     device = resolve_device(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     backbone = get_backbone(arch_cfg)
+    mesh_ctx = _mesh_context(rules)
 
     def loss(params, batch):
-        return backbone.loss_fn(params, batch, arch_cfg)
+        return backbone.loss_fn(params, batch, arch_cfg, mesh_ctx)
 
     def train_step(params, opt_state, batch):
         batch = {k: v.to(device) for k, v in batch.items()}
@@ -101,6 +113,10 @@ def build_train_step(arch_cfg, train_cfg: TrainConfig = TrainConfig(), device=No
     return train_step
 
 
+def _mesh_context(rules):
+    return None if rules is None else make_mesh_context(rules)
+
+
 def fake_like(shapes, device) -> dict:
     """Zero tensors of ``shapes``' shapes and dtypes (a dict of tensors,
     e.g. on ``meta``, standing in for the reference's ShapeDtypeStructs)
@@ -110,7 +126,7 @@ def fake_like(shapes, device) -> dict:
 
 
 def lower_train_step(arch_cfg, batch_shape, train_cfg: TrainConfig = TrainConfig(),
-                     device=None):
+                     device=None, rules=None):
     """The dry run's entry: one update step of ``arch_cfg`` traced on fake
     tensors, nothing allocated. Returns ``(analysis, params_shape,
     opt_shape)``: the step's `launch.roofline.GraphAnalysis` (FLOPs by
@@ -118,13 +134,16 @@ def lower_train_step(arch_cfg, batch_shape, train_cfg: TrainConfig = TrainConfig
     optimizer state and the batch held throughout, as a training loop holds
     them) and the fake parameter and optimizer-state trees.
 
-    Unlike the reference's ``lower_train_step(arch_cfg, rules, batch_shape,
-    train_cfg)`` it takes no sharding rules (one device) but the
-    ``device`` the fake tensors live on (default: the card through
-    `resolve_device`); ``batch_shape`` is a dict of tensors (``meta`` ones
-    will do) whose shapes and dtypes stand in for ShapeDtypeStructs. The
-    parameters are drawn from a CPU `torch.Generator` as `init_params` draws
-    them."""
+    Beside the reference's arguments it takes the ``device`` the fake
+    tensors live on (default: the card through `resolve_device`), and
+    ``rules`` is optional: without them the step is the one-device step;
+    with them the parameters are drawn under `make_mesh_context(rules)`
+    (padded expert banks) and the trace counts every grid body of the
+    MoE route on the one device, which predicts a grid run's peak on one
+    card. ``batch_shape`` is a dict of tensors (``meta`` ones will do)
+    whose shapes and dtypes stand in for ShapeDtypeStructs. The
+    parameters are drawn from a CPU `torch.Generator` as `init_params`
+    draws them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.roofline import GraphAnalysis
@@ -132,10 +151,11 @@ def lower_train_step(arch_cfg, batch_shape, train_cfg: TrainConfig = TrainConfig
     device = resolve_device(device)
     backbone = get_backbone(arch_cfg)
     with FakeTensorMode():
-        params = backbone.init_params(torch.Generator().manual_seed(0), arch_cfg, device=device)
+        params = backbone.init_params(torch.Generator().manual_seed(0), arch_cfg,
+                                      _mesh_context(rules), device=device)
         opt = init_opt_state(params, train_cfg.optimizer)
         batch = fake_like(batch_shape, device)
-        step = build_train_step(arch_cfg, train_cfg, device)
+        step = build_train_step(arch_cfg, train_cfg, device, rules)
         analysis = GraphAnalysis()
         analysis.hold((params, opt, batch))
         with analysis:
@@ -163,6 +183,20 @@ def lm_batches(vocab: int, steps: int, batch: int = 8, seq: int = 32, seed: int 
                    "labels": labels}
 
 
+def _grid_rules(mesh: str, devices, device):
+    """ShardingRules of a ``DxM`` ("data", "model") grid over ``devices``
+    (one entry fills the grid; default: ``device`` resolved), FSDP over
+    "data"."""
+    try:
+        shape = tuple(int(n) for n in mesh.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        raise SystemExit(f"train_loop: --mesh wants DxM (e.g. 2x4), got {mesh!r}")
+    devs = devices or [resolve_device(device)]
+    return ShardingRules(mesh=Mesh(shape, ("data", "model"), devs[0] if len(devs) == 1 else devs))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Train a reduced LM on random weights.")
     ap.add_argument("--arch", default="rwkv6-7b")
@@ -170,15 +204,27 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs there)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: the sharded step on a (D, M) ('data', 'model') device grid")
+    ap.add_argument("--devices", nargs="+", default=None,
+                    help="with --mesh: the grid's D*M devices row-major, or one for all "
+                         "(default: --device)")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch).reduced()
     backbone = get_backbone(cfg)
-    device = resolve_device(args.device)
-    print(f"== {args.arch} (reduced: {cfg.n_layers}L d={cfg.d_model}) on {device} ==")
+    rules = None
+    if args.mesh:
+        rules = _grid_rules(args.mesh, args.devices, args.device)
+        device = rules.mesh.devices.flat[0]
+        where = f"a {tuple(rules.mesh.shape.values())} grid of {rules.mesh}"
+    else:
+        device = resolve_device(args.device)
+        where = str(device)
+    print(f"== {args.arch} (reduced: {cfg.n_layers}L d={cfg.d_model}) on {where} ==")
     gen = torch.Generator(device="cpu").manual_seed(args.seed)
-    params = backbone.init_params(gen, cfg, device=device)
+    params = backbone.init_params(gen, cfg, _mesh_context(rules), device=device)
     opt = init_opt_state(params, AdamWConfig())
-    step = build_train_step(cfg, TrainConfig(optimizer=AdamWConfig(lr=3e-3)), device)
+    step = build_train_step(cfg, TrainConfig(optimizer=AdamWConfig(lr=3e-3)), device, rules)
     losses = []
     embed_dim = cfg.d_model if cfg.frontend == "embedding" else None
     for it, batch in enumerate(lm_batches(cfg.vocab, args.steps, embed_dim=embed_dim)):

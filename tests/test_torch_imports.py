@@ -65,9 +65,10 @@ def test_scan_pattern_catches_what_it_should():
     "repro_torch.configs.qwen3_4b", "repro_torch.models.layers", "repro_torch.models.registry",
     "repro_torch.training.train_loop", "repro_torch.distributed.collectives",
     "repro_torch.launch", "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
-    "repro_torch.launch.hillclimb",
+    "repro_torch.launch.hillclimb", "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
 ])
 def test_the_dp_and_lm_modules_are_held_to_it(module):
-    """The data-parallel collective, the LM side and its dry run are among
-    the modules the two tests above import and scan."""
+    """The data-parallel collective, the LM side, its sharding rules, its
+    meshes and its dry run are among the modules the two tests above
+    import and scan."""
     assert module in set(_port_modules())

@@ -1600,3 +1600,74 @@ def test_lower_train_step_predicts_the_cards_peak(dev, arch):
         del params, opt, batch, metrics
     assert not build.launches
     assert abs(predicted.peak_bytes - peaks[-1]) <= 0.02 * peaks[-1], (predicted.peak_bytes, peaks)
+
+
+@pytest.mark.parametrize("path", ["dropping", "stationary"])
+def test_moe_grid_route_on_the_card_equals_the_cpus(dev, path):
+    """The model-axis MoE route (reduced granite, float32, 7 experts
+    padded to 8) on a (2, 2) grid whose entries are all the card, FSDP
+    over "data", against the same route on a (2, 2) grid of the CPU: y and
+    aux within 1e-5 of max |y|, the gradients of sum(y^2) + 0.01 aux
+    within 1e-4 of each leaf's max |g|; no kernel of the port launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh, ShardingRules, make_mesh_context
+    from repro_torch.models import moe
+    from repro_torch.training.optimizer import tree_map
+
+    base = get_config("granite-moe-3b-a800m").reduced()
+    cfg = dataclasses.replace(base, dtype="float32", moe=dataclasses.replace(
+        base.moe, num_experts=7, capacity_factor=1.0,
+        stationary_threshold=4096 if path == "stationary" else 0))
+    out = {}
+    build.launches.clear()
+    for d in (dev, torch.device("cpu")):
+        mc = make_mesh_context(ShardingRules(mesh=Mesh((2, 2), ("data", "model"), d)))
+        p = moe.moe_init(torch.Generator().manual_seed(3), cfg, mc)
+        assert p["w_up"].shape[0] == 8
+        p = tree_map(lambda t, d=d: t.to(d).requires_grad_(True), p)
+        x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator().manual_seed(4))
+        x = x.to(d).requires_grad_(True)
+        y, aux = moe.moe_apply(p, x, cfg, mc)
+        (torch.sum(y ** 2) + 0.01 * aux).backward()
+        out[d.type] = (y.detach().cpu(), float(aux), x.grad.cpu(),
+                       {k: v.grad.cpu() for k, v in p.items()})
+    assert not build.launches
+    (y, aux, gx, gp), (cy, caux, cgx, cgp) = out["cuda"], out["cpu"]
+    assert float((y - cy).abs().max()) <= 1e-5 * float(cy.abs().max())
+    assert abs(aux / caux - 1) <= 1e-5
+    for got, want in [(gx, cgx)] + [(gp[k], cgp[k]) for k in cgp]:
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_moe_backward_on_the_card_is_deterministic(dev):
+    """The one-card MoE route's gradients (bf16, top-8 of 40 experts:
+    tokens gather up to 8 slots) are bit-equal over three runs on the card:
+    the dispatch gather's backward adds each token's slots in a fixed
+    order (`moe._TokenGather`), where index_select's index_add adds in its
+    atomics' order; no kernel of the port launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.training.optimizer import tree_map
+
+    base = get_config("granite-moe-3b-a800m").reduced()
+    cfg = dataclasses.replace(base, d_model=256, moe=dataclasses.replace(
+        base.moe, num_experts=40, top_k=8, d_expert=64))
+    p = tree_map(lambda t: t.to(dev, torch.bfloat16),
+                 moe.moe_init(torch.Generator().manual_seed(6), cfg))
+    x = torch.randn((4, 512, cfg.d_model), generator=torch.Generator().manual_seed(7))
+    x = x.to(dev, torch.bfloat16)
+    build.launches.clear()
+    runs = []
+    for _ in range(3):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        xx = x.detach().requires_grad_(True)
+        y, aux = moe.moe_apply(leaves, xx, cfg)
+        (y.float().square().sum() + aux).backward()
+        runs.append([xx.grad] + [leaves[k].grad for k in sorted(leaves)])
+    assert not build.launches
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))

@@ -245,8 +245,25 @@ def test_int8_experts_equal_the_references():
     assert torch.is_tensor(shapes["moe"]["shared"]["w_up"])
 
 
-def test_a_model_axis_raises():
-    jcfg, tcfg = _cfgs()
-    p = convert.lm_params_from_numpy(_params(jcfg), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        tm.moe_apply(p, torch.from_numpy(_x(jcfg)), tcfg, _ModelAxis())
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_token_gather_gradient_is_index_selects_in_a_fixed_order(dtype):
+    """The dispatch gather's gradient (`_TokenGather`: each token's kept
+    slots added in slot order in float32, rounded once) is bit-equal on
+    the CPU to index_select's own backward (an index_add in index order,
+    float32 accumulation), which on the card adds in its atomics' order:
+    top-8 of 40 experts with drops, so tokens gather up to 8 slots."""
+    t, d, e, k, capacity = 96, 16, 40, 8, 12
+    gen = torch.Generator().manual_seed(5)
+    idx = tm._top_k(torch.rand((t, e), generator=gen), k)[1]
+    keep, slot, tok_for_slot, valid_slot = tm._dispatch(idx, e, capacity)
+    assert not bool(keep.all())
+    x = torch.randn((t, d), generator=gen).to(dtype)
+    g = torch.randn((e * capacity, d), generator=gen).to(dtype)
+    valid = valid_slot.to(dtype)[:, None]
+    grads = []
+    for gather in (lambda x: tm._TokenGather.apply(x, tok_for_slot, slot.reshape(t, k), e),
+                   lambda x: torch.index_select(x, 0, tok_for_slot.to(torch.int64))):
+        leaf = x.clone().requires_grad_(True)
+        (gather(leaf) * valid * g).sum().backward()
+        grads.append(leaf.grad)
+    assert torch.equal(grads[0], grads[1])
