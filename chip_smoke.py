@@ -127,21 +127,31 @@ plain PyTorch version on the card:
      prompt wraps its local rings);
  19. the model-axis MoE route (`phase_moe_grid`) on device grids whose
      entries are all the card: granite-moe-3b at full width on a (1, 16)
-     grid, 40 experts padded to 48, at the depth `lower_train_step(...,
-     rules=)` predicts to fit 80 GB (the measured peak held to it), its
-     first step against the one-card route's within a bfloat16 bound, 3
-     steps; kimi-k2's full-width MoE layer on a (2, 8) grid with FSDP, 128
-     decode tokens on the weights-stationary path, bf16 and int8 banks, y
-     against the one-card route's, ms a layer and its busy share;
- 20. the result line ``{"ok": true, "device": {...}}``.
+     grid through the transformer's sharded step, 40 experts padded to
+     48, GRID_LAYERS deep (the peak `lower_train_step(..., rules=)`
+     predicts held to the measured one), its first step against the
+     one-card route's within a bfloat16 bound, 3 steps; kimi-k2's
+     full-width MoE layer on a (2, 8) grid with FSDP through `moe_apply`,
+     128 decode tokens on the weights-stationary path, bf16 and int8
+     banks, y against the one-card route's, ms a layer and its busy share;
+ 20. the production meshes (`phase_mesh`): coordinate (0, 0)'s share of
+     qwen3-4b x train_4k on the (16, 16) mesh run for real at full depth
+     (its peak held to the trace), qwen3-4b trained on a (2, 2) grid of
+     the card against the one-card step and its prefill / decode against
+     the one-card route, then qwen3-4b's and kimi-k2's cells traced per
+     device on both meshes;
+ 21. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
-result.
+result. Two studies print the readings behind tolerances instead of
+running the phases: ``--zamba2-drift`` (ZAMBA_F32_TOL) and
+``--mesh-faults`` (MESH_GRID_*_TOL).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -2900,11 +2910,15 @@ def phase_transformer(dev):
 
 GRID_ARCH = "granite-moe-3b-a800m"
 GRID_SHAPE = (1, 16)  # ("data", "model"): 40 experts padded to 48, 3 a model shard
-# The deepest stack `lower_train_step(cfg, ..., rules=)` predicts to fit
-# GRID_MEMORY at 1 x TF_SEQ tokens on the (1, 16) grid (fake tensors, the
-# port's own graph): 20 layers 76.949 GB, 21 layers 80.713 GB. The phase
-# traces 20 again on the card and holds the measured peak to it.
-GRID_LAYERS = 20
+# `lower_train_step(cfg, ..., rules=)` at 1 x TF_SEQ tokens on the (1, 16)
+# grid (fake tensors, the port's own graph) predicts 76.949 GB at 20
+# layers, the deepest stack that fits GRID_MEMORY (21: 80.713 GB). With
+# the dense layers sharded too (16 shares a layer) its trace takes 130.1 s
+# and a step 6.31 s on an H100's host (10 layers: 73.8 s, 3.05 s), so the
+# phase runs 10 layers, for the script's time: it traces them on the card
+# and holds the measured peak (39.3 GB) to the prediction, which is no
+# longer checked near the card's 80 GB on this path.
+GRID_LAYERS = 10
 GRID_MEMORY = 80e9
 GRID_STEPS = 3
 # bfloat16: the grid's first step against the one-card route's on the same
@@ -3130,12 +3144,14 @@ def _grid_kimi(dev, times):
 
 
 def phase_moe_grid(dev):
-    """The model-axis MoE route (`models.moe.moe_apply` with a
-    `MeshContext` over a `distributed.sharding.Mesh` whose entries are all
-    the card): granite-moe-3b trained at full width on a GRID_SHAPE grid
-    through `training.train_loop.build_train_step(..., rules=)`
-    (`_grid_granite`), and kimi-k2's full-width MoE layer on the
-    stationary path in bf16 and int8 (`_grid_kimi`). The reference's MoE
+    """The model-axis MoE route over a `distributed.sharding.Mesh` whose
+    entries are all the card: granite-moe-3b trained at full width on a
+    GRID_SHAPE grid through `training.train_loop.build_train_step(...,
+    rules=)`, the transformer's sharded step with `models.moe.moe_grid` in
+    its MoE layers (`_grid_granite`), and kimi-k2's full-width MoE layer
+    through `models.moe.moe_apply` with a mesh context (`moe_grid` on the
+    layer's shares, the route the model runs) on the stationary path in
+    bf16 and int8 (`_grid_kimi`). The reference's MoE
     reaches no Pallas kernel: no kernel of the port launches. Returns
     ({kernel: launches}, times)."""
     import torch
@@ -3153,6 +3169,435 @@ def phase_moe_grid(dev):
     torch.cuda.synchronize()
     times["grid phase s"] = time.perf_counter() - phase_t0
     print(f"moe grid: the phase took {times['grid phase s']:.1f} s")
+    return counts, times
+
+
+MESH_ARCHS = ("qwen3-4b", "kimi-k2-1t-a32b")
+MESH_NAMES = ("16x16", "2x16x16")
+MESH_SHARE_ARCH = "qwen3-4b"
+MESH_SHARE_STEPS = 3
+MESH_GRID_SHAPE = (2, 2)
+# qwen3-4b at full width on a (2, 2) grid of the card, in one process:
+# params, gradients and AdamW's moments of 12 layers (1.6 B parameters)
+# with every coordinate's activations of a 2 x 4096-token batch
+MESH_GRID_LAYERS = 12
+MESH_GRID_BATCH = 2
+MESH_GRID_SEQ = 4096
+MESH_GRID_STEPS = 3
+MESH_GRID_PROMPT = 1024
+MESH_GRID_DECODE = 16
+# bfloat16: the (2, 2) grid's first step and its prefill / decode logits
+# against the one-card route's on the same weights, |relative difference|
+# of the loss and of grad_norm, max |difference| / max |logit| of the
+# worst of a prefill and 16 decodes. Read at this width, depth, batch and
+# dtype on an H100 (`python3 chip_smoke.py --mesh-faults`, three weight
+# draws): the sound grid <= 1.23e-5 / 1.54e-4 / 0.0215; with the MLP's
+# psum over "model" dropped >= 2.27e-4 / 0.216 / 1.12; with flash-
+# decoding's sequence shard 1 lost, the decodes >= 0.919. Each bound lies
+# between the two (loss 4x over the sound readings and 4.5x under the
+# fault's; grad_norm 65x / 22x; logits 3.3x / 13x).
+MESH_GRID_LOSS_TOL = 5e-5
+MESH_GRID_GNORM_TOL = 1e-2
+MESH_GRID_LOGITS_TOL = 0.07
+
+_MESH_WORKER = """
+import json, sys, time
+import torch
+from repro_torch.launch import dryrun
+for arch, shape, mesh in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    report, _ = dryrun.run_cell(arch, shape, device=sys.argv[2], mesh=mesh)
+    out = report.to_json()
+    out["trace_s"] = time.perf_counter() - t0
+    print("MESH_CELL " + json.dumps(out), flush=True)
+"""
+
+
+def _mesh_traces_start(dev):
+    """Start one process a cell of MESH_ARCHS on MESH_NAMES, each tracing
+    it (`launch.dryrun.run_cell`, fake tensors on the card): [(Popen,
+    cells)]."""
+    from repro_torch.configs import SHAPES, get_config
+
+    cells = [(a, s, m) for a in MESH_ARCHS for s in SHAPES if s not in get_config(a).skip_shapes
+             for m in MESH_NAMES]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [(subprocess.Popen([sys.executable, "-c", _MESH_WORKER, json.dumps([cell]), str(dev)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env),
+             [cell]) for cell in cells]
+
+
+def _mesh_traces_join(procs, times):
+    """Each cell's report from the workers: a device's peak against the
+    card's memory and its compute, memory and (modelled) collective
+    terms, printed; raises if a worker failed."""
+    reports = []
+    for proc, cells in procs:
+        out, err = proc.communicate(timeout=900)
+        got = [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+               if line.startswith("MESH_CELL ")]
+        if proc.returncode != 0 or len(got) != len(cells):
+            raise AssertionError(f"mesh traces {cells}: exit {proc.returncode}, "
+                                 f"{len(got)} reports\n{err[-4000:]}")
+        reports += got
+    for r in sorted(reports, key=lambda r: (r["arch"], r["shape"], r["chips"])):
+        key = f"mesh {r['arch']} {r['shape']} {r['mesh']}"
+        fit = r["peak_bytes_per_device"] <= GRID_MEMORY
+        times.update({f"{key} peak GB": r["peak_bytes_per_device"] / 1e9,
+                      f"{key} compute s": r["compute_s"], f"{key} memory s": r["memory_s"],
+                      f"{key} collective s": r["collective_s"], f"{key} trace s": r["trace_s"]})
+        print(f"{key}: a device's share of {r['chips']} (traced on fake tensors in "
+              f"{r['trace_s']:.1f} s): peak {r['peak_bytes_per_device'] / 1e9:.3f} GB "
+              f"({'fits' if fit else 'does NOT fit'} {GRID_MEMORY / 1e9:.0f} GB), args "
+              f"{r['arg_bytes_per_device'] / 1e9:.3f} GB; compute {r['compute_s']:.4f} s, memory "
+              f"{r['memory_s']:.4f} s, collective {r['collective_s']:.4f} s (modelled over "
+              f"datasheet links; wire {r['wire_bytes']:.4e} B) -> {r['dominant']}-bound")
+    return reports
+
+
+def _mesh_share(dev, times):
+    """Coordinate (0, 0)'s share of MESH_SHARE_ARCH x train_4k on the
+    (16, 16) mesh run for real on the card, at full width and depth (a
+    batch of 16 x 4096 a device, 2 of 32 q heads, all 8 kv heads, a
+    vocabulary slice of 9 496, random weights, tokens of that slice): the
+    collectives in their lone form (true in memory, not in value), the
+    measured peak held to the trace's prediction within LM_PEAK_TOL, the
+    warm step printed beside the modelled compute and memory terms."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import arch_train_config, train_batch_shape
+    from repro_torch.launch.mesh import make_production_mesh, make_rules
+    from repro_torch.launch.roofline import make_report
+    from repro_torch.models import transformer
+    from repro_torch.training.optimizer import init_opt_state, tree_map
+    from repro_torch.training.train_loop import (build_train_step, coordinate_share, fake_like,
+                                                 lower_train_step)
+
+    cfg = get_config(MESH_SHARE_ARCH)
+    spec = SHAPES["train_4k"]
+    rules = make_rules(make_production_mesh(), fsdp_over_pod=cfg.param_count() > 100e9)
+    coord = (0, 0)
+    train_cfg = arch_train_config(cfg)
+    batch_shape = train_batch_shape(cfg, spec)
+    label = f"mesh share {MESH_SHARE_ARCH} train_4k 16x16 {coord}"
+    t0 = time.perf_counter()
+    analysis, lparams, lopt = lower_train_step(cfg, batch_shape, train_cfg, dev, rules, coord)
+    trace_s = time.perf_counter() - t0
+    report = make_report(cfg, spec, analysis, "train", mesh="16x16", chips=256)
+    with FakeTensorMode():
+        params = transformer.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+        *_, lbatch, specs = coordinate_share(params, init_opt_state(params, train_cfg.optimizer),
+                                             fake_like(batch_shape, dev), rules, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = tree_map(lambda t: (torch.randn(tuple(t.shape), generator=gen, device=dev) * 0.02)
+                      .to(t.dtype), lparams)
+    opt = tree_map(lambda t: torch.zeros(tuple(t.shape), dtype=t.dtype, device=dev), lopt)
+    # tokens of the coordinate's vocabulary slice: its lone lookups are whole
+    # rows (a token of another slice would embed as zeros, whose norms'
+    # gradients overflow bf16 over the layers)
+    b_loc, s_loc = tuple(lbatch["tokens"].shape)
+    batch = {k: torch.randint(0, lparams["embed"].shape[0], (b_loc, s_loc), generator=gen,
+                              device=dev, dtype=torch.int32) for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = build_train_step(cfg, train_cfg, dev, rules, coord, specs)
+    losses, step_s = [], []
+    for _ in range(MESH_SHARE_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    train_peak = torch.cuda.max_memory_allocated() - base
+    del params, opt, step, metrics, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    warm = float(np.median(step_s[1:]))
+    key = "mesh share"
+    times.update({f"{key} layers": cfg.n_layers, f"{key} rows": b_loc, f"{key} step s": warm,
+                  f"{key} first step s": step_s[0], f"{key} train peak GB": train_peak / 1e9,
+                  f"{key} compute s": report.compute_s, f"{key} memory s": report.memory_s,
+                  f"{key} collective s": report.collective_s})
+    print(f"{label}: {cfg.n_layers} layers, {b_loc} x {s_loc} tokens a device, lone "
+          f"collectives: {MESH_SHARE_STEPS} steps, warm step {warm:.4f} s (first "
+          f"{step_s[0]:.3f} s) beside the modelled compute {report.compute_s:.4f} s and memory "
+          f"{report.memory_s:.4f} s (collective {report.collective_s:.4f} s, not run); peak "
+          f"{train_peak / 1e9:.3f} GB")
+    times.update(_hold_prediction(key, label, analysis, max(report.compute_s, report.memory_s),
+                                  trace_s, train_peak, warm))
+
+
+def _mesh_tokens(dev, cfg):
+    """A MESH_GRID_PROMPT-token prompt and the MESH_GRID_DECODE tokens fed
+    after it, (MESH_GRID_BATCH, prompt + decode)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    return torch.randint(0, cfg.vocab, (MESH_GRID_BATCH, MESH_GRID_PROMPT + MESH_GRID_DECODE),
+                         generator=gen, device=dev, dtype=torch.int32)
+
+
+def _mesh_logits(dev, cfg, params, mc, toks) -> list:
+    """The float32 logits of a prefill of ``toks``' prompt and of each
+    decode step after it (`models.transformer` under ``mc``; one card
+    with None)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    max_len = MESH_GRID_PROMPT + MESH_GRID_DECODE
+    with torch.no_grad():
+        lg, cache = transformer.prefill(params, {"tokens": toks[:, :MESH_GRID_PROMPT]}, cfg, mc,
+                                        max_len=max_len)
+        out = [lg.float()]
+        for i in range(MESH_GRID_DECODE):
+            n = MESH_GRID_PROMPT + i
+            lg, cache = transformer.decode_step(params, cache, torch.tensor(n, device=dev),
+                                                {"tokens": toks[:, n:n + 1]}, cfg, mc)
+            out.append(lg.float())
+    return out
+
+
+def _logits_err(got: list, want: list) -> float:
+    """The worst step's max |difference| / max |logit|."""
+    return max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+
+
+def _mesh_grid(dev, times):
+    """qwen3-4b at full width, MESH_GRID_LAYERS deep, trained on a
+    MESH_GRID_SHAPE grid of the card (every coordinate in this process, the
+    real collectives): MESH_GRID_STEPS bf16 steps, the first step's loss
+    and grad_norm against the one-card step on the same weights; then a
+    prefill and decode steps on the grid against the one-card route."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh, ShardingRules, make_mesh_context
+    from repro_torch.models import transformer
+    from repro_torch.training.optimizer import AdamWConfig, global_norm, init_opt_state
+    from repro_torch.training.train_loop import (TrainConfig, build_train_step, lm_batches,
+                                                 value_and_grad)
+
+    cfg = dataclasses.replace(get_config(MESH_SHARE_ARCH), n_layers=MESH_GRID_LAYERS)
+    rules = ShardingRules(mesh=Mesh(MESH_GRID_SHAPE, ("data", "model"), dev))
+    mc = make_mesh_context(rules)
+    label = f"mesh grid {MESH_SHARE_ARCH} {MESH_GRID_SHAPE}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, mc,
+                                     device=dev)
+    _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 1))
+    batches = list(lm_batches(cfg.vocab, MESH_GRID_STEPS, batch=MESH_GRID_BATCH,
+                              seq=MESH_GRID_SEQ))
+    one_loss, grads = value_and_grad(
+        lambda p, b: transformer.loss_fn(p, {k: v.to(dev) for k, v in b.items()}, cfg),
+        params, batches[0])
+    one_loss, one_gnorm = float(one_loss), float(global_norm(grads))
+    del grads
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt = init_opt_state(params, AdamWConfig(lr=3e-3))
+    step = build_train_step(cfg, TrainConfig(optimizer=AdamWConfig(lr=3e-3)), dev, rules)
+    first = params
+    losses, gnorms, step_s = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    train_peak = torch.cuda.max_memory_allocated() - base
+    del params, opt, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    loss_err = abs(losses[0] / one_loss - 1)
+    gnorm_err = abs(gnorms[0] / one_gnorm - 1)
+    # prefill and decode on the first step's weights, the grid against one card
+    toks = _mesh_tokens(dev, cfg)
+    runs = {name: _mesh_logits(dev, cfg, first, m, toks) for name, m in (("one", None),
+                                                                         ("grid", mc))}
+    logits_err = _logits_err(runs["grid"], runs["one"])
+    del first, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    warm = float(np.median(step_s[1:]))
+    key = "mesh grid"
+    times.update({f"{key} layers": MESH_GRID_LAYERS, f"{key} step s": warm,
+                  f"{key} first step s": step_s[0], f"{key} train peak GB": train_peak / 1e9,
+                  f"{key} loss rel err": loss_err, f"{key} grad_norm rel err": gnorm_err,
+                  f"{key} logits rel err": logits_err})
+    print(f"{label}: published widths at {MESH_GRID_LAYERS} layers, {MESH_GRID_STEPS} steps at "
+          f"{MESH_GRID_BATCH} x {MESH_GRID_SEQ} tokens: warm step {warm:.4f} s (first "
+          f"{step_s[0]:.3f} s), peak {train_peak / 1e9:.3f} GB; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; first step loss / grad_norm against the one-card step's "
+          f"{one_loss:.6f} / {one_gnorm:.6f}: relative {loss_err:.3g} (limit "
+          f"{MESH_GRID_LOSS_TOL}) / {gnorm_err:.3g} (limit {MESH_GRID_GNORM_TOL}); a "
+          f"{MESH_GRID_PROMPT}-token prefill and {MESH_GRID_DECODE} decode steps within "
+          f"{logits_err:.3g} of max |logit| of the one-card route (limit {MESH_GRID_LOGITS_TOL})")
+    if loss_err > MESH_GRID_LOSS_TOL or gnorm_err > MESH_GRID_GNORM_TOL \
+            or logits_err > MESH_GRID_LOGITS_TOL:
+        raise AssertionError(f"{label}: loss / grad_norm / logits differ from the one-card "
+                             f"route's by {loss_err:.3g} / {gnorm_err:.3g} / {logits_err:.3g}")
+
+
+MESH_FAULT_SEEDS = 3
+MESH_FAULTS = ("none", "mlp psum", "decode shard")
+
+
+@contextlib.contextmanager
+def _planted(fault: str):
+    """Plant ``fault`` into the sharded step for the study below: "mlp
+    psum" drops `layers.mlp_grid`'s psum over "model" (each model shard
+    keeps its half of the down projection's sum); "decode shard" loses
+    flash-decoding's sequence shard 1 (its max set to +inf, so its
+    exponentials are zero); "none" plants nothing."""
+    from repro_torch.distributed.collectives import axis_index
+    from repro_torch.models import attention, layers, transformer
+
+    if fault == "mlp psum":
+        mlp_grid = transformer.mlp_grid
+
+        def without_psum(ps, specs, xs, act, mc):
+            psum = layers.psum
+            layers.psum = lambda ys, axes, mc_: list(ys)
+            try:
+                return mlp_grid(ps, specs, xs, act, mc)
+            finally:
+                layers.psum = psum
+
+        transformer.mlp_grid = without_psum
+        try:
+            yield
+        finally:
+            transformer.mlp_grid = mlp_grid
+    elif fault == "decode shard":
+        import torch
+
+        pmax = attention.pmax
+
+        def losing_shard(xs, axes, mc):
+            return [torch.full_like(m, float("inf")) if axis_index(mc.mesh, c, axes) == 1 else m
+                    for m, c in zip(pmax(xs, axes, mc), mc.coords)]
+
+        attention.pmax = losing_shard
+        try:
+            yield
+        finally:
+            attention.pmax = pmax
+    else:
+        yield
+
+
+def mesh_grid_faults(dev):
+    """`python3 chip_smoke.py --mesh-faults`: the readings behind
+    MESH_GRID_*_TOL at `_mesh_grid`'s own width, depth, batch and dtype,
+    for MESH_FAULT_SEEDS weight draws (seed 0 is `_mesh_grid`'s): the
+    first step's loss and grad_norm and the prefill / decode logits of the
+    (2, 2) grid against the one-card route, sound and with each planted
+    fault of MESH_FAULTS (`_planted`). One line a seed and fault."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh, ShardingRules, make_mesh_context
+    from repro_torch.models import transformer
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.train_loop import lm_batches, value_and_grad
+
+    cfg = dataclasses.replace(get_config(MESH_SHARE_ARCH), n_layers=MESH_GRID_LAYERS)
+    mc = make_mesh_context(ShardingRules(mesh=Mesh(MESH_GRID_SHAPE, ("data", "model"), dev)))
+    batch = {k: v.to(dev) for k, v in next(lm_batches(cfg.vocab, 1, batch=MESH_GRID_BATCH,
+                                                      seq=MESH_GRID_SEQ)).items()}
+    toks = _mesh_tokens(dev, cfg)
+    for seed in range(MESH_FAULT_SEEDS):
+        params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED + 10 * seed),
+                                         cfg, mc, device=dev)
+        _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 1 + 10 * seed))
+
+        def first_step(m):
+            loss, grads = value_and_grad(lambda p, b: transformer.loss_fn(p, b, cfg, m), params,
+                                         batch)
+            out = float(loss), float(global_norm(grads))
+            del grads
+            gc.collect()
+            return out
+
+        one_loss, one_gnorm = first_step(None)
+        one_logits = _mesh_logits(dev, cfg, params, None, toks)
+        for fault in MESH_FAULTS:
+            with _planted(fault):
+                loss, gnorm = first_step(mc)
+                logits = _mesh_logits(dev, cfg, params, mc, toks)
+            print(f"mesh faults seed {seed} {fault}: loss {abs(loss / one_loss - 1):.4g} "
+                  f"grad_norm {abs(gnorm / one_gnorm - 1):.4g} logits "
+                  f"{_logits_err(logits, one_logits):.4g} (prefill "
+                  f"{_logits_err(logits[:1], one_logits[:1]):.4g}) of the one-card route's",
+                  flush=True)
+            del logits
+        del params, one_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_mesh(dev):
+    """The transformer's sharded step on the production meshes: (b)
+    coordinate (0, 0)'s share of qwen3-4b x train_4k on the (16, 16) mesh
+    run for real (`_mesh_share`) and (c) qwen3-4b on a (2, 2) grid of the
+    card (`_mesh_grid`), then (a) every cell of MESH_ARCHS traced per
+    device on MESH_NAMES, one process a cell (`launch.dryrun.run_cell(...,
+    mesh=)`, coordinate 0's share, fake tensors on the card). The reference's LM layers reach no Pallas kernel: no
+    kernel of the port launches. Returns ({kernel: launches}, times)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    times = {}
+    build.launches.clear()
+    phase_t0 = time.perf_counter()
+    # the share's and the grid's steps are host-bound: they run before the
+    # tracing processes start, so that no other process shares the host
+    _mesh_share(dev, times)
+    _mesh_grid(dev, times)
+    procs = _mesh_traces_start(dev)
+    try:
+        _mesh_traces_join(procs, times)
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    counts = dict(build.launches)
+    if counts:
+        raise AssertionError(f"mesh: launches {counts}, want none (PyTorch operations only)")
+    torch.cuda.synchronize()
+    times["mesh phase s"] = time.perf_counter() - phase_t0
+    print(f"mesh: the phase took {times['mesh phase s']:.1f} s")
     return counts, times
 
 
@@ -3304,6 +3749,9 @@ def main() -> int:
     if sys.argv[1:] == ["--zamba2-drift"]:
         zamba2_decode_drift(dev)
         return 0
+    if sys.argv[1:] == ["--mesh-faults"]:
+        mesh_grid_faults(dev)
+        return 0
     t0 = time.perf_counter()
     reports = build.build_all()
     print(f"built {sorted(reports)} with nvcc in {time.perf_counter() - t0:.1f} s")
@@ -3352,6 +3800,7 @@ def main() -> int:
     _, lm_times = phase_lm(dev)
     _, tf_times = phase_transformer(dev)
     _, grid_times = phase_moe_grid(dev)
+    _, mesh_times = phase_mesh(dev)
     _, zamba_times = phase_zamba2(dev)
     gru_err, gru_launches, gru_times = phase_gru_seq(dev)
     wkv_err, wkv_launches, wkv_times = phase_wkv6(dev)
@@ -3367,6 +3816,7 @@ def main() -> int:
     times.update(lm_times)
     times.update(tf_times)
     times.update(grid_times)
+    times.update(mesh_times)
     times.update(zamba_times)
     times.update(gru_times)
     times.update(wkv_times)

@@ -18,10 +18,12 @@ entries that may repeat (one card can hold every shard), or without
 devices (an abstract mesh, like ``jax.sharding.AbstractMesh``, for the
 specs of meshes larger than the machine). `P` is the PartitionSpec
 counterpart: a tuple of None, an axis name, or a tuple of axis names.
-The specs say how the reference lays a tensor out; the port keeps each
-tensor whole on one device and runs the bodies of its one sharded
-operation, the model-axis MoE route (`models.moe.moe_apply`), on the
-grid's devices.
+The specs say how the reference lays a tensor out. `shard` gives a grid
+coordinate's piece of each leaf (a view), `local_shapes` the pieces'
+shapes, `unshard` puts pieces back together; the transformer's sharded
+step (`models.transformer` under `make_mesh_context(rules)`) runs one
+share a coordinate on these pieces, and with ``coord=`` the share of
+that coordinate alone (the dry run's per-device trace).
 
 **The fleet.** The KWS server's unit of parallelism is the stream slot:
 every per-slot state tensor, input slab and submitted mask leads with
@@ -44,8 +46,10 @@ from typing import Any, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.distributed.collectives import axes_of, axis_index, psum
 from repro_torch.kernels.build import resolve_device
 from repro_torch.models.moe import MeshContext
+from repro_torch.training.optimizer import tree_map
 
 __all__ = [
     "Mesh",
@@ -55,6 +59,14 @@ __all__ = [
     "param_specs",
     "batch_specs",
     "cache_specs",
+    "opt_state_specs",
+    "local_shapes",
+    "shard",
+    "unshard",
+    "context_rules",
+    "to_shares",
+    "from_shares",
+    "sync_grads",
     "stream_devices",
     "surviving_devices",
 ]
@@ -127,12 +139,24 @@ class ShardingRules:
         return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
 
 
-def make_mesh_context(rules: ShardingRules) -> MeshContext:
+def make_mesh_context(rules: ShardingRules, coord=None, specs=None) -> MeshContext:
+    """The model's `MeshContext` of ``rules``; ``coord`` (one index an
+    axis) builds that coordinate's share alone, on pieces whose whole
+    tree has the `param_specs` ``specs``."""
+    if coord is not None:
+        coord = tuple(int(i) for i in coord)
+        if len(coord) != len(rules.mesh.axis_names) or any(
+                not 0 <= i < n for i, n in zip(coord, rules.mesh.shape.values())):
+            raise ValueError(f"coordinate {coord} is not on the grid {dict(rules.mesh.shape)}")
+        if specs is None:
+            raise ValueError("a coordinate's share needs the parameters' specs")
     return MeshContext(
         mesh=rules.mesh,
         dp_axes=rules.dp_axes,
         model_axis=rules.model_axis,
         fsdp_axes=rules.fsdp_axes if rules.fsdp else (),
+        coord=coord,
+        specs=specs,
     )
 
 
@@ -311,6 +335,161 @@ def cache_specs(cache_shape: Any, rules: ShardingRules, batch: int):
         return _fit(P(*dims), tuple(leaf.shape), rules.mesh)
 
     return _map_with_names(spec, cache_shape)
+
+
+def opt_state_specs(opt_state, pspecs):
+    """AdamW's state sharded like the parameters, as the reference's
+    ``_opt_state_specs``: the step replicated, each moment its
+    parameter's spec; an int8 moment's codes take it and its row scale
+    drops the last entry."""
+    def mirror(spec, moment):
+        if isinstance(moment, dict) and "q" in moment:
+            return {"q": spec, "s": P(*(list(spec)[:-1] + [None]))}
+        return spec
+
+    return {"step": P(),
+            "m": _spec_map(mirror, pspecs, opt_state["m"]),
+            "v": _spec_map(mirror, pspecs, opt_state["v"])}
+
+
+def _spec_map(fn, specs, *trees):
+    """``fn(spec, *subtrees)`` at each `P` of ``specs`` (a tree whose
+    leaves are specs), with the subtrees of ``trees`` at the same place."""
+    if isinstance(specs, P):
+        return fn(specs, *trees)
+    if isinstance(specs, dict):
+        return {k: _spec_map(fn, v, *(t[k] for t in trees)) for k, v in specs.items()}
+    return type(specs)(_spec_map(fn, v, *(t[i] for t in trees)) for i, v in enumerate(specs))
+
+
+def _spec_dims(spec, ndim) -> list:
+    return list(spec) + [None] * (ndim - len(spec))
+
+
+def local_shape(shape, spec: P, mesh: Mesh) -> tuple:
+    """``shape`` with each dim divided by its spec entry's axis sizes
+    (``NamedSharding(mesh, spec).shard_shape``)."""
+    dims = _spec_dims(spec, len(shape))
+    out = []
+    for n, entry in zip(shape, dims):
+        k = _axes_size(entry, mesh)
+        if n % k:
+            raise ValueError(f"dim {n} of {tuple(shape)} does not split {k} ways ({spec})")
+        out.append(n // k)
+    return tuple(out)
+
+
+def local_shapes(tree, specs, mesh: Mesh):
+    """``meta`` tensors of each leaf's dtype and its piece's shape on the
+    grid (`local_shape`): what a coordinate holds."""
+    return tree_map(lambda t, spec: torch.empty(local_shape(tuple(t.shape), spec, mesh),
+                                                dtype=t.dtype, device="meta"), tree, specs)
+
+
+def _slices(shape, spec: P, mesh: Mesh, coord) -> list:
+    """(dim, start, length) of the piece at ``coord`` along each sharded dim."""
+    out = []
+    for d, (n, entry) in enumerate(zip(shape, _spec_dims(spec, len(shape)))):
+        k = _axes_size(entry, mesh)
+        if k > 1:
+            size = n // k
+            out.append((d, axis_index(mesh, coord, entry) * size, size))
+    return out
+
+
+@dataclasses.dataclass
+class _Cuts:
+    """A leaf and its sharded dims: [(dim, spec entry, piece length)]."""
+    t: torch.Tensor
+    cuts: list
+
+
+def _plan(tree, specs, mesh: Mesh):
+    return tree_map(lambda t, spec: _Cuts(t, [
+        (d, entry, n // _axes_size(entry, mesh))
+        for d, (n, entry) in enumerate(zip(t.shape, _spec_dims(spec, t.dim())))
+        if _axes_size(entry, mesh) > 1]), tree, specs)
+
+
+def _pieces(plan, mesh: Mesh, coord, dev=None):
+    """The pieces of a `_plan` at ``coord`` (on ``dev`` where given)."""
+    def piece(leaf):
+        t = leaf.t
+        for d, entry, size in leaf.cuts:
+            t = t.narrow(d, axis_index(mesh, coord, entry) * size, size)
+        return t if dev is None or t.device == dev else t.to(dev)
+
+    return tree_map(piece, plan)
+
+
+def shard(tree, specs, mesh: Mesh, coord):
+    """Each leaf's piece at grid coordinate ``coord`` as a view (the leaf
+    itself where its spec is replicated)."""
+    return _pieces(_plan(tree, specs, mesh), mesh, coord)
+
+
+def unshard(shares: Sequence[Any], specs, mesh: Mesh, coords: Sequence[tuple]):
+    """The whole tree from one tree of pieces a coordinate of ``coords``
+    (every coordinate of the grid), on the first piece's device: each
+    leaf's pieces put at their places (a replicated axis's first
+    coordinate taken)."""
+    def whole(spec, *pieces):
+        ref = pieces[0]
+        shape = [n * _axes_size(e, mesh) for n, e in zip(ref.shape, _spec_dims(spec, ref.dim()))]
+        named = {ax for e in spec for ax in axes_of(e)}
+        free = [k for k, ax in enumerate(mesh.axis_names) if ax not in named]
+        out = ref.new_empty(shape)
+        for c, p in zip(coords, pieces):
+            if any(c[k] for k in free):  # a replicated axis's first coordinate only
+                continue
+            view = out
+            for d, start, size in _slices(tuple(shape), spec, mesh, c):
+                view = view.narrow(d, start, size)
+            view.copy_(p.to(out.device))
+        return out
+
+    return tree_map(lambda first, spec, *rest: whole(spec, first, *rest), shares[0], specs,
+                    *shares[1:])
+
+
+def context_rules(mc: MeshContext) -> ShardingRules:
+    """The `ShardingRules` a mesh context was made from."""
+    fsdp = tuple(mc.fsdp_axes)
+    return ShardingRules(mesh=mc.mesh, dp_axes=tuple(mc.dp_axes), model_axis=mc.model_axis,
+                         fsdp_axes=fsdp or ("data",), fsdp=bool(fsdp))
+
+
+def to_shares(tree, specs, mc: MeshContext) -> list:
+    """One tree a coordinate of ``mc.coords``: the coordinate's pieces
+    (views), on its device. A coordinate's share (``mc.coord`` set) is
+    the tree it was given."""
+    if mc.coord is not None:
+        return [tree]
+    plan = _plan(tree, specs, mc.mesh)
+    return [_pieces(plan, mc.mesh, c, mc.mesh.device(c)) for c in mc.coords]
+
+
+def from_shares(shares: Sequence[Any], specs, mc: MeshContext):
+    """The whole tree from a full grid's shares (`unshard`); a
+    coordinate's share: its own pieces."""
+    if mc.coord is not None:
+        return shares[0]
+    return unshard(shares, specs, mc.mesh, mc.coords)
+
+
+def sync_grads(grads, specs, mc: MeshContext):
+    """A coordinate's gradient pieces summed over the grid axes its
+    parameter is replicated on (the FSDP axes were summed by the
+    reduce-scatter in the all-gather's backward): the lone all-reduces of
+    the reference's data-parallel gradient sync. Only a coordinate's
+    share needs it: on a full grid the pieces are views of one tree, and
+    autograd adds them."""
+    def one(g, spec):
+        named = {ax for e in spec for ax in axes_of(e)}
+        axes = tuple(ax for ax in mc.mesh.axis_names if ax not in named)
+        return psum([g], axes, mc)[0]
+
+    return tree_map(one, grads, specs)
 
 
 # --------------------------------------------------------------------------

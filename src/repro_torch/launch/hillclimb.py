@@ -1,14 +1,14 @@
 """The dry run's iterations on three cells, each a hypothesis -> change ->
-trace, on one card. Counterpart of `repro.launch.hillclimb`: the same
-cells and overrides, traced on fake tensors by `launch.dryrun.run_cell`
-(the card's roofline from the port's own graph), one JSON per iteration.
+trace. Counterpart of `repro.launch.hillclimb`: the same cells and
+overrides, traced on fake tensors by `launch.dryrun.run_cell` (the
+roofline from the port's own graph), one JSON per iteration. Cells A and
+C and the kimi fit run on one card; cell B (kimi-k2 x decode_32k,
+weights-stationary expert parallelism) needs a model axis, so it traces
+a device's share of the (16, 16) mesh, its collective term modelled over
+the datasheet links (`launch.roofline`).
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb [--cell A|B|C|kimi_fit|all]
         [--out results/hillclimb] [--device cpu]
-
-Cell B (kimi-k2 x decode_32k, weights-stationary expert parallelism)
-needs a model axis over several cards; on one card it prints that it
-waits for multi-card work (ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -24,9 +24,10 @@ from repro_torch.launch.dryrun import run_cell
 __all__ = ["cell_a", "cell_b", "cell_c", "kimi_fit", "main"]
 
 
-def _run(arch, shape, steps, out, device):
+def _run(arch, shape, steps, out, device, mesh=None):
     for name, overrides, note in steps:
-        report, _ = run_cell(arch, shape, note=note, overrides=overrides, device=device)
+        report, _ = run_cell(arch, shape, note=note, overrides=overrides, device=device,
+                             mesh=mesh)
         os.makedirs(out, exist_ok=True)
         with open(os.path.join(out, f"{name}.json"), "w") as f:
             json.dump(report.to_json(), f, indent=2)
@@ -51,13 +52,18 @@ def cell_a(out, device=None):
 
 
 def cell_b(out, device=None):
-    """kimi-k2 x decode_32k: weights-stationary expert parallelism moves
-    tokens, not experts, across a model axis. The route runs on a device
-    grid (`models.moe`); the cell's per-device numbers on the abstract
-    (16, 16) mesh wait for a per-shard trace."""
-    print("#### CELL B: kimi-k2-1t-a32b x decode_32k: waits for multi-card work on the "
-          "abstract production meshes (ROADMAP queue 1): per-device FLOPs, bytes and peak "
-          "need a per-shard trace of every layer")
+    """kimi-k2 x decode_32k on the (16, 16) mesh: the FSDP all-gather of
+    every layer's expert banks against weights-stationary expert
+    parallelism, which moves the tokens instead."""
+    print("#### CELL B: kimi-k2-1t-a32b x decode_32k @ 16x16")
+    cfg = get_config("kimi-k2-1t-a32b")
+    _run("kimi-k2-1t-a32b", "decode_32k", [
+        ("B0_gather", {"moe": dataclasses.replace(cfg.moe, stationary_threshold=0)},
+         "baseline: each layer's expert banks all-gathered over the FSDP axis a token step"),
+        ("B1_stationary", {},
+         "hypothesis: weights-stationary EP (the tokens all-gathered, the banks never move) "
+         "-> collective term down by the banks' wire bytes"),
+    ], out, device, mesh="16x16")
 
 
 def cell_c(out, device=None):

@@ -31,12 +31,25 @@ tensors that carry a shape, a dtype and a device but allocate nothing
                fragmentation, a retry): the peak is the one
                `torch.cuda.max_memory_allocated` reports.
 
+  wire bytes - every collective of the sharded step
+               (`distributed.collectives`, forward and backward) reports
+               its kind and its wire bytes a device by the reference's
+               formulas (`roofline.py:428-440`), and which link its group
+               spans (`group_link`): `wire_bytes`, `collective_breakdown`
+               by kind, `link_bytes` by link.
+
 `HARDWARE` holds one H100 SXM5 80GB HBM3 at 700 W: bf16 tensor cores
 989.4 TFLOP/s dense, float32 CUDA cores 66.9 TFLOP/s (TF32 stays off in
-the port), HBM 3.35 TB/s, 80 GB; the interconnect figure is a field only,
-since one card has no collective term. `make_report` turns an analysis into
-the reference's `CellReport`: compute s = sum over dtypes of FLOPs / that
-dtype's peak, memory s = bytes / HBM rate, collective s = 0.
+the port), HBM 3.35 TB/s, 80 GB, and the links of a modelled cluster of
+such cards, from datasheets: NVLink 4 at 450 GB/s a direction a card
+within a node of 8 (NVIDIA H100 SXM5 datasheet: 900 GB/s
+bidirectional), one 400 Gb/s NDR InfiniBand port a card across nodes,
+50 GB/s (ConnectX-7). The placement is stated, not measured: a mesh's
+coordinates are numbered row-major ("model" innermost) and cards 8k to
+8k + 7 share node k. `make_report` turns an analysis into the
+reference's `CellReport`: compute s = sum over dtypes of FLOPs / that
+dtype's peak, memory s = bytes / HBM rate, collective s = each link's
+wire bytes over its rate, summed. These are modelled figures.
 """
 
 from __future__ import annotations
@@ -53,22 +66,28 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 __all__ = [
     "HARDWARE", "Hardware", "GraphAnalysis", "CellReport", "model_flops_for", "make_report",
-    "device_memory_bytes", "fits",
+    "device_memory_bytes", "fits", "group_link",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class Hardware:
     """One NVIDIA H100 SXM5 80GB HBM3 at its 700 W limit: NVIDIA's dense
-    peaks (no sparsity) for the port's product dtypes, HBM rate and size,
-    and NVLink 4's 450 GB/s a direction (unused on one card)."""
+    peaks (no sparsity) for the port's product dtypes, HBM rate and size;
+    and the datasheet links of a cluster of them (module docstring)."""
 
     name: str = "H100 SXM5 80GB HBM3, 700 W"
     bf16_flops: float = 989.4e12  # tensor cores, dense (fp16 the same)
     f32_flops: float = 66.9e12  # CUDA cores: TF32 is off in the port
     hbm_bw: float = 3.35e12  # B/s
     memory_bytes: float = 80e9
-    link_bw: float = 450e9  # B/s a direction (NVLink 4)
+    nvlink_bw: float = 450e9  # B/s a direction a card (NVLink 4, H100 SXM5 datasheet)
+    network_bw: float = 50e9  # B/s a card across nodes: one 400 Gb/s NDR port
+    cards_per_node: int = 8
+
+    def link_bw(self, link: str) -> float:
+        """The rate of ``link`` ("nvlink" within a node, "network" across)."""
+        return self.nvlink_bw if link == "nvlink" else self.network_bw
 
     def peak_flops(self, dtype) -> float:
         """The dense peak for products in ``dtype`` (a torch.dtype or its
@@ -79,6 +98,22 @@ class Hardware:
 
 
 HARDWARE = Hardware()
+
+
+def group_link(mesh, group, hw: Hardware = HARDWARE) -> str:
+    """The slowest link a collective's group of grid coordinates spans:
+    "nvlink" when every member's card (its row-major number on the mesh,
+    "model" innermost) is in one node of ``hw.cards_per_node``, else
+    "network"."""
+    sizes = list(mesh.shape.values())
+    nodes = set()
+    for c in group:
+        flat = 0
+        for i, n in zip(c, sizes):
+            flat = flat * n + i
+        nodes.add(flat // hw.cards_per_node)
+    return "nvlink" if len(nodes) == 1 else "network"
+
 
 #: The CUDA caching allocator's granule: every block is a multiple of it.
 ALLOC_GRANULE = 512
@@ -145,6 +180,9 @@ class GraphAnalysis(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self.held_bytes = 0
+        self.wire_bytes = 0.0
+        self.collective_breakdown: Dict[str, float] = {}
+        self.link_bytes: Dict[str, float] = {}
         self._storages = WeakIdKeyDictionary()
 
     @property
@@ -157,6 +195,19 @@ class GraphAnalysis(TorchDispatchMode):
 
     def memory_s(self, hw: Hardware = HARDWARE) -> float:
         return self.hbm_bytes / hw.hbm_bw
+
+    def collective_s(self, hw: Hardware = HARDWARE) -> float:
+        """Each link's wire bytes at its rate, summed (modelled)."""
+        return sum(b / hw.link_bw(link) for link, b in self.link_bytes.items())
+
+    def note_collective(self, kind: str, wire: float, mesh, axes, group) -> None:
+        """One collective's wire bytes a device, reported by
+        `distributed.collectives` while the mode is on."""
+        self.wire_bytes += wire
+        self.collective_breakdown[kind] = self.collective_breakdown.get(kind, 0.0) + wire
+        link = group_link(mesh, group)
+        self.link_bytes[link] = self.link_bytes.get(link, 0.0) + wire
+
 
     def hold(self, tree) -> int:
         """Count the tensors of ``tree`` (made before the analysis: the
@@ -206,10 +257,11 @@ class GraphAnalysis(TorchDispatchMode):
 
 @dataclasses.dataclass
 class CellReport:
-    """One (arch, shape) cell on one card, with the reference's fields:
-    ``hlo_flops`` / ``hlo_bytes`` are the port's graph FLOPs and HBM bytes
-    (the names kept for the reports' readers), ``mesh`` "1xH100", one chip,
-    no collective."""
+    """One (arch, shape) cell, a device's share, with the reference's
+    fields: ``hlo_flops`` / ``hlo_bytes`` are the port's graph FLOPs and
+    HBM bytes (the names kept for the reports' readers); ``mesh`` "1xH100"
+    (one card, no collective) or a production mesh's name, "16x16" or
+    "2x16x16", and its chips."""
 
     arch: str
     shape: str
@@ -273,19 +325,22 @@ def model_flops_for(arch_cfg, shape_spec) -> float:
 
 
 def make_report(arch_cfg, shape_spec, analysis: GraphAnalysis, kind: str, note: str = "",
-                hw: Hardware = HARDWARE) -> CellReport:
-    """The cell's `CellReport` on one card from its step's analysis."""
+                hw: Hardware = HARDWARE, mesh: str = "1xH100", chips: int = 1) -> CellReport:
+    """The cell's `CellReport` from its step's analysis: on one card, or
+    (``mesh``, ``chips``) from one device's share of the mesh's step."""
     mf = model_flops_for(arch_cfg, shape_spec)
     terms = {"compute": analysis.compute_s(hw), "memory": analysis.memory_s(hw),
-             "collective": 0.0}
+             "collective": analysis.collective_s(hw)}
     return CellReport(
-        arch=arch_cfg.name, shape=shape_spec.name, mesh="1xH100", chips=1, kind=kind,
-        compute_s=terms["compute"], memory_s=terms["memory"], collective_s=0.0,
+        arch=arch_cfg.name, shape=shape_spec.name, mesh=mesh, chips=chips, kind=kind,
+        compute_s=terms["compute"], memory_s=terms["memory"], collective_s=terms["collective"],
         dominant=max(terms, key=terms.get),
-        hlo_flops=analysis.flops, hlo_bytes=analysis.hbm_bytes, wire_bytes=0.0,
-        model_flops=mf, useful_ratio=mf / analysis.flops if analysis.flops else 0.0,
+        hlo_flops=analysis.flops, hlo_bytes=analysis.hbm_bytes, wire_bytes=analysis.wire_bytes,
+        model_flops=mf,
+        useful_ratio=mf / (analysis.flops * chips) if analysis.flops else 0.0,
         peak_bytes_per_device=float(analysis.peak_bytes),
         arg_bytes_per_device=float(analysis.held_bytes), note=note,
+        collective_breakdown=dict(analysis.collective_breakdown),
         dtype=str(arch_cfg.activation_dtype).replace("torch.", ""))
 
 

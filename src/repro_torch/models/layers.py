@@ -4,6 +4,16 @@ Counterpart of `repro.models.layers`. Parameter trees are nested dicts
 of tensors; stacked layers carry a leading (n_layers,) axis.
 Initializers draw float32 from an explicit ``torch.Generator`` (on the
 generator's device) and the caller casts to the activation dtype.
+
+The sharded step's layers (`gather_param`, `mlp_grid`, `embed_grid`,
+`cross_entropy_grid`) work on *shares*: lists with one tensor (or one
+parameter piece) a grid coordinate of ``mc.coords``
+(`models.moe.MeshContext`), and the `distributed.collectives` between
+them. The layout is the reference's: the residual stream's batch over
+the data-parallel axes, replicated over "model"; the MLP column-parallel
+(gate and up) then row-parallel (down) with a psum over "model"; the
+vocabulary over "model"; each weight all-gathered over its FSDP axes
+where it is used, inside the rematerialised layer.
 """
 
 from __future__ import annotations
@@ -16,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.distributed.collectives import all_gather, axes_of, axis_index, pmax, psum
+
 __all__ = [
     "wide",
     "rms_norm",
@@ -27,6 +39,11 @@ __all__ = [
     "mlp_apply",
     "cross_entropy_loss",
     "remat",
+    "gather_param",
+    "splits_on",
+    "mlp_grid",
+    "embed_grid",
+    "cross_entropy_grid",
 ]
 
 
@@ -138,3 +155,100 @@ def _save_dots(ctx, op, *args, **kwargs):
     if op is torch.ops.aten.mm.default:
         return _ckpt.CheckpointPolicy.MUST_SAVE
     return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# --------------------------------------------------------------------------
+# the sharded step's layers: one entry a grid coordinate of mc.coords
+# --------------------------------------------------------------------------
+
+def splits_on(spec, dim: int, axis) -> bool:
+    """Whether ``spec`` shards dim ``dim`` over ``axis``."""
+    return dim < len(spec) and axis in axes_of(spec[dim])
+
+
+def gather_param(pieces: list, spec, mc) -> list:
+    """A parameter's pieces all-gathered over the FSDP axes of its spec,
+    dim by dim (the model axis stays sharded): the weight as it is used.
+    An int8 ``{"q", "s"}`` bank gathers each part along its own spec."""
+    if isinstance(pieces[0], dict):
+        parts = {k: gather_param([p[k] for p in pieces], spec[k], mc) for k in pieces[0]}
+        return [{k: parts[k][i] for k in parts} for i in range(len(pieces))]
+    for dim, entry in enumerate(spec):
+        axes = tuple(ax for ax in axes_of(entry) if ax != mc.model_axis)
+        if axes:
+            pieces = all_gather(pieces, axes, mc, dim)
+    return pieces
+
+
+def mlp_grid(ps: list, specs, xs: list, act: str, mc) -> list:
+    """`mlp_apply` on a share: gate and up column-parallel, down
+    row-parallel and a psum over "model" where the hidden dim is split
+    over it. A hidden dim replicated over "model", as the shared
+    expert's, runs whole: the model coordinates of one data shard hold the
+    same rows (the residual stream is replicated over "model") and the
+    same weights, so it runs once for them and they share the result."""
+    w = {k: gather_param([p[k] for p in ps], specs[k], mc) for k in ps[0]}
+    if splits_on(specs["w_up"], 1, mc.model_axis):
+        ys = [mlp_apply({k: w[k][i] for k in w}, x, act) for i, x in enumerate(xs)]
+        return psum(ys, mc.model_axis, mc)
+    once, ys = {}, []
+    for i, (c, x) in enumerate(zip(mc.coords, xs)):
+        rows = tuple(j for ax, j in zip(mc.mesh.axis_names, c) if ax != mc.model_axis)
+        if rows not in once:
+            once[rows] = mlp_apply({k: w[k][i] for k in w}, x, act)
+        ys.append(once[rows].to(x.device))
+    return ys
+
+
+def _vocab_start(mc, coord, v_loc: int) -> int:
+    return axis_index(mc.mesh, coord, mc.model_axis) * v_loc
+
+
+def embed_grid(pieces: list, spec, tokens: list, dtype, mc) -> list:
+    """The token embedding on a share: with the vocabulary over "model",
+    each coordinate looks up the tokens of its vocabulary slice (zero
+    elsewhere) and a psum over "model" adds the slices."""
+    w = gather_param(pieces, spec, mc)
+    if not splits_on(spec, 0, mc.model_axis):
+        return [wi.to(dtype)[t.to(torch.int64)] for wi, t in zip(w, tokens)]
+    xs = []
+    for c, wi, t in zip(mc.coords, w, tokens):
+        v_loc = wi.shape[0]
+        ids = t.to(device=wi.device, dtype=torch.int64) - _vocab_start(mc, c, v_loc)
+        ok = (ids >= 0) & (ids < v_loc)
+        x = wi.to(dtype)[torch.clamp(ids, 0, v_loc - 1)]
+        xs.append(torch.where(ok[..., None], x, torch.zeros((), dtype=dtype, device=x.device)))
+    return psum(xs, mc.model_axis, mc)
+
+
+def cross_entropy_grid(logits: list, labels: list, final_cap, vocab_split: bool,
+                       batch_split: bool, n_tokens: int, mc) -> list:
+    """`cross_entropy_loss` on a share of logits (B_loc, S, V_loc): with
+    the vocabulary over "model" the max and the sum of exponentials are
+    a pmax and a psum over "model", the gold logit a masked local gather
+    and a psum; the mean over the global batch a psum over the
+    data-parallel axes (where the batch is split over them) of the local
+    sums, divided by ``n_tokens``."""
+    ls = [softcap(lg, final_cap) for lg in logits]
+    ls = [lg.to(wide(lg.dtype)) for lg in ls]
+    labels = [lb.to(device=lg.device, dtype=torch.int64) for lb, lg in zip(labels, ls)]
+    if not vocab_split:
+        logz = [torch.logsumexp(lg, dim=-1) for lg in ls]
+        gold = [torch.gather(lg, -1, lb[..., None])[..., 0] for lg, lb in zip(ls, labels)]
+    else:
+        m = pmax([lg.amax(dim=-1) for lg in ls], mc.model_axis, mc)
+        se = psum([torch.exp(lg - mi[..., None]).sum(dim=-1) for lg, mi in zip(ls, m)],
+                  mc.model_axis, mc)
+        logz = [mi + torch.log(s_) for mi, s_ in zip(m, se)]
+        gold = []
+        for c, lg, lb in zip(mc.coords, ls, labels):
+            v_loc = lg.shape[-1]
+            ids = lb - _vocab_start(mc, c, v_loc)
+            ok = (ids >= 0) & (ids < v_loc)
+            g = torch.gather(lg, -1, torch.clamp(ids, 0, v_loc - 1)[..., None])[..., 0]
+            gold.append(torch.where(ok, g, torch.zeros((), dtype=g.dtype, device=g.device)))
+        gold = psum(gold, mc.model_axis, mc)
+    if not batch_split:
+        return [torch.mean(z - g) for z, g in zip(logz, gold)]
+    sums = psum([torch.sum(z - g) for z, g in zip(logz, gold)], mc.dp_axes, mc)
+    return [t / n_tokens for t in sums]

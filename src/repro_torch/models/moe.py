@@ -14,22 +14,26 @@ an ``index_add`` on the card would add in whatever order its atomics land.
 Without a model axis (``mesh_ctx`` None) the route runs once over every
 token. With one, it is the reference's ``shard_map`` route over a device
 grid (`distributed.sharding.Mesh`, whose entries may all be one card):
-one body a (data, model) grid coordinate, on that coordinate's device.
-Data shard i's B / dp rows are routed through the full (replicated)
-router, the same on every model shard, so once a data shard; body (i, j)
-keeps the choices of its expert slice [j * E_loc, (j + 1) * E_loc) at a
-capacity from its own T_loc, and the sum over j in shard order (the
-psum over "model") is data shard i's output; aux is the mean over the
-data shards. With FSDP axes and T_loc * top_k at most
-``cfg.moe.stationary_threshold`` the weights-stationary path runs
-instead: all T tokens are routed (capacity from T), each FSDP shard
-multiplies its d-slice of a body's buffer by its slice of the banks,
-up / gate are summed over the FSDP shards and the output slices
-gathered, and each data shard takes back its own rows.
+`moe_grid`, one body a grid coordinate, on that coordinate's pieces of
+the banks and rows, with the collectives of `distributed.collectives`.
+The transformer's sharded step calls it on its shares; `moe_apply` with
+a mesh context cuts whole tensors into shares (`param_specs`, the batch
+over the data-parallel axes) and puts y back together. Body (i, j) keeps
+the choices of its expert slice [j * E_loc, (j + 1) * E_loc) of data
+shard i's rows, routed through the full (replicated) router, at a
+capacity from its own T_loc, and the psum over "model" is data shard i's
+output; aux is the mean over the data shards. With FSDP axes and T_loc *
+top_k at most ``cfg.moe.stationary_threshold`` the weights-stationary
+path runs instead: all T tokens are gathered and routed (capacity from
+T), each FSDP shard multiplies its d-slice of a body's buffer by its
+slice of the banks, up / gate are summed over the FSDP shards and the
+output slices gathered, and each data shard takes back its own rows. A
+coordinate can also run alone (the dry run's per-device trace), its
+collectives in their lone form.
 
-The port keeps each bank whole on one device, so a body's expert slice
-(and the FSDP "gather" of its pieces, their concatenation) is a view of
-the bank on that device and one copy onto any other; int8 ``{"q",
+On a grid whose entries are one device, the pieces are views of the
+banks, and the FSDP all-gather of adjacent views of one tensor is a view
+(`distributed.collectives.all_gather`): no bank is copied. int8 ``{"q",
 "s"}`` scales are split only along an axis they have. Gradients flow
 through autograd; the dispatch gather's own backward (`_TokenGather`)
 adds each token's slots in a fixed order, so a training step on the card
@@ -39,28 +43,46 @@ is deterministic.
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Optional, Tuple
+import functools
+import itertools
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, wide
+from repro_torch.distributed.collectives import all_gather, axes_size, axis_index, psum
+from repro_torch.models.layers import (
+    dense_init,
+    gather_param,
+    mlp_apply,
+    mlp_grid,
+    mlp_init,
+    wide,
+)
 from repro_torch.models.moe_quant import dequant_weight
 
-__all__ = ["MeshContext", "moe_init", "moe_apply", "padded_num_experts"]
+__all__ = ["MeshContext", "moe_init", "moe_apply", "moe_grid", "padded_num_experts"]
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshContext:
     """Mesh + axis-name conventions threaded through model apply fns
-    (`distributed.sharding.make_mesh_context` builds one from rules)."""
+    (`distributed.sharding.make_mesh_context` builds one from rules).
+
+    ``coord`` None: the step builds every grid coordinate, one process
+    (each on its `Mesh.device`). ``coord`` set: the step builds that
+    coordinate's share alone, its collectives in their lone form
+    (`distributed.collectives`), on parameters that are already the
+    coordinate's pieces; ``specs`` then holds the parameters' `P` tree
+    (`distributed.sharding.param_specs` of the whole tree)."""
 
     mesh: object  # distributed.sharding.Mesh
     dp_axes: Tuple[str, ...] = ("data",)  # batch axes ("pod", "data") multi-pod
     model_axis: Optional[str] = "model"
     # FSDP axes the expert banks are sharded over (empty = no FSDP)
     fsdp_axes: Tuple[str, ...] = ()
+    coord: Optional[Tuple[int, ...]] = None
+    specs: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def model_size(self) -> int:
@@ -68,10 +90,30 @@ class MeshContext:
             return 1
         return self.mesh.shape[self.model_axis]
 
+    @functools.cached_property
+    def coords(self) -> tuple:
+        """The grid coordinates the step builds, row-major."""
+        if self.coord is not None:
+            return (tuple(self.coord),)
+        return tuple(itertools.product(*(range(n) for n in self.mesh.shape.values())))
+
+    @functools.cached_property
+    def groups(self) -> dict:
+        """`distributed.collectives`' groups of ``coords``, one entry a
+        tuple of axes, filled as the collectives ask."""
+        return {}
+
+    def device(self, coord, default):
+        """The device of grid coordinate ``coord`` (``default`` on an
+        abstract mesh)."""
+        dev = self.mesh.device(coord)
+        return default if dev is None else dev
+
     def constrain_heads(self, t):
         """The reference pins (B, S, H, D) attention activations to
-        batch-over-dp + heads-over-model; that only places data, and the
-        port keeps activations whole on one device: the identity."""
+        batch-over-dp + heads-over-model; on whole tensors that only
+        places data: the identity (the sharded step lays heads out
+        itself, `models.attention`)."""
         return t
 
     def constrain_hidden(self, x):
@@ -196,20 +238,34 @@ def _compute(x: torch.Tensor, p_loc, gates: torch.Tensor, idx: torch.Tensor, e_s
     E_loc) of ``p_loc``'s banks to the tokens x (T, d) routed as (gates,
     idx). ``ffn_fn``, when given, replaces the expert FFN on the (E_loc,
     C, d) buffer (the weights-stationary path)."""
-    t, d = x.shape
     wu = p_loc["w_up"]["q"] if isinstance(p_loc["w_up"], dict) else p_loc["w_up"]
-    e_loc = wu.shape[0]
+    buf, back = _buffer(x, gates, idx, wu.shape[0], e_start, capacity)
+    h = _expert_ffn(p_loc, buf, act) if ffn_fn is None else ffn_fn(buf)
+    return _unbuffer(h, back)
+
+
+def _buffer(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor, e_loc: int, e_start: int,
+            capacity: int):
+    """The (E_loc, C, d) dispatch buffer of the experts [e_start, e_start +
+    e_loc) and what `_unbuffer` needs to add their outputs back."""
+    t, d = x.shape
     keep, slot, tok_for_slot, valid_slot = _dispatch(idx, e_loc, capacity, e_start)
     n_slots = e_loc * capacity
     flat_g = gates.reshape(-1).to(x.dtype)
     gate_for_slot = torch.zeros((n_slots + 1,), dtype=x.dtype, device=x.device).scatter_reduce(
         0, slot, torch.where(keep, flat_g, 0), "amax")[:-1]
     valid = valid_slot.to(x.dtype)
-    buf = _TokenGather.apply(x, tok_for_slot, slot.reshape(t, idx.shape[1]), e_loc) * valid[:, None]
-    buf = buf.reshape(e_loc, capacity, d)
-    h = _expert_ffn(p_loc, buf, act) if ffn_fn is None else ffn_fn(buf)
-    contrib = h.reshape(n_slots, d) * (gate_for_slot * valid)[:, None]
-    return _combine(contrib, slot.reshape(t, idx.shape[1]), e_loc)
+    slot = slot.reshape(t, idx.shape[1])
+    buf = _TokenGather.apply(x, tok_for_slot, slot, e_loc) * valid[:, None]
+    return buf.reshape(e_loc, capacity, d), (gate_for_slot * valid, slot, e_loc)
+
+
+def _unbuffer(h: torch.Tensor, back) -> torch.Tensor:
+    """The experts' outputs h (E_loc, C, d) weighted by their gates and
+    added back to their tokens: (T, d)."""
+    weight, slot, e_loc = back
+    contrib = h.reshape(-1, h.shape[-1]) * weight[:, None]
+    return _combine(contrib, slot, e_loc)
 
 
 def _route_and_compute(x: torch.Tensor, p_loc, e_start: int = 0, *, num_experts: int,
@@ -267,157 +323,129 @@ def _capacity(t: int, m) -> int:
 
 
 def moe_apply(p, x: torch.Tensor, cfg, mesh_ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN layer on x (B, S, d). Returns (y, aux_loss)."""
+    """MoE FFN layer on x (B, S, d). Returns (y, aux_loss). With a model
+    axis in ``mesh_ctx``: `moe_grid` on every grid coordinate's pieces of
+    p and x (views, on the coordinates' devices), y put back together."""
+    if mesh_ctx is not None and mesh_ctx.model_axis is not None:
+        return _on_grid(p, x, cfg, mesh_ctx)
     m = cfg.moe
     b, s, d = x.shape
     wu = p["w_up"]["q"] if isinstance(p["w_up"], dict) else p["w_up"]
-    e_pad = wu.shape[0]
-    if mesh_ctx is None or mesh_ctx.model_axis is None:
-        t = b * s
-        y, aux = _route_and_compute(x.reshape(t, d), p, 0, num_experts=m.num_experts,
-                                    e_pad=e_pad, top_k=m.top_k, capacity=_capacity(t, m),
-                                    act=cfg.mlp_act)
-        y = y.reshape(b, s, d)
-    else:
-        y, aux = _grid_apply(p, x, cfg, mesh_ctx, e_pad)
+    t = b * s
+    y, aux = _route_and_compute(x.reshape(t, d), p, 0, num_experts=m.num_experts,
+                                e_pad=wu.shape[0], top_k=m.top_k, capacity=_capacity(t, m),
+                                act=cfg.mlp_act)
+    y = y.reshape(b, s, d)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, cfg.mlp_act)
     return y, aux
 
 
+def _on_grid(p, x: torch.Tensor, cfg, mc: MeshContext):
+    """`moe_apply` over ``mc``'s full grid: the layer's `param_specs`
+    pieces and x's rows over the data-parallel axes, one share a
+    coordinate, through `moe_grid`."""
+    from repro_torch.distributed.sharding import (P, context_rules, from_shares, param_specs,
+                                                  to_shares)
+
+    if mc.coord is not None:
+        raise ValueError("moe_apply takes whole tensors; a coordinate's share runs moe_grid")
+    wu = p["w_up"]["q"] if isinstance(p["w_up"], dict) else p["w_up"]
+    if wu.shape[0] % mc.model_size:
+        raise ValueError(f"moe_apply: {wu.shape[0]} experts do not split over a "
+                         f"{mc.model_size}-way model axis (moe_init pads them under the same "
+                         "mesh context)")
+    dp_total = axes_size(mc.mesh, mc.dp_axes)
+    if x.shape[0] % dp_total:
+        raise ValueError(f"moe_apply: a batch of {x.shape[0]} rows does not split over "
+                         f"{dp_total} data shards")
+    specs = param_specs({"moe": p}, context_rules(mc))["moe"]
+    x_spec = P(mc.dp_axes if len(mc.dp_axes) > 1 else mc.dp_axes[0])
+    ys, auxes = moe_grid(to_shares(p, specs, mc), specs, to_shares(x, x_spec, mc), cfg, mc)
+    return from_shares(ys, x_spec, mc).to(x.device), auxes[0].to(x.device)
+
+
 # --------------------------------------------------------------------------
-# the model-axis route over a device grid
+# the route on a grid: one entry a grid coordinate
 # --------------------------------------------------------------------------
 
-def _size(mesh, axes) -> int:
-    return math.prod(mesh.shape[ax] for ax in axes)
+def _back_to(back, dev):
+    """`_buffer`'s add-back state on ``dev``."""
+    weight, slot, e_loc = back
+    return weight.to(dev), slot.to(dev), e_loc
 
 
-def _coord(mesh, fixed: dict) -> tuple:
-    """The grid coordinate with the given axes' indices (an int for one
-    axis, or a row-major index over a tuple of axes); every other axis at 0."""
-    idx = dict.fromkeys(mesh.axis_names, 0)
-    for axes, flat in fixed.items():
-        axes = (axes,) if isinstance(axes, str) else axes
-        for ax in reversed(axes):
-            idx[ax] = flat % mesh.shape[ax]
-            flat //= mesh.shape[ax]
-    return tuple(idx[ax] for ax in mesh.axis_names)
-
-
-def _on(w, dev):
-    """A tensor, or an int8 ``{"q", "s"}`` bank, on ``dev`` (itself when
-    already there: a view stays a view)."""
-    if isinstance(w, dict):
-        return {k: v.to(dev) for k, v in w.items()}
-    return w.to(dev)
-
-
-def _split(w, size: int, dim: int) -> list:
-    """A bank split into views of ``size`` along ``dim``; an int8 scale
-    (last dim 1) is split along ``dim`` only where it has that axis."""
-    if not isinstance(w, dict):
-        return list(torch.split(w, size, dim=dim))
-    qs = torch.split(w["q"], size, dim=dim)
-    last = dim in (-1, w["q"].ndim - 1)
-    ss = [w["s"]] * len(qs) if last else torch.split(w["s"], size, dim=dim)
-    return [{"q": q, "s": sc} for q, sc in zip(qs, ss)]
-
-
-def _psum(parts: list, dev) -> torch.Tensor:
-    """A sum over shards in shard order, on ``dev``."""
-    total = parts[0].to(dev)
-    for part in parts[1:]:
-        total = total + part.to(dev)
-    return total
-
-
-def _grid_apply(p, x: torch.Tensor, cfg, mc: MeshContext, e_pad: int):
-    """The reference's ``shard_map`` route (`moe.py:242-397`) over
-    ``mc.mesh``: one body a (data shard i, model shard j), on the grid's
-    device at that coordinate (x's device on an abstract mesh)."""
+def moe_grid(ps: list, specs, xs: list, cfg, mc: MeshContext) -> Tuple[list, list]:
+    """`moe_apply` on a share: ``ps`` one tree a coordinate of
+    ``mc.coords``, its pieces of the layer's parameters (banks (E_loc, d /
+    F, f) and (E_loc, f, d / F), the router whole), ``xs`` its rows
+    (B_loc, S, d). The reference's ``shard_map`` bodies, one a
+    coordinate: the dropping path gathers the banks over the FSDP axes,
+    routes the coordinate's rows and psums the experts' contributions
+    over "model"; the weights-stationary path all-gathers the tokens over
+    the data-parallel axes, multiplies its d-slice of each buffer by its
+    bank pieces (up and gate psum'd over the FSDP axes, the output slices
+    all-gathered), psums over "model" and keeps its own rows. aux is
+    pmean'd over the data-parallel axes. The router is replicated, so the
+    coordinates that hold the same rows route them alike: they are routed
+    once (once a data shard; on the stationary path once, and one buffer
+    a model shard). Returns (y, aux) shares."""
     m = cfg.moe
-    mesh = mc.mesh
-    b, s, d = x.shape
-    n_model = mc.model_size
-    if e_pad % n_model:
-        raise ValueError(f"moe_apply: {e_pad} experts do not split over a {n_model}-way model "
-                         "axis (moe_init pads them under the same mesh context)")
-    e_loc = e_pad // n_model
-    dp = tuple(mc.dp_axes)
-    dp_total = _size(mesh, dp)
-    if b % dp_total:
-        raise ValueError(f"moe_apply: a batch of {b} rows does not split over {dp_total} data "
-                         "shards")
-    bb = b // dp_total
+    bb, s, d = xs[0].shape
+    wu = ps[0]["w_up"]["q"] if isinstance(ps[0]["w_up"], dict) else ps[0]["w_up"]
+    e_loc = wu.shape[0]
+    e_pad = e_loc * mc.model_size
+    dp, fsdp = tuple(mc.dp_axes), tuple(mc.fsdp_axes)
+    dp_total = axes_size(mc.mesh, dp)
     t_loc = bb * s
-    fsdp = tuple(mc.fsdp_axes)
     stationary = bool(fsdp) and t_loc * m.top_k <= m.stationary_threshold
-
-    def device(coord):
-        dev = mesh.device(coord)
-        return x.device if dev is None else dev
-
-    banks = {name: _split(p[name], e_loc, 0) for name in ("w_up", "w_gate", "w_down")}
-
-    def routing(x_, dev):
-        # the router is replicated: every model shard of a data shard routes
-        # the same tokens alike, so they are routed once and the gates and
-        # choices handed to each body
-        return _routing(x_.to(dev), p["router"].to(dev), m.num_experts, e_pad, m.top_k)
-
+    starts = [axis_index(mc.mesh, c, mc.model_axis) * e_loc for c in mc.coords]
+    names = ("w_up", "w_gate", "w_down")
     if not stationary:
-        capacity = _capacity(t_loc, m)
-        ys, auxes = [], []
-        for i in range(dp_total):
-            x_i = x[i * bb:(i + 1) * bb].reshape(t_loc, d)
-            gates, idx, aux = routing(x_i, device(_coord(mesh, {dp: i})))
-            auxes.append(aux.to(x.device))
-            y_parts = []
-            for j in range(n_model):
-                dev = device(_coord(mesh, {dp: i, mc.model_axis: j}))
-                # this layer's FSDP gather of the slice: the slice itself
-                p_loc = {name: _on(bank[j], dev) for name, bank in banks.items()}
-                y_parts.append(_compute(x_i.to(dev), p_loc, gates.to(dev), idx.to(dev),
-                                        j * e_loc, capacity, cfg.mlp_act))
-            ys.append(_psum(y_parts, x.device))
-        # aux is the same on every model shard; the mean over data
-        # (different tokens a shard)
-        return torch.cat(ys).reshape(b, s, d), _psum(auxes, x.device) / dp_total
-
-    # ---- stationary path: the tokens move, the banks stay ----
-    x_all = x.reshape(b * s, d)  # every data shard's rows, gathered in shard order
-    cap_all = _capacity(b * s, m)
-    n_fsdp = _size(mesh, fsdp)
-    if d % n_fsdp:
-        raise ValueError(f"moe_apply: d_model {d} does not split over {n_fsdp} FSDP shards")
-    d_shard = d // n_fsdp
-    # computed from the gathered token set: the same on every body
-    gates, idx, aux = routing(x_all, device(_coord(mesh, {})))
-    y_parts = []
-    for j in range(n_model):
-        dev_j = device(_coord(mesh, {mc.model_axis: j}))
-        devs = [device(_coord(mesh, {fsdp: k, mc.model_axis: j})) for k in range(n_fsdp)]
-        up_k = [_on(w, dv) for w, dv in zip(_split(banks["w_up"][j], d_shard, 1), devs)]
-        gate_k = [_on(w, dv) for w, dv in zip(_split(banks["w_gate"][j], d_shard, 1), devs)]
-        down_k = [_on(w, dv) for w, dv in zip(_split(banks["w_down"][j], d_shard, 2), devs)]
-
-        def ffn_stationary(buf, up_k=up_k, gate_k=gate_k, down_k=down_k, devs=devs,
-                           dev_j=dev_j):
-            """(E_loc, C, d) full-d dispatch buffer -> (E_loc, C, d)."""
-            dt = buf.dtype
-            sl = [buf[..., k * d_shard:(k + 1) * d_shard].to(dv) for k, dv in enumerate(devs)]
-            up = _psum([torch.einsum("ecd,edf->ecf", b_k, dequant_weight(w, dt))
-                        for b_k, w in zip(sl, up_k)], dev_j)
-            gate = _psum([torch.einsum("ecd,edf->ecf", b_k, dequant_weight(w, dt))
-                          for b_k, w in zip(sl, gate_k)], dev_j)
-            h = F.silu(gate) * up
-            y_sl = [torch.einsum("ecf,efd->ecd", h.to(dv), dequant_weight(w, dt)).to(dev_j)
-                    for w, dv in zip(down_k, devs)]
-            return torch.cat(y_sl, dim=2)
-
-        p_loc = {name: bank[j] for name, bank in banks.items()}
-        y_parts.append(_compute(x_all.to(dev_j), p_loc, gates.to(dev_j), idx.to(dev_j),
-                                j * e_loc, cap_all, cfg.mlp_act, ffn_stationary))
-    # the psum over model; each data shard's rows of it, in shard order, are y_all
-    return _psum(y_parts, x.device).reshape(b, s, d), aux.to(x.device)
+        banks = {k: gather_param([p[k] for p in ps], specs[k], mc) for k in names}
+        routed, ys, auxes = {}, [], []
+        for i, (c, p, x) in enumerate(zip(mc.coords, ps, xs)):
+            x = x.reshape(t_loc, d)
+            shard_i = axis_index(mc.mesh, c, dp)
+            if shard_i not in routed:
+                routed[shard_i] = _routing(x, p["router"], m.num_experts, e_pad, m.top_k)
+            gates, idx, aux = (t.to(x.device) for t in routed[shard_i])
+            y = _compute(x, {k: banks[k][i] for k in names}, gates, idx, starts[i],
+                         _capacity(t_loc, m), cfg.mlp_act)
+            ys.append(y.reshape(bb, s, d))
+            auxes.append(aux)
+        ys = psum(ys, mc.model_axis, mc)
+    else:
+        x_all = all_gather([x.reshape(t_loc, d) for x in xs], dp, mc, 0)
+        cap_all = _capacity(x_all[0].shape[0], m)
+        gates, idx, aux = _routing(x_all[0], ps[0]["router"], m.num_experts, e_pad, m.top_k)
+        auxes = [aux.to(x.device) for x in xs]
+        bufs = {}
+        for xa, e0 in zip(x_all, starts):
+            if e0 not in bufs:
+                bufs[e0] = _buffer(xa, gates.to(xa.device), idx.to(xa.device), e_loc, e0, cap_all)
+        d_shard = wu.shape[1]
+        sl = [bufs[e0][0].to(xa.device).narrow(2, axis_index(mc.mesh, c, fsdp) * d_shard, d_shard)
+              for xa, e0, c in zip(x_all, starts, mc.coords)]
+        dt = xs[0].dtype
+        up = psum([torch.einsum("ecd,edf->ecf", b_, dequant_weight(p["w_up"], dt))
+                   for b_, p in zip(sl, ps)], fsdp, mc)
+        gate = psum([torch.einsum("ecd,edf->ecf", b_, dequant_weight(p["w_gate"], dt))
+                     for b_, p in zip(sl, ps)], fsdp, mc)
+        y_sl = [torch.einsum("ecf,efd->ecd", F.silu(g_) * u_, dequant_weight(p["w_down"], dt))
+                for g_, u_, p in zip(gate, up, ps)]
+        h = all_gather(y_sl, fsdp, mc, 2)
+        # the coordinates of a model shard hold the same buffer and, gathered
+        # over the FSDP axes, the same outputs: added back once a model shard
+        back = {}
+        for h_, e0 in zip(h, starts):
+            if e0 not in back:
+                back[e0] = _unbuffer(h_, _back_to(bufs[e0][1], h_.device))
+        y_all = psum([back[e0].to(x.device) for x, e0 in zip(xs, starts)], mc.model_axis, mc)
+        ys = [ya.narrow(0, axis_index(mc.mesh, c, dp) * t_loc, t_loc).reshape(bb, s, d)
+              for ya, c in zip(y_all, mc.coords)]
+    auxes = [a / dp_total for a in psum(auxes, dp, mc)]
+    if "shared" in ps[0]:
+        shared = mlp_grid([p["shared"] for p in ps], specs["shared"], xs, cfg.mlp_act, mc)
+        ys = [y + y_s for y, y_s in zip(ys, shared)]
+    return ys, auxes

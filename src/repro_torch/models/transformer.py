@@ -9,10 +9,22 @@ carry a leading (n_steps,) axis, and MoE stacks may put
 ``first_k_dense`` dense layers in front (``dense_prefix``, Kimi-K2).
 The reference's ``lax.scan`` over the steps is a loop over them, and its
 ``jax.checkpoint`` of a whole step one ``torch.utils.checkpoint`` a step
-(`layers.remat`). ``mesh_ctx`` (`moe.MeshContext`) reaches the MoE
-layers, which take the model-axis route over its device grid; the rest
-of the model runs on the parameters' device, where the reference's
-sharding constraints only place data.
+(`layers.remat`).
+
+With a ``mesh_ctx`` (`moe.MeshContext` over a `distributed.sharding.Mesh`)
+the step is the reference's sharded one, laid out by `param_specs`,
+`batch_specs` and `cache_specs` and run one share a grid coordinate
+(`layers.mlp_grid`, `attention.attn_grid` / `decode_attn_grid`,
+`moe.moe_grid`, the collectives of `distributed.collectives`): the
+residual stream's batch over the data-parallel axes, the heads, the MLP
+hidden dim, the experts and the vocabulary over "model", every weight
+all-gathered over its FSDP axes where it is used. On a full grid
+(``mesh_ctx.coord`` None) every coordinate runs in the one process and
+the functions take and return whole tensors, which they shard
+(`sharding.shard`: views) and put back together; with ``coord`` they
+take and return that coordinate's pieces and run its share alone, the
+collectives in their lone form (the dry run's per-device trace).
+Without a ``mesh_ctx`` the one-device step runs, unchanged.
 
 API (shared by every backbone through `models.registry`):
     init_params(gen, cfg, mesh_ctx, device)      -> params
@@ -30,17 +42,29 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models.attention import attn_apply, attn_init, decode_attn_apply
+from repro_torch.models.attention import (
+    attn_apply,
+    attn_grid,
+    attn_init,
+    decode_attn_apply,
+    decode_attn_grid,
+)
 from repro_torch.models.layers import (
+    cross_entropy_grid,
     cross_entropy_loss,
     dense_init,
+    embed_grid,
+    gather_param,
     mlp_apply,
+    mlp_grid,
     mlp_init,
     remat,
     rms_norm,
     softcap,
+    splits_on,
 )
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.distributed.collectives import axes_of
+from repro_torch.models.moe import moe_apply, moe_grid, moe_init
 from repro_torch.training.optimizer import tree_map
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill", "decode_step"]
@@ -172,6 +196,8 @@ def forward(params, batch, cfg, mesh_ctx=None):
     ``batch["embeddings"]`` (B, S, d) for an embedding frontend) and the
     summed auxiliary loss (float32; zero for dense blocks). The final
     soft-cap is the loss's, not applied here."""
+    if mesh_ctx is not None:
+        return _grid_forward(params, batch, cfg, mesh_ctx)
     x = _embed_in(params, batch, cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params.get("dense_prefix", []):
@@ -192,6 +218,8 @@ def forward(params, batch, cfg, mesh_ctx=None):
 
 
 def loss_fn(params, batch, cfg, mesh_ctx=None, aux_weight: float = 0.01):
+    if mesh_ctx is not None:
+        return _grid_loss(params, batch, cfg, mesh_ctx, aux_weight)
     logits, aux = forward(params, batch, cfg, mesh_ctx)
     ce = cross_entropy_loss(logits, batch["labels"].to(logits.device), cfg.final_softcap)
     return ce + aux_weight * aux
@@ -254,6 +282,8 @@ def prefill(params, batch, cfg, mesh_ctx=None, max_len: Optional[int] = None):
     """Run the prompt: (soft-capped logits at its last position (B, V),
     the cache a `decode_step` continues from, laid out for ``max_len``
     (default: the prompt's length))."""
+    if mesh_ctx is not None:
+        return _grid_prefill(params, batch, cfg, mesh_ctx, max_len)
     x = _embed_in(params, batch, cfg)
     max_len = max_len or x.shape[1]
     cache: Params = {"layers": {}}
@@ -282,6 +312,8 @@ def decode_step(params, cache, cache_len, batch, cfg, mesh_ctx=None):
     {"embeddings": (B, 1, d)}, ``cache_len`` the tokens already cached (an
     int, or a 0-d integer tensor, moved to the card once a step). Returns
     (soft-capped logits (B, V), the new cache)."""
+    if mesh_ctx is not None:
+        return _grid_decode(params, cache, cache_len, batch, cfg, mesh_ctx)
     x = _embed_in(params, batch, cfg)
     if torch.is_tensor(cache_len):
         cache_len = cache_len.to(x.device)
@@ -321,3 +353,276 @@ def decode_step(params, cache, cache_len, batch, cfg, mesh_ctx=None):
     new_cache["layers"] = {name: _stack_kv(kvs) for name, kvs in per_slot.items()}
     logits = _head_out(params, x, cfg)
     return softcap(logits[:, 0, :], cfg.final_softcap), new_cache
+
+
+# --------------------------------------------------------------------------
+# the sharded step: one share a grid coordinate (see the module docstring)
+# --------------------------------------------------------------------------
+
+def _specs(mc, params, batch, cache=None, batch_size=None, max_len=None, cfg=None) -> dict:
+    """The specs of the step's trees: ``mc.specs`` for a coordinate's share
+    (computed from the whole trees by its caller), else from the whole
+    trees here; a prefill's cache specs from the cache it will write."""
+    if mc.coord is not None:
+        return mc.specs
+    from repro_torch.distributed.sharding import (batch_specs, cache_specs, context_rules,
+                                                  param_specs)
+
+    rules = context_rules(mc)
+    out = {"params": param_specs(params, rules), "batch": batch_specs(batch, rules)}
+    if cache is None and max_len is not None:
+        cache = init_cache(cfg, batch_size, max_len, device="meta")
+    if cache is not None:
+        out["cache"] = cache_specs(cache, rules, batch_size)
+    return out
+
+
+def _step_specs(tree, specs):
+    """A stack's specs without its layer axis. A layer axis the rules split
+    (a shared expert's stack read as an expert axis, where the steps
+    divide the model axis: no config on the production meshes) would need
+    every step gathered; it raises."""
+    from repro_torch.distributed.sharding import P
+
+    def one(t, spec):
+        if spec[0] is not None:
+            raise NotImplementedError(f"a stacked leaf's layer axis split over {spec[0]!r}")
+        return P(*spec[1:])
+
+    return tree_map(one, tree, specs)
+
+
+def _embed_grid(shares, specs, bs, cfg, mc) -> list:
+    dt = cfg.activation_dtype
+    if cfg.frontend == "embedding":
+        xs = [b["embeddings"].to(dt) for b in bs]
+    else:
+        xs = embed_grid([p["embed"] for p in shares], specs["embed"],
+                        [b["tokens"] for b in bs], dt, mc)
+    if cfg.scale_embeddings:
+        f = float(torch.sqrt(torch.tensor(cfg.d_model * 1.0, dtype=torch.float32)).to(dt))
+        xs = [x * f for x in xs]
+    return xs
+
+
+def _head_grid(shares, specs, xs, cfg, mc):
+    """(logits a coordinate, whether the vocabulary is split over "model")."""
+    hs = [rms_norm(x, p["final_norm"], cfg.norm_eps) for p, x in zip(shares, xs)]
+    if cfg.tie_embeddings:
+        w = gather_param([p["embed"] for p in shares], specs["embed"], mc)
+        return [h @ wi.T.to(h.dtype) for h, wi in zip(hs, w)], \
+            splits_on(specs["embed"], 0, mc.model_axis)
+    w = gather_param([p["head"] for p in shares], specs["head"], mc)
+    return [h @ wi.to(h.dtype) for h, wi in zip(hs, w)], splits_on(specs["head"], 1, mc.model_axis)
+
+
+def _block_grid(ps, specs, xs, cfg, kind, mc, full_kv=False):
+    window = cfg.sliding_window if kind == "local" else None
+    hs = [rms_norm(x, p["ln1"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    attn, kvs = attn_grid([p["attn"] for p in ps], specs["attn"], hs, cfg, window, mc, full_kv)
+    if cfg.post_norms:
+        attn = [rms_norm(a, p["ln1_post"], cfg.norm_eps) for p, a in zip(ps, attn)]
+    xs = [x + a for x, a in zip(xs, attn)]
+    hs = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    if kind == "moe":
+        ffn, aux = moe_grid([p["moe"] for p in ps], specs["moe"], hs, cfg, mc)
+    else:
+        ffn = mlp_grid([p["mlp"] for p in ps], specs["mlp"], hs, cfg.mlp_act, mc)
+        aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
+    if cfg.post_norms:
+        ffn = [rms_norm(f, p["ln2_post"], cfg.norm_eps) for p, f in zip(ps, ffn)]
+    return [x + f for x, f in zip(xs, ffn)], aux, kvs
+
+
+def _grid_trunk(params, batch, cfg, mc, on_layer=None):
+    """Embedding and every block on the grid: (shares of the final hidden
+    state, of the aux loss, the parameter shares, the batch shares, the
+    specs). ``on_layer(kind, kvs, where)`` sees each block's (k, v) share
+    (the prefill's cache; ``where`` a dense-prefix index or a slot's
+    name)."""
+    from repro_torch.distributed.sharding import to_shares
+
+    specs = _specs(mc, params, batch)
+    shares = to_shares(params, specs["params"], mc)
+    bs = to_shares(batch, specs["batch"], mc)
+    ps_specs = specs["params"]
+    xs = _embed_grid(shares, ps_specs, bs, cfg, mc)
+    aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
+    for i in range(len(params.get("dense_prefix", []))):
+        xs, a, kvs = _block_grid([p["dense_prefix"][i] for p in shares],
+                                 ps_specs["dense_prefix"][i], xs, cfg, "global", mc,
+                                 on_layer is not None)
+        aux = [t + u for t, u in zip(aux, a)]
+        if on_layer:
+            on_layer("global", kvs, i)
+    layers = [p["layers"] for p in shares]
+    step_specs = _step_specs(layers[0], ps_specs["layers"])
+    slots = _pattern_slots(cfg)
+
+    def body(step_ps, xs, aux):
+        for slot_name, kind in slots:
+            xs, a, kvs = _block_grid([sp[slot_name] for sp in step_ps], step_specs[slot_name],
+                                     xs, cfg, kind, mc, on_layer is not None)
+            aux = [t + u for t, u in zip(aux, a)]
+            if on_layer:
+                on_layer(kind, kvs, slot_name)
+        return xs, aux
+
+    if on_layer is None:
+        body = remat(body, cfg)
+    for i in range(_n_steps(cfg)):
+        xs, aux = body([_step(layer, i) for layer in layers], xs, aux)
+    return xs, aux, shares, bs, specs
+
+
+def _grid_forward(params, batch, cfg, mc):
+    from repro_torch.distributed.sharding import P, from_shares
+
+    xs, aux, shares, bs, specs = _grid_trunk(params, batch, cfg, mc)
+    logits, vsplit = _head_grid(shares, specs["params"], xs, cfg, mc)
+    bspec = next(iter(specs["batch"].values()))
+    spec = P(bspec[0], None, mc.model_axis if vsplit else None)
+    return from_shares(logits, spec, mc), aux[0]
+
+
+def _grid_loss(params, batch, cfg, mc, aux_weight):
+    from repro_torch.distributed.collectives import axes_size
+
+    xs, aux, shares, bs, specs = _grid_trunk(params, batch, cfg, mc)
+    logits, vsplit = _head_grid(shares, specs["params"], xs, cfg, mc)
+    labels = [b["labels"] for b in bs]
+    bsplit = specs["batch"]["labels"][0] is not None
+    n_tokens = labels[0].numel() * (axes_size(mc.mesh, mc.dp_axes) if bsplit else 1)
+    ce = cross_entropy_grid(logits, labels, cfg.final_softcap, vsplit, bsplit, n_tokens, mc)
+    return ce[0] + aux_weight * aux[0]
+
+
+def _seq_entry(spec):
+    """The cache leaf's sequence-axis entry (dims (..., B, S, KV, D))."""
+    return spec[len(spec) - 3] if len(spec) >= 3 else None
+
+
+def _to_cache(kvs, cfg, kind, max_len, spec, mc) -> list:
+    """A block's (k, v) share in its cache layout: the slot's ring or
+    padded layout on the whole sequence, then the coordinate's slice of
+    the sequence axes; k / v whose kv heads are split over "model" swap
+    the split for the sequence's (an all-to-all), or gather their heads
+    where the sequence does not take "model"."""
+    from repro_torch.distributed.collectives import all_gather, all_to_all, axes_size, axis_index
+
+    seq = axes_of(_seq_entry(spec))
+    local_heads = kvs[0][0].shape[2] != cfg.n_kv_heads
+    out = {"k": [], "v": []}
+    for name, pos in (("k", 0), ("v", 1)):
+        ts = [_compress_kv(kv[0], kv[1], cfg, kind, max_len)[pos] for kv in kvs]
+        rest = tuple(ax for ax in seq if ax != mc.model_axis)
+        if rest:  # the sequence's non-model axes: the rows are replicated there
+            n = axes_size(mc.mesh, rest)
+            ts = [t.narrow(1, axis_index(mc.mesh, c, rest) * (t.shape[1] // n), t.shape[1] // n)
+                  for t, c in zip(ts, mc.coords)]
+        on_model = mc.model_axis in seq
+        if local_heads and on_model:
+            ts = all_to_all(ts, mc.model_axis, mc, 1, 2)
+        else:
+            if local_heads:
+                ts = all_gather(ts, mc.model_axis, mc, 2)
+            if on_model:
+                n = mc.model_size
+                ts = [t.narrow(1, axis_index(mc.mesh, c, mc.model_axis) * (t.shape[1] // n),
+                               t.shape[1] // n) for t, c in zip(ts, mc.coords)]
+        out[name] = ts
+    return [{"k": k, "v": v} for k, v in zip(out["k"], out["v"])]
+
+
+def _grid_prefill(params, batch, cfg, mc, max_len):
+    from repro_torch.distributed.sharding import P, from_shares
+
+    x0 = next(iter(batch.values()))
+    n_rows = x0.shape[0]
+    s = x0.shape[1]
+    max_len = max_len or s
+    cspecs = _specs(mc, params, batch, batch_size=n_rows, max_len=max_len, cfg=cfg)["cache"]
+    dense, per_slot = [], {name: [] for name, _ in _pattern_slots(cfg)}
+
+    def on_layer(kind, kvs, where):
+        if isinstance(where, int):  # a dense-prefix layer
+            dense.append(_to_cache(kvs, cfg, kind, max_len, cspecs["dense_prefix"][where]["k"],
+                                   mc))
+        else:
+            spec = cspecs["layers"][where]["k"]
+            per_slot[where].append(_to_cache(kvs, cfg, kind, max_len, P(*spec[1:]), mc))
+
+    xs, _, shares, bs, specs = _grid_trunk(params, batch, cfg, mc, on_layer)
+    logits, vsplit = _head_grid(shares, specs["params"], [x[:, -1:, :] for x in xs], cfg, mc)
+    logits = [softcap(lg[:, 0, :], cfg.final_softcap) for lg in logits]
+    caches = []
+    for i in range(len(xs)):
+        c = {"layers": {name: _stack_kv([kv[i] for kv in kvs]) for name, kvs in per_slot.items()}}
+        if dense:
+            c["dense_prefix"] = [d[i] for d in dense]
+        caches.append(c)
+    bspec = next(iter(specs["batch"].values()))
+    lspec = P(bspec[0], mc.model_axis if vsplit else None)
+    return from_shares(logits, lspec, mc), from_shares(caches, cspecs, mc)
+
+
+def _grid_decode(params, cache, cache_len, batch, cfg, mc):
+    from repro_torch.distributed.sharding import P, from_shares, to_shares
+
+    n_rows = next(iter(batch.values())).shape[0]
+    specs = _specs(mc, params, batch, cache, batch_size=n_rows)
+    cspecs = specs["cache"]
+    shares = to_shares(params, specs["params"], mc)
+    bs = to_shares(batch, specs["batch"], mc)
+    cs = to_shares(cache, cspecs, mc)
+    ps_specs = specs["params"]
+    xs = _embed_grid(shares, ps_specs, bs, cfg, mc)
+
+    def apply_one(ps, pspec, cc, cspec, xs, kind):
+        hs = [rms_norm(x, p["ln1"], cfg.norm_eps) for p, x in zip(ps, xs)]
+        attn, new = decode_attn_grid(
+            [p["attn"] for p in ps], pspec["attn"], hs, cfg, [(c["k"], c["v"]) for c in cc],
+            axes_of(_seq_entry(cspec["k"])), cache_len,
+            ring=(kind == "local" and cfg.sliding_window is not None), mc=mc)
+        if cfg.post_norms:
+            attn = [rms_norm(a, p["ln1_post"], cfg.norm_eps) for p, a in zip(ps, attn)]
+        xs = [x + a for x, a in zip(xs, attn)]
+        hs = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, xs)]
+        if kind == "moe":
+            ffn, _ = moe_grid([p["moe"] for p in ps], pspec["moe"], hs, cfg, mc)
+        else:
+            ffn = mlp_grid([p["mlp"] for p in ps], pspec["mlp"], hs, cfg.mlp_act, mc)
+        if cfg.post_norms:
+            ffn = [rms_norm(f, p["ln2_post"], cfg.norm_eps) for p, f in zip(ps, ffn)]
+        return [x + f for x, f in zip(xs, ffn)], [{"k": k, "v": v} for k, v in new]
+
+    n = len(xs)
+    new_dense = []
+    for i in range(len(params.get("dense_prefix", []))):
+        xs, c_new = apply_one([p["dense_prefix"][i] for p in shares], ps_specs["dense_prefix"][i],
+                              [c["dense_prefix"][i] for c in cs], cspecs["dense_prefix"][i],
+                              xs, "global")
+        new_dense.append(c_new)
+    layers = [p["layers"] for p in shares]
+    step_specs = _step_specs(layers[0], ps_specs["layers"])
+    step_cspecs = _step_specs(cs[0]["layers"], cspecs["layers"])
+    slots = _pattern_slots(cfg)
+    per_slot = {name: [] for name, _ in slots}
+    for i in range(_n_steps(cfg)):
+        for slot_name, kind in slots:
+            xs, c_new = apply_one([_step(layer, i)[slot_name] for layer in layers],
+                                  step_specs[slot_name],
+                                  [_step(c["layers"][slot_name], i) for c in cs],
+                                  step_cspecs[slot_name], xs, kind)
+            per_slot[slot_name].append(c_new)
+    logits, vsplit = _head_grid(shares, ps_specs, xs, cfg, mc)
+    logits = [softcap(lg[:, 0, :], cfg.final_softcap) for lg in logits]
+    caches = []
+    for k in range(n):
+        c = {"layers": {name: _stack_kv([kv[k] for kv in kvs]) for name, kvs in per_slot.items()}}
+        if new_dense:
+            c["dense_prefix"] = [d[k] for d in new_dense]
+        caches.append(c)
+    bspec = next(iter(specs["batch"].values()))
+    lspec = P(bspec[0], mc.model_axis if vsplit else None)
+    return from_shares(logits, lspec, mc), from_shares(caches, cspecs, mc)

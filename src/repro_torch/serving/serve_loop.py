@@ -93,7 +93,17 @@ def prefill_batch_shape(arch_cfg, shape_spec) -> Dict[str, torch.Tensor]:
     return {"tokens": _meta((b, s), torch.int32)}
 
 
-def lower_decode_step(arch_cfg, shape_spec, device=None, rules=None):
+def _share_of(trees: dict, specs: dict, rules, device) -> dict:
+    """Each whole (fake) tree's piece at a coordinate, as zero tensors on
+    ``device`` (`sharding.local_shapes`)."""
+    from repro_torch.distributed.sharding import local_shapes
+    from repro_torch.training.optimizer import tree_map
+
+    return {k: tree_map(lambda t: torch.zeros(tuple(t.shape), dtype=t.dtype, device=device),
+                        local_shapes(v, specs[k], rules.mesh)) for k, v in trees.items()}
+
+
+def lower_decode_step(arch_cfg, shape_spec, device=None, rules=None, coord=None):
     """One decode step at (batch, cache length) = the shape's (global
     batch, seq_len), traced on fake tensors: returns ``(analysis,
     params_shape, cache_shape)``, the step's `GraphAnalysis` with the
@@ -102,10 +112,18 @@ def lower_decode_step(arch_cfg, shape_spec, device=None, rules=None):
     serves its experts quantized has int8 expert banks
     (`models.moe_quant`). Beside the reference's arguments it takes the
     ``device`` of the fake tensors (default: the card); ``rules``
-    (optional) runs the step under `make_mesh_context(rules)`, every grid
-    body of the MoE route counted on the one device."""
+    (optional) runs the sharded step under `make_mesh_context(rules)`,
+    every grid coordinate's share on the one device; with ``coord`` too,
+    that coordinate's share alone (parameters, cache and batch its pieces
+    by `param_specs`, `cache_specs`, `batch_specs`; the collectives lone)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from repro_torch.distributed.sharding import (
+        batch_specs,
+        cache_specs,
+        make_mesh_context,
+        param_specs,
+    )
     from repro_torch.kernels.build import resolve_device
     from repro_torch.launch.roofline import GraphAnalysis
     from repro_torch.models.moe_quant import quantize_expert_params
@@ -123,6 +141,13 @@ def lower_decode_step(arch_cfg, shape_spec, device=None, rules=None):
             params = quantize_expert_params(params)
         cache = backbone.init_cache(arch_cfg, b, s, mesh_ctx, device=device)
         batch = fake_like(serve_batch_shape(arch_cfg, shape_spec), device)
+        if coord is not None:
+            specs = {"params": param_specs(params, rules), "batch": batch_specs(batch, rules),
+                     "cache": cache_specs(cache, rules, b)}
+            share = _share_of({"params": params, "batch": batch, "cache": cache}, specs, rules,
+                              device)
+            params, batch, cache = share["params"], share["batch"], share["cache"]
+            mesh_ctx = make_mesh_context(rules, coord, specs)
         cache_len = torch.zeros((), dtype=torch.int32, device=device)
         analysis = GraphAnalysis()
         analysis.hold((params, cache, batch, cache_len))
@@ -131,13 +156,20 @@ def lower_decode_step(arch_cfg, shape_spec, device=None, rules=None):
     return analysis, params, cache
 
 
-def lower_prefill(arch_cfg, shape_spec, device=None, rules=None):
+def lower_prefill(arch_cfg, shape_spec, device=None, rules=None, coord=None):
     """A prefill of the shape's (global batch, seq_len) prompt traced on
     fake tensors: returns ``(analysis, params_shape)``, the parameters and
-    the prompt held, on ``device`` (default: the card); ``rules`` as
-    `lower_decode_step`'s."""
+    the prompt held, on ``device`` (default: the card); ``rules`` and
+    ``coord`` as `lower_decode_step`'s (the cache it writes laid out by
+    `cache_specs`)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from repro_torch.distributed.sharding import (
+        batch_specs,
+        cache_specs,
+        make_mesh_context,
+        param_specs,
+    )
     from repro_torch.kernels.build import resolve_device
     from repro_torch.launch.roofline import GraphAnalysis
     from repro_torch.models.registry import get_backbone
@@ -146,10 +178,18 @@ def lower_prefill(arch_cfg, shape_spec, device=None, rules=None):
     device = resolve_device(device)
     backbone = get_backbone(arch_cfg)
     mesh_ctx = _mesh_context(rules)
+    b, s = shape_spec.global_batch, shape_spec.seq_len
     with FakeTensorMode():
         params = backbone.init_params(torch.Generator().manual_seed(0), arch_cfg, mesh_ctx,
                                       device=device)
         batch = fake_like(prefill_batch_shape(arch_cfg, shape_spec), device)
+        if coord is not None:
+            cache = backbone.init_cache(arch_cfg, b, s, mesh_ctx, device="meta")
+            specs = {"params": param_specs(params, rules), "batch": batch_specs(batch, rules),
+                     "cache": cache_specs(cache, rules, b)}
+            share = _share_of({"params": params, "batch": batch}, specs, rules, device)
+            params, batch = share["params"], share["batch"]
+            mesh_ctx = make_mesh_context(rules, coord, specs)
         analysis = GraphAnalysis()
         analysis.hold((params, batch))
         with analysis:

@@ -7,12 +7,19 @@ the loss the mean of the microbatches' losses), a schedule-driven
 learning rate, `adamw_update` with its global-norm clip, and the
 metrics ``loss`` and ``grad_norm``. The step runs on one device; with
 sharding ``rules`` (`distributed.sharding.ShardingRules` over a device
-grid) the backbone gets `make_mesh_context(rules)`, so the MoE layers
-take the model-axis route, one body a grid coordinate on the grid's
-devices. `lower_train_step`, the dry run's entry
-(`repro_torch.launch.dryrun`), traces the step on fake tensors under
-`launch.roofline.GraphAnalysis`: its FLOPs, HBM bytes and peak memory,
-nothing allocated; with rules, the whole grid's work on the one device.
+grid) the backbone gets `make_mesh_context(rules)`: the transformer runs
+the reference's sharded step, one share a grid coordinate on the grid's
+devices, on the whole parameters (whose gradients are the one-device
+step's). With ``coord`` as well the step is that coordinate's share
+alone: parameters, AdamW moments and batch are its pieces
+(`sharding.local_shapes` of `param_specs`, `opt_state_specs`,
+`batch_specs`), the collectives run in their lone form and the gradients
+of replicated pieces are all-reduced (`sharding.sync_grads`).
+`lower_train_step`, the dry run's entry (`repro_torch.launch.dryrun`),
+traces the step on fake tensors under `launch.roofline.GraphAnalysis`:
+its FLOPs, HBM bytes, peak memory and the collectives' wire bytes,
+nothing allocated; with rules, the whole grid's work on the one device;
+with a coordinate, that device's.
 
     python -m repro_torch.training.train_loop [--arch rwkv6-7b] [--steps 30]
         [--device cpu] [--mesh 2x4 --devices cuda:0 ...]
@@ -40,13 +47,22 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.distributed.sharding import Mesh, ShardingRules, make_mesh_context
+from repro_torch.distributed.sharding import (
+    Mesh,
+    ShardingRules,
+    batch_specs,
+    local_shapes,
+    make_mesh_context,
+    opt_state_specs,
+    param_specs,
+    sync_grads,
+)
 from repro_torch.kernels.build import resolve_device
 from repro_torch.models.registry import get_backbone
 from repro_torch.training.optimizer import AdamWConfig, adamw_update, init_opt_state, tree_map
 
 __all__ = ["TrainConfig", "build_train_step", "value_and_grad", "lm_batches",
-           "lower_train_step", "main"]
+           "lower_train_step", "coordinate_share", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,18 +85,20 @@ def value_and_grad(loss: Callable, params, *args):
 
 
 def build_train_step(arch_cfg, train_cfg: TrainConfig = TrainConfig(), device=None,
-                     rules=None):
+                     rules=None, coord=None, specs=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on ``device`` (default: the card through `resolve_device`),
     where the batch's tensors are moved. TF32 stays off on the card.
     ``rules`` (`distributed.sharding.ShardingRules`): the backbone runs
-    under `make_mesh_context(rules)`, as the reference's step does."""
+    under `make_mesh_context(rules)`, as the reference's step does;
+    ``coord`` with ``specs`` (`coordinate_share`'s) builds that
+    coordinate's share alone, on its pieces."""
     device = resolve_device(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     backbone = get_backbone(arch_cfg)
-    mesh_ctx = _mesh_context(rules)
+    mesh_ctx = None if rules is None else make_mesh_context(rules, coord, specs)
 
     def loss(params, batch):
         return backbone.loss_fn(params, batch, arch_cfg, mesh_ctx)
@@ -102,6 +120,8 @@ def build_train_step(arch_cfg, train_cfg: TrainConfig = TrainConfig(), device=No
             l = torch.stack(losses).mean()
         else:
             l, grads = value_and_grad(loss, params, batch)
+        if coord is not None:
+            grads = sync_grads(grads, specs["params"], mesh_ctx)
         lr = None
         if train_cfg.lr_schedule is not None:
             lr = train_cfg.lr_schedule(opt_state["step"])
@@ -125,25 +145,44 @@ def fake_like(shapes, device) -> dict:
             for k, v in shapes.items()}
 
 
+def coordinate_share(params, opt, batch, rules: ShardingRules, device):
+    """A grid coordinate's share of whole (fake or ``meta``) trees: (its
+    parameters, moments and batch as zero tensors of their pieces'
+    shapes on ``device``, the specs ``{"params", "batch"}`` that
+    `build_train_step(coord=...)` wants). Called under a `FakeTensorMode`
+    it allocates nothing."""
+    pspecs = param_specs(params, rules)
+    bspecs = batch_specs(batch, rules)
+
+    def zeros(tree, specs):
+        return tree_map(lambda t: torch.zeros(tuple(t.shape), dtype=t.dtype, device=device),
+                        local_shapes(tree, specs, rules.mesh))
+
+    return (zeros(params, pspecs), zeros(opt, opt_state_specs(opt, pspecs)),
+            zeros(batch, bspecs), {"params": pspecs, "batch": bspecs})
+
+
 def lower_train_step(arch_cfg, batch_shape, train_cfg: TrainConfig = TrainConfig(),
-                     device=None, rules=None):
+                     device=None, rules=None, coord=None):
     """The dry run's entry: one update step of ``arch_cfg`` traced on fake
     tensors, nothing allocated. Returns ``(analysis, params_shape,
     opt_shape)``: the step's `launch.roofline.GraphAnalysis` (FLOPs by
     dtype, HBM bytes, the peak of live bytes with the parameters, the
     optimizer state and the batch held throughout, as a training loop holds
-    them) and the fake parameter and optimizer-state trees.
+    them, and the collectives' wire bytes) and the fake parameter and
+    optimizer-state trees.
 
     Beside the reference's arguments it takes the ``device`` the fake
     tensors live on (default: the card through `resolve_device`), and
     ``rules`` is optional: without them the step is the one-device step;
     with them the parameters are drawn under `make_mesh_context(rules)`
-    (padded expert banks) and the trace counts every grid body of the
-    MoE route on the one device, which predicts a grid run's peak on one
-    card. ``batch_shape`` is a dict of tensors (``meta`` ones will do)
-    whose shapes and dtypes stand in for ShapeDtypeStructs. The
-    parameters are drawn from a CPU `torch.Generator` as `init_params`
-    draws them."""
+    (padded expert banks) and the trace counts every grid coordinate's
+    share on the one device; with ``coord`` too, the share of that
+    coordinate alone (`coordinate_share`): one device of the grid, its
+    collectives in their lone form, the trees returned its pieces.
+    ``batch_shape`` is a dict of tensors (``meta`` ones will do) whose
+    shapes and dtypes stand in for ShapeDtypeStructs. The parameters are
+    drawn from a CPU `torch.Generator` as `init_params` draws them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.roofline import GraphAnalysis
@@ -155,7 +194,10 @@ def lower_train_step(arch_cfg, batch_shape, train_cfg: TrainConfig = TrainConfig
                                       _mesh_context(rules), device=device)
         opt = init_opt_state(params, train_cfg.optimizer)
         batch = fake_like(batch_shape, device)
-        step = build_train_step(arch_cfg, train_cfg, device, rules)
+        specs = None
+        if coord is not None:
+            params, opt, batch, specs = coordinate_share(params, opt, batch, rules, device)
+        step = build_train_step(arch_cfg, train_cfg, device, rules, coord, specs)
         analysis = GraphAnalysis()
         analysis.hold((params, opt, batch))
         with analysis:

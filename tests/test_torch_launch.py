@@ -10,8 +10,9 @@
   same mode on the CPU; the HBM bytes of views, in-place and expanded
   operands; the hardware model's peaks by dtype;
 - one full-width cell (kimi-k2 x decode_32k on the CPU) traced without
-  allocating, the command line's line and JSON, the hill-climb's cell B,
-  and an import of the dry run that sets no environment variable.
+  allocating, the command line's line and JSON (one card, and a device's
+  share of the two-pod mesh), the hill-climb's cell B on the (16, 16)
+  mesh, and an import of the dry run that sets no environment variable.
 """
 
 import dataclasses
@@ -206,10 +207,50 @@ def _report():
                       1.0, 1.0, 1.0, 1.0)
 
 
-def test_hillclimb_cell_b_waits_for_several_cards(tmp_path, capsys):
+def _reduced_configs(monkeypatch, d_model=64, d_expert=32):
+    """`get_config` of the dry run and the hill climb giving reduced configs
+    (of the given width and expert width)."""
+    def reduced(name):
+        cfg = tconfigs.get_config(name).reduced()
+        moe = cfg.moe and dataclasses.replace(cfg.moe, d_expert=d_expert)
+        return dataclasses.replace(cfg, d_model=d_model, moe=moe)
+
+    monkeypatch.setattr(dryrun, "get_config", reduced)
+    monkeypatch.setattr(hillclimb, "get_config", reduced)
+
+
+def test_hillclimb_cell_b_moves_the_tokens_not_the_banks(tmp_path, capsys, monkeypatch):
+    """Cell B (kimi-k2 x decode_32k on the (16, 16) mesh, two layers, d_model
+    1024, experts 512 wide) writes B0_gather.json and B1_stationary.json,
+    each a device's share of 256; the weights-stationary step's collective
+    term is below the gather's, whose every layer moves the banks."""
+    _reduced_configs(monkeypatch, d_model=1024, d_expert=512)
     assert hillclimb.main(["--cell", "B", "--out", str(tmp_path), "--device", "cpu"]) == 0
-    assert "waits for multi-card work" in capsys.readouterr().out
-    assert not list(tmp_path.iterdir())
+    assert "CELL B" in capsys.readouterr().out
+    b0, b1 = (json.loads((tmp_path / f"{n}.json").read_text())
+              for n in ("B0_gather", "B1_stationary"))
+    assert (b0["mesh"], b0["chips"], b1["mesh"], b1["chips"]) == ("16x16", 256, "16x16", 256)
+    assert 0 < b1["collective_s"] < b0["collective_s"]
+    assert b1["wire_bytes"] < b0["wire_bytes"]
+
+
+def test_the_command_line_traces_a_device_of_two_pods(tmp_path, capsys, monkeypatch):
+    """``--multi-pod``: coordinate (0, 0, 0)'s share of the (2, 16, 16)
+    mesh, 512 chips, a nonzero collective term over the network (a
+    16-way "model" group spans two nodes of 8); the file carries the
+    mesh's name; on a mesh the rwkv6 / zamba2 backbones wait."""
+    _reduced_configs(monkeypatch)
+    assert dryrun.main(["--arch", "qwen3-4b", "--shape", "decode_32k", "--multi-pod",
+                        "--device", "cpu", "--out", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "2x16x16, coordinate (0, 0, 0)'s share of 512" in out and "collective" in out
+    report = json.loads((tmp_path / "qwen3-4b__decode_32k__2x16x16.json").read_text())
+    assert report["chips"] == 512 and report["mesh"] == "2x16x16"
+    assert report["collective_s"] > 0 and report["wire_bytes"] > 0
+    assert report["useful_ratio"] == pytest.approx(
+        report["model_flops"] / (report["hlo_flops"] * 512))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        dryrun.run_cell("rwkv6-7b", "train_4k", device="cpu", mesh="16x16")
 
 
 def test_importing_the_dry_run_sets_no_environment_variable():

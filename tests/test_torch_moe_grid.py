@@ -265,6 +265,35 @@ def test_bank_slices_are_views_on_one_device(grid, monkeypatch):
         assert set(seen) == set(ptrs.values())
 
 
+@pytest.mark.parametrize("path", ["dropping", "stationary"])
+def test_moe_apply_on_a_grid_is_moe_grid_routing_once_a_data_shard(path, monkeypatch):
+    """`moe_apply` with a mesh context runs the sharded step's route,
+    `moe_grid`, once on the grid's shares; the replicated router routes
+    each data shard's rows once (the stationary path's gathered rows
+    once), not once a coordinate."""
+    _, tcfg = _cfgs("granite", path)
+    grid = (2, 2)
+    tmc = ts.make_mesh_context(ts.ShardingRules(mesh=ts.Mesh(grid, AXES, "cpu")))
+    p = tm.moe_init(torch.Generator().manual_seed(0), tcfg, tmc)
+    x = torch.randn(4, 16, tcfg.d_model, generator=torch.Generator().manual_seed(1))
+    calls = {"moe_grid": 0, "_routing": 0}
+
+    def counting(name):
+        fn = getattr(tm, name)
+
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    with monkeypatch.context() as mp:
+        for name in calls:
+            mp.setattr(tm, name, counting(name))
+        y, aux = tm.moe_apply(p, x, tcfg, tmc)
+    assert calls == {"moe_grid": 1, "_routing": grid[0] if path == "dropping" else 1}
+    assert y.shape == x.shape and torch.isfinite(y).all() and torch.isfinite(aux)
+
+
 def test_a_batch_that_does_not_split_raises():
     _, tcfg = _cfgs("granite")
     tmc = ts.make_mesh_context(ts.ShardingRules(mesh=ts.Mesh((2, 2), AXES, "cpu")))
