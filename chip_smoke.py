@@ -72,10 +72,10 @@ plain PyTorch version on the card:
      features) equal to the CPU plain path;
  12. QAT training through `training.kws.train` (the entry point of
      ``python -m repro_torch.training.kws``): the synthetic corpus (24
-     clips a class, test set seed 1) recorded on the card (K1), 50 steps
+     clips a class, test set seed 1) recorded on the card (K1), 25 steps
      at batch 64 with AdamW and ReduceLROnPlateau and a checkpoint, whose
      leaves are held equal to the state it saved, then a run resumed from
-     it to step 100; the loss falls, test accuracy beats 1/12, the integer
+     it to step 50; the loss falls, test accuracy beats 1/12, the integer
      replay (K2) gives the QAT model's logits and confusion matrix; one
      step's gradients on the card within 1e-5 of max |g| of the same step
      on the CPU; a warm step's time, and its device activities and busy
@@ -109,7 +109,7 @@ plain PyTorch version on the card:
      time, plain time and bound), then all kernels in one JSON line;
  16. data-parallel QAT training through `training.kws.train(dp=4,
      compress_grads=True, devices=["cuda:0"] * 4)`: the reference
-     example's recipe on four shards of the one card, 10 steps (the
+     example's recipe on four shards of the one card, 5 steps (the
      corpus by K1, the integer replay by K2); the first step's loss,
      synced gradients and per-shard residuals against the same step on
      the CPU, a plain DP step against the single-device step; s a step;
@@ -120,7 +120,7 @@ plain PyTorch version on the card:
  18. the transformer backbone (attention, the dense MLPs, the one-card MoE
      route) through the same train step: qwen3-4b and granite-moe-3b at
      full width cut in depth to what fits the card, gemma2-27b at full
-     width with one local / global step; 6 steps each at 1 x 4096 tokens
+     width with one local / global step; 4 steps each at 1 x 4096 tokens
      (s a step, tokens a second, peak memory, busy share and top kernels
      of a profiled step), a prefill and 16 decode steps whose logits equal
      a full forward's within a bfloat16 tolerance (gemma2's 4100-token
@@ -140,13 +140,20 @@ plain PyTorch version on the card:
      the card against the one-card step and its prefill / decode against
      the one-card route, then qwen3-4b's and kimi-k2's cells traced per
      device on both meshes;
- 21. the result line ``{"ok": true, "device": {...}}``.
+ 21. rwkv6 and zamba2 on the production mesh (`phase_ssm_mesh`):
+     coordinate (0, 0)'s share of rwkv6-7b x train_4k on the (16, 16)
+     mesh run for real at its 32 layers (its peak held to the trace),
+     zamba2-7b trained on a (2, 2) grid of the card at 12 layers against
+     the one-card step and its prefill / decode against the one-card
+     route, then their train_4k and decode_32k cells traced per device;
+ 22. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
 result. Two studies print the readings behind tolerances instead of
 running the phases: ``--zamba2-drift`` (ZAMBA_F32_TOL) and
-``--mesh-faults`` (MESH_GRID_*_TOL).
+``--mesh-faults [ARCH]`` (MESH_GRID_*_TOL, ZAMBA_GRID_*_TOL);
+``--ssm-mesh`` runs `phase_ssm_mesh` alone.
 """
 
 from __future__ import annotations
@@ -2234,9 +2241,9 @@ def _entry_points(dev):
 
 
 TRAIN_PER_CLASS = 24  # the reference example's corpus: 24 clips a class, test set seed 1
-# two runs of 50: the second resumes from the first's checkpoint (200 until
-# the script's time grew past three quarters of its limit)
-TRAIN_STEPS = 100
+# two runs of 25: the second resumes from the first's checkpoint (200, then
+# 100, until the script's time grew past three quarters of its limit)
+TRAIN_STEPS = 50
 TRAIN_BATCH = 64
 # a step's gradients on the card against the same step on the CPU, per
 # leaf, max |difference| / max |gradient|: the forward is equal on the
@@ -2413,7 +2420,7 @@ def phase_train(dev):
 
 
 DP_SHARDS = 4  # data-parallel shards, all on the one card
-DP_STEPS = 10  # 20 until the script's time grew past three quarters of its limit
+DP_STEPS = 5  # 20, then 10, until the script's time grew past 0.9 of its limit
 
 
 def phase_train_dp(dev):
@@ -2697,7 +2704,7 @@ def phase_lm(dev):
 
 
 TF_SEQ = 4096  # the train_4k length, batch 1
-TF_STEPS = 6
+TF_STEPS = 4  # 6 until rwkv6's and zamba2's mesh phase joined the script
 TF_DECODE = 16
 # (arch, layers, prompt): each at its published widths. qwen3-4b's 36 layers
 # (4.02 B parameters) need 22 bytes a parameter while AdamW writes the new
@@ -2915,10 +2922,11 @@ GRID_SHAPE = (1, 16)  # ("data", "model"): 40 experts padded to 48, 3 a model sh
 # layers, the deepest stack that fits GRID_MEMORY (21: 80.713 GB). With
 # the dense layers sharded too (16 shares a layer) its trace takes 130.1 s
 # and a step 6.31 s on an H100's host (10 layers: 73.8 s, 3.05 s), so the
-# phase runs 10 layers, for the script's time: it traces them on the card
-# and holds the measured peak (39.3 GB) to the prediction, which is no
-# longer checked near the card's 80 GB on this path.
-GRID_LAYERS = 10
+# phase runs 5 layers (10 until rwkv6's and zamba2's mesh phase joined the
+# script), for the script's time: it traces them on the card and holds
+# the measured peak to the prediction, which is no longer checked near
+# the card's 80 GB on this path.
+GRID_LAYERS = 5
 GRID_MEMORY = 80e9
 GRID_STEPS = 3
 # bfloat16: the grid's first step against the one-card route's on the same
@@ -3213,14 +3221,15 @@ for arch, shape, mesh in json.loads(sys.argv[1]):
 """
 
 
-def _mesh_traces_start(dev):
-    """Start one process a cell of MESH_ARCHS on MESH_NAMES, each tracing
-    it (`launch.dryrun.run_cell`, fake tensors on the card): [(Popen,
-    cells)]."""
+def _mesh_traces_start(dev, cells=None):
+    """Start one process a cell (default: every cell of MESH_ARCHS on
+    MESH_NAMES), each tracing it (`launch.dryrun.run_cell`, fake tensors
+    on the card): [(Popen, cells)]."""
     from repro_torch.configs import SHAPES, get_config
 
-    cells = [(a, s, m) for a in MESH_ARCHS for s in SHAPES if s not in get_config(a).skip_shapes
-             for m in MESH_NAMES]
+    if cells is None:
+        cells = [(a, s, m) for a in MESH_ARCHS for s in SHAPES
+                 if s not in get_config(a).skip_shapes for m in MESH_NAMES]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return [(subprocess.Popen([sys.executable, "-c", _MESH_WORKER, json.dumps([cell]), str(dev)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env),
@@ -3255,15 +3264,20 @@ def _mesh_traces_join(procs, times):
     return reports
 
 
-def _mesh_share(dev, times):
-    """Coordinate (0, 0)'s share of MESH_SHARE_ARCH x train_4k on the
-    (16, 16) mesh run for real on the card, at full width and depth (a
-    batch of 16 x 4096 a device, 2 of 32 q heads, all 8 kv heads, a
-    vocabulary slice of 9 496, random weights, tokens of that slice): the
-    collectives in their lone form (true in memory, not in value), the
-    measured peak held to the trace's prediction within LM_PEAK_TOL, the
-    warm step printed beside the modelled compute and memory terms."""
+def _mesh_share(dev, times, arch=MESH_SHARE_ARCH, key="mesh share", traced=None):
+    """Coordinate (0, 0)'s share of ``arch`` x train_4k on the (16, 16) mesh
+    run for real on the card, at full width and depth (a batch of 16 x
+    4096 a device; qwen3-4b: 2 of 32 q heads, all 8 kv heads, a vocabulary
+    slice of 9 496; rwkv6-7b: 4 of 64 heads, d_ff 896 of 14 336, a slice of
+    4 096), random weights, tokens of that slice: the collectives in their
+    lone form (true in memory, not in value), the measured peak held to the
+    trace's prediction within LM_PEAK_TOL, the warm step printed beside the
+    modelled compute and memory terms. Its times go under ``key``. The
+    trace runs here first; with ``traced``, a callable that returns the
+    cell's report from a tracing process (`_mesh_traces_join`), it is
+    waited for after the steps instead."""
     import gc
+    import types
 
     import numpy as np
     import torch
@@ -3273,26 +3287,28 @@ def _mesh_share(dev, times):
     from repro_torch.launch.dryrun import arch_train_config, train_batch_shape
     from repro_torch.launch.mesh import make_production_mesh, make_rules
     from repro_torch.launch.roofline import make_report
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_backbone
     from repro_torch.training.optimizer import init_opt_state, tree_map
     from repro_torch.training.train_loop import (build_train_step, coordinate_share, fake_like,
                                                  lower_train_step)
 
-    cfg = get_config(MESH_SHARE_ARCH)
+    cfg = get_config(arch)
     spec = SHAPES["train_4k"]
     rules = make_rules(make_production_mesh(), fsdp_over_pod=cfg.param_count() > 100e9)
     coord = (0, 0)
     train_cfg = arch_train_config(cfg)
     batch_shape = train_batch_shape(cfg, spec)
-    label = f"mesh share {MESH_SHARE_ARCH} train_4k 16x16 {coord}"
-    t0 = time.perf_counter()
-    analysis, lparams, lopt = lower_train_step(cfg, batch_shape, train_cfg, dev, rules, coord)
-    trace_s = time.perf_counter() - t0
-    report = make_report(cfg, spec, analysis, "train", mesh="16x16", chips=256)
+    label = f"{key} {arch} train_4k 16x16 {coord}"
+    if traced is None:
+        t0 = time.perf_counter()
+        analysis, _, _ = lower_train_step(cfg, batch_shape, train_cfg, dev, rules, coord)
+        trace_s = time.perf_counter() - t0
+        report = make_report(cfg, spec, analysis, "train", mesh="16x16", chips=256)
     with FakeTensorMode():
-        params = transformer.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
-        *_, lbatch, specs = coordinate_share(params, init_opt_state(params, train_cfg.optimizer),
-                                             fake_like(batch_shape, dev), rules, dev)
+        params = get_backbone(cfg).init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+        lparams, lopt, lbatch, specs = coordinate_share(
+            params, init_opt_state(params, train_cfg.optimizer), fake_like(batch_shape, dev),
+            rules, dev)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3326,7 +3342,13 @@ def _mesh_share(dev, times):
     if not np.isfinite(losses).all():
         raise AssertionError(f"{label}: a loss is not finite: {losses}")
     warm = float(np.median(step_s[1:]))
-    key = "mesh share"
+    if traced is not None:
+        r = traced()
+        analysis = types.SimpleNamespace(peak_bytes=r["peak_bytes_per_device"],
+                                         flops=r["hlo_flops"], hbm_bytes=r["hlo_bytes"])
+        report = types.SimpleNamespace(compute_s=r["compute_s"], memory_s=r["memory_s"],
+                                       collective_s=r["collective_s"])
+        trace_s = r["trace_s"]
     times.update({f"{key} layers": cfg.n_layers, f"{key} rows": b_loc, f"{key} step s": warm,
                   f"{key} first step s": step_s[0], f"{key} train peak GB": train_peak / 1e9,
                   f"{key} compute s": report.compute_s, f"{key} memory s": report.memory_s,
@@ -3350,23 +3372,20 @@ def _mesh_tokens(dev, cfg):
                          generator=gen, device=dev, dtype=torch.int32)
 
 
-def _mesh_logits(dev, cfg, params, mc, toks) -> list:
+def _mesh_logits(dev, backbone, cfg, params, mc, toks) -> list:
     """The float32 logits of a prefill of ``toks``' prompt and of each
-    decode step after it (`models.transformer` under ``mc``; one card
-    with None)."""
+    decode step after it (``backbone`` under ``mc``; one card with None)."""
     import torch
-
-    from repro_torch.models import transformer
 
     max_len = MESH_GRID_PROMPT + MESH_GRID_DECODE
     with torch.no_grad():
-        lg, cache = transformer.prefill(params, {"tokens": toks[:, :MESH_GRID_PROMPT]}, cfg, mc,
-                                        max_len=max_len)
+        lg, cache = backbone.prefill(params, {"tokens": toks[:, :MESH_GRID_PROMPT]}, cfg, mc,
+                                     max_len=max_len)
         out = [lg.float()]
         for i in range(MESH_GRID_DECODE):
             n = MESH_GRID_PROMPT + i
-            lg, cache = transformer.decode_step(params, cache, torch.tensor(n, device=dev),
-                                                {"tokens": toks[:, n:n + 1]}, cfg, mc)
+            lg, cache = backbone.decode_step(params, cache, torch.tensor(n, device=dev),
+                                             {"tokens": toks[:, n:n + 1]}, cfg, mc)
             out.append(lg.float())
     return out
 
@@ -3376,12 +3395,14 @@ def _logits_err(got: list, want: list) -> float:
     return max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
 
 
-def _mesh_grid(dev, times):
-    """qwen3-4b at full width, MESH_GRID_LAYERS deep, trained on a
-    MESH_GRID_SHAPE grid of the card (every coordinate in this process, the
-    real collectives): MESH_GRID_STEPS bf16 steps, the first step's loss
-    and grad_norm against the one-card step on the same weights; then a
-    prefill and decode steps on the grid against the one-card route."""
+def _mesh_grid(dev, times, arch=MESH_SHARE_ARCH):
+    """``arch`` (`MESH_GRIDS`: its depth and dtype, the leaves drawn away
+    from their initial values, its bounds and its key) at full width,
+    trained on a MESH_GRID_SHAPE grid of the card (every coordinate in this
+    process, the real collectives): MESH_GRID_STEPS steps at MESH_GRID_BATCH x
+    MESH_GRID_SEQ tokens, the first step's loss and grad_norm against the
+    one-card step on the same weights; then a prefill and decode steps on
+    the grid against the one-card route."""
     import dataclasses
     import gc
 
@@ -3390,26 +3411,28 @@ def _mesh_grid(dev, times):
 
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import Mesh, ShardingRules, make_mesh_context
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_backbone
     from repro_torch.training.optimizer import AdamWConfig, global_norm, init_opt_state
     from repro_torch.training.train_loop import (TrainConfig, build_train_step, lm_batches,
                                                  value_and_grad)
 
-    cfg = dataclasses.replace(get_config(MESH_SHARE_ARCH), n_layers=MESH_GRID_LAYERS)
+    layers, dtype, norms, (loss_tol, gnorm_tol, logits_tol), key = MESH_GRIDS[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype=dtype)
+    backbone = get_backbone(cfg)
     rules = ShardingRules(mesh=Mesh(MESH_GRID_SHAPE, ("data", "model"), dev))
     mc = make_mesh_context(rules)
-    label = f"mesh grid {MESH_SHARE_ARCH} {MESH_GRID_SHAPE}"
+    label = f"{key} {arch} {MESH_GRID_SHAPE}"
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, mc,
-                                     device=dev)
-    _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 1))
+    params = backbone.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, mc,
+                                  device=dev)
+    _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 1), norms)
     batches = list(lm_batches(cfg.vocab, MESH_GRID_STEPS, batch=MESH_GRID_BATCH,
                               seq=MESH_GRID_SEQ))
     one_loss, grads = value_and_grad(
-        lambda p, b: transformer.loss_fn(p, {k: v.to(dev) for k, v in b.items()}, cfg),
+        lambda p, b: backbone.loss_fn(p, {k: v.to(dev) for k, v in b.items()}, cfg),
         params, batches[0])
     one_loss, one_gnorm = float(one_loss), float(global_norm(grads))
     del grads
@@ -3438,34 +3461,34 @@ def _mesh_grid(dev, times):
     gnorm_err = abs(gnorms[0] / one_gnorm - 1)
     # prefill and decode on the first step's weights, the grid against one card
     toks = _mesh_tokens(dev, cfg)
-    runs = {name: _mesh_logits(dev, cfg, first, m, toks) for name, m in (("one", None),
-                                                                         ("grid", mc))}
+    runs = {name: _mesh_logits(dev, backbone, cfg, first, m, toks)
+            for name, m in (("one", None), ("grid", mc))}
     logits_err = _logits_err(runs["grid"], runs["one"])
     del first, runs
     gc.collect()
     torch.cuda.empty_cache()
     warm = float(np.median(step_s[1:]))
-    key = "mesh grid"
-    times.update({f"{key} layers": MESH_GRID_LAYERS, f"{key} step s": warm,
+    times.update({f"{key} layers": layers, f"{key} step s": warm,
                   f"{key} first step s": step_s[0], f"{key} train peak GB": train_peak / 1e9,
                   f"{key} loss rel err": loss_err, f"{key} grad_norm rel err": gnorm_err,
                   f"{key} logits rel err": logits_err})
-    print(f"{label}: published widths at {MESH_GRID_LAYERS} layers, {MESH_GRID_STEPS} steps at "
+    print(f"{label}: published widths at {layers} layers, {dtype}, {MESH_GRID_STEPS} steps at "
           f"{MESH_GRID_BATCH} x {MESH_GRID_SEQ} tokens: warm step {warm:.4f} s (first "
           f"{step_s[0]:.3f} s), peak {train_peak / 1e9:.3f} GB; loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; first step loss / grad_norm against the one-card step's "
           f"{one_loss:.6f} / {one_gnorm:.6f}: relative {loss_err:.3g} (limit "
-          f"{MESH_GRID_LOSS_TOL}) / {gnorm_err:.3g} (limit {MESH_GRID_GNORM_TOL}); a "
+          f"{loss_tol}) / {gnorm_err:.3g} (limit {gnorm_tol}); a "
           f"{MESH_GRID_PROMPT}-token prefill and {MESH_GRID_DECODE} decode steps within "
-          f"{logits_err:.3g} of max |logit| of the one-card route (limit {MESH_GRID_LOGITS_TOL})")
-    if loss_err > MESH_GRID_LOSS_TOL or gnorm_err > MESH_GRID_GNORM_TOL \
-            or logits_err > MESH_GRID_LOGITS_TOL:
+          f"{logits_err:.3g} of max |logit| of the one-card route (limit {logits_tol})")
+    if loss_err > loss_tol or gnorm_err > gnorm_tol or logits_err > logits_tol:
         raise AssertionError(f"{label}: loss / grad_norm / logits differ from the one-card "
                              f"route's by {loss_err:.3g} / {gnorm_err:.3g} / {logits_err:.3g}")
 
 
 MESH_FAULT_SEEDS = 3
-MESH_FAULTS = ("none", "mlp psum", "decode shard")
+# the planted faults of each grid's study (`_planted`)
+MESH_FAULTS = {"qwen3-4b": ("none", "mlp psum", "decode shard"),
+               "zamba2-7b": ("none", "gated norm")}
 
 
 @contextlib.contextmanager
@@ -3474,9 +3497,11 @@ def _planted(fault: str):
     psum" drops `layers.mlp_grid`'s psum over "model" (each model shard
     keeps its half of the down projection's sum); "decode shard" loses
     flash-decoding's sequence shard 1 (its max set to +inf, so its
-    exponentials are zero); "none" plants nothing."""
+    exponentials are zero); "gated norm" makes zamba2's gated RMSNorm
+    local (each model shard normalises its own slice of d_inner, no psum
+    of the squares); "none" plants nothing."""
     from repro_torch.distributed.collectives import axis_index
-    from repro_torch.models import attention, layers, transformer
+    from repro_torch.models import attention, layers, mamba2, transformer
 
     if fault == "mlp psum":
         mlp_grid = transformer.mlp_grid
@@ -3508,17 +3533,26 @@ def _planted(fault: str):
             yield
         finally:
             attention.pmax = pmax
+    elif fault == "gated norm":
+        norm = mamba2._gated_norm_grid
+        mamba2._gated_norm_grid = lambda ys, gn, cfg, mc: [
+            mamba2.rms_norm(y, g, cfg.norm_eps) for y, g in zip(ys, gn)]
+        try:
+            yield
+        finally:
+            mamba2._gated_norm_grid = norm
     else:
         yield
 
 
-def mesh_grid_faults(dev):
-    """`python3 chip_smoke.py --mesh-faults`: the readings behind
-    MESH_GRID_*_TOL at `_mesh_grid`'s own width, depth, batch and dtype,
-    for MESH_FAULT_SEEDS weight draws (seed 0 is `_mesh_grid`'s): the
-    first step's loss and grad_norm and the prefill / decode logits of the
-    (2, 2) grid against the one-card route, sound and with each planted
-    fault of MESH_FAULTS (`_planted`). One line a seed and fault."""
+def mesh_grid_faults(dev, archs=tuple(MESH_FAULTS)):
+    """`python3 chip_smoke.py --mesh-faults [ARCH]`: the readings behind
+    each grid's bounds (`MESH_GRIDS`) at `_mesh_grid`'s own width, depth,
+    batch and dtype, for MESH_FAULT_SEEDS weight draws (seed 0 is
+    `_mesh_grid`'s): the first step's loss and grad_norm and the prefill /
+    decode logits of the (2, 2) grid against the one-card route, sound and
+    with each planted fault of MESH_FAULTS[arch] (`_planted`). One line a
+    seed and fault."""
     import dataclasses
     import gc
 
@@ -3526,43 +3560,47 @@ def mesh_grid_faults(dev):
 
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import Mesh, ShardingRules, make_mesh_context
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_backbone
     from repro_torch.training.optimizer import global_norm
     from repro_torch.training.train_loop import lm_batches, value_and_grad
 
-    cfg = dataclasses.replace(get_config(MESH_SHARE_ARCH), n_layers=MESH_GRID_LAYERS)
     mc = make_mesh_context(ShardingRules(mesh=Mesh(MESH_GRID_SHAPE, ("data", "model"), dev)))
-    batch = {k: v.to(dev) for k, v in next(lm_batches(cfg.vocab, 1, batch=MESH_GRID_BATCH,
-                                                      seq=MESH_GRID_SEQ)).items()}
-    toks = _mesh_tokens(dev, cfg)
-    for seed in range(MESH_FAULT_SEEDS):
-        params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED + 10 * seed),
-                                         cfg, mc, device=dev)
-        _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 1 + 10 * seed))
+    for arch in archs:
+        layers, dtype, norms, _, _ = MESH_GRIDS[arch]
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype=dtype)
+        backbone = get_backbone(cfg)
+        batch = {k: v.to(dev) for k, v in next(lm_batches(cfg.vocab, 1, batch=MESH_GRID_BATCH,
+                                                          seq=MESH_GRID_SEQ)).items()}
+        toks = _mesh_tokens(dev, cfg)
+        for seed in range(MESH_FAULT_SEEDS):
+            params = backbone.init_params(
+                torch.Generator(device=dev).manual_seed(SEED + 10 * seed), cfg, mc, device=dev)
+            _draw_norms(params, torch.Generator(device=dev).manual_seed(SEED + 1 + 10 * seed),
+                        norms)
 
-        def first_step(m):
-            loss, grads = value_and_grad(lambda p, b: transformer.loss_fn(p, b, cfg, m), params,
-                                         batch)
-            out = float(loss), float(global_norm(grads))
-            del grads
+            def first_step(m):
+                loss, grads = value_and_grad(lambda p, b: backbone.loss_fn(p, b, cfg, m), params,
+                                             batch)
+                out = float(loss), float(global_norm(grads))
+                del grads
+                gc.collect()
+                return out
+
+            one_loss, one_gnorm = first_step(None)
+            one_logits = _mesh_logits(dev, backbone, cfg, params, None, toks)
+            for fault in MESH_FAULTS[arch]:
+                with _planted(fault):
+                    loss, gnorm = first_step(mc)
+                    logits = _mesh_logits(dev, backbone, cfg, params, mc, toks)
+                print(f"mesh faults {arch} seed {seed} {fault}: loss "
+                      f"{abs(loss / one_loss - 1):.4g} grad_norm {abs(gnorm / one_gnorm - 1):.4g} "
+                      f"logits {_logits_err(logits, one_logits):.4g} (prefill "
+                      f"{_logits_err(logits[:1], one_logits[:1]):.4g}) of the one-card route's",
+                      flush=True)
+                del logits
+            del params, one_logits
             gc.collect()
-            return out
-
-        one_loss, one_gnorm = first_step(None)
-        one_logits = _mesh_logits(dev, cfg, params, None, toks)
-        for fault in MESH_FAULTS:
-            with _planted(fault):
-                loss, gnorm = first_step(mc)
-                logits = _mesh_logits(dev, cfg, params, mc, toks)
-            print(f"mesh faults seed {seed} {fault}: loss {abs(loss / one_loss - 1):.4g} "
-                  f"grad_norm {abs(gnorm / one_gnorm - 1):.4g} logits "
-                  f"{_logits_err(logits, one_logits):.4g} (prefill "
-                  f"{_logits_err(logits[:1], one_logits[:1]):.4g}) of the one-card route's",
-                  flush=True)
-            del logits
-        del params, one_logits
-        gc.collect()
-        torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
 
 
 def phase_mesh(dev):
@@ -3719,6 +3757,87 @@ def zamba2_decode_drift(dev):
                   f"decode {errs[1]:.4g} of max |logit|", flush=True)
 
 
+SSM_SHARE_ARCH = "rwkv6-7b"
+# zamba2-7b at full width on a (2, 2) grid of the card: groups of 6, 6
+# and 1 mamba layers, so both shared blocks run (1.7 B parameters). Not
+# 12 layers: two shared applications would give the (n_apps, B, S, KV, D)
+# k / v caches a leading axis of the batch's size, 2, and `cache_specs`
+# (the reference's rule) finds the batch axis by its size.
+ZAMBA_GRID_LAYERS = 13
+# zamba2's (2, 2) grid against the one-card route on the same weights,
+# as MESH_GRID_*_TOL hold qwen3's: |relative difference| of the first
+# step's loss and grad_norm, max |difference| / max |logit| of the worst
+# of a prefill and 16 decodes. Read at this width and depth on an H100
+# (`python3 chip_smoke.py --mesh-faults zamba2-7b`, two weight draws).
+# In bfloat16 the sound grid (loss 2.6e-4-5.6e-4, grad_norm 0.030-0.059,
+# logits 0.84-0.93) and the gated norm made local (6.7e-4-1.3e-3,
+# 0.018-0.093, 1.16-1.27) overlap: random weights make the model
+# chaotic (`ZAMBA_F32_TOL`). So the grid runs in float32, where the sound
+# grid reads <= 4.4e-7 / 6.0e-4 / 4.6e-4 and the fault >= 3.1e-5 / 9.5e-3
+# / 1.19 (its prefill alone >= 0.95): each bound lies between (loss 9x
+# over the sound readings and 7.7x under the fault's, grad_norm 3.3x /
+# 4.7x, logits 22x / 119x).
+ZAMBA_GRID_DTYPE = "float32"
+ZAMBA_GRID_LOSS_TOL = 4e-6
+ZAMBA_GRID_GNORM_TOL = 2e-3
+ZAMBA_GRID_LOGITS_TOL = 0.01
+# each grid of `_mesh_grid`: (layers, dtype, leaves drawn away from their
+# initial values, (loss, grad_norm, logits) bounds, its times' key)
+MESH_GRIDS = {
+    MESH_SHARE_ARCH: (MESH_GRID_LAYERS, "bfloat16", TF_NORMS,
+                      (MESH_GRID_LOSS_TOL, MESH_GRID_GNORM_TOL, MESH_GRID_LOGITS_TOL),
+                      "mesh grid"),
+    ZAMBA_ARCH: (ZAMBA_GRID_LAYERS, ZAMBA_GRID_DTYPE, ZAMBA_LEAVES,
+                 (ZAMBA_GRID_LOSS_TOL, ZAMBA_GRID_GNORM_TOL, ZAMBA_GRID_LOGITS_TOL),
+                 "ssm mesh grid"),
+}
+# (a') cells of rwkv6 and zamba2 traced per device, one process a cell;
+# the first is the (b') share's prediction
+SSM_MESH_CELLS = [(a, s, "16x16") for a in (SSM_SHARE_ARCH, ZAMBA_ARCH)
+                  for s in ("train_4k", "decode_32k")]
+
+
+def phase_ssm_mesh(dev):
+    """rwkv6's and zamba2's sharded steps on the production mesh: (b')
+    coordinate (0, 0)'s share of rwkv6-7b x train_4k on the (16, 16) mesh
+    run for real at its 32 layers (`_mesh_share`), (c') zamba2-7b on a (2,
+    2) grid of the card at ZAMBA_GRID_LAYERS layers against the one-card
+    route (`_mesh_grid`, in float32: ZAMBA_GRID_*_TOL), and (a')
+    SSM_MESH_CELLS traced per device, one process a cell, started first:
+    rwkv6's train_4k trace is the share's prediction, which the share
+    waits for after its steps.
+    No kernel of the port launches (the reference's LM
+    layers reach no Pallas kernel; rwkv6 trains through the chunked form).
+    Returns ({kernel: launches}, times)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    times = {}
+    build.launches.clear()
+    phase_t0 = time.perf_counter()
+    # the traces start first: they run beside the share's device-bound
+    # steps (12 s each) and zamba2's grid, which keeps the phase near 100 s
+    procs = _mesh_traces_start(dev, SSM_MESH_CELLS)
+    try:
+        _mesh_share(dev, times, SSM_SHARE_ARCH, "ssm mesh share",
+                    traced=lambda: _mesh_traces_join(procs[:1], times)[0])
+        _mesh_grid(dev, times, ZAMBA_ARCH)
+        _mesh_traces_join(procs[1:], times)
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    counts = dict(build.launches)
+    if counts:
+        raise AssertionError(f"ssm mesh: launches {counts}, want none (PyTorch operations only)")
+    torch.cuda.synchronize()
+    times["ssm mesh phase s"] = time.perf_counter() - phase_t0
+    print(f"ssm mesh: the phase took {times['ssm mesh phase s']:.1f} s")
+    return counts, times
+
+
 def main() -> int:
     # the allocator grows segments in place instead of caching fixed blocks:
     # the transformer phase's AdamW at full width needs one 9.4 GB float64
@@ -3749,8 +3868,11 @@ def main() -> int:
     if sys.argv[1:] == ["--zamba2-drift"]:
         zamba2_decode_drift(dev)
         return 0
-    if sys.argv[1:] == ["--mesh-faults"]:
-        mesh_grid_faults(dev)
+    if sys.argv[1:2] == ["--mesh-faults"]:
+        mesh_grid_faults(dev, tuple(sys.argv[2:]) or tuple(MESH_FAULTS))
+        return 0
+    if sys.argv[1:] == ["--ssm-mesh"]:
+        phase_ssm_mesh(dev)
         return 0
     t0 = time.perf_counter()
     reports = build.build_all()
@@ -3801,6 +3923,7 @@ def main() -> int:
     _, tf_times = phase_transformer(dev)
     _, grid_times = phase_moe_grid(dev)
     _, mesh_times = phase_mesh(dev)
+    _, ssm_mesh_times = phase_ssm_mesh(dev)
     _, zamba_times = phase_zamba2(dev)
     gru_err, gru_launches, gru_times = phase_gru_seq(dev)
     wkv_err, wkv_launches, wkv_times = phase_wkv6(dev)
@@ -3817,6 +3940,7 @@ def main() -> int:
     times.update(tf_times)
     times.update(grid_times)
     times.update(mesh_times)
+    times.update(ssm_mesh_times)
     times.update(zamba_times)
     times.update(gru_times)
     times.update(wkv_times)

@@ -28,9 +28,10 @@ scalar multiplies by its reciprocal.
 
 **The grid's collectives** (`psum`, `pmax`, `all_gather`,
 `reduce_scatter`, `all_to_all`) are the counterparts of ``jax.lax``'s
-over named mesh axes, for the sharded LM step (`models.transformer` with
-a `models.moe.MeshContext`). A *share* is a list with one tensor a grid
-coordinate of ``mc.coords``, each on its coordinate's device. On a full
+over named mesh axes, for the sharded LM step (`models.transformer`,
+`models.rwkv6` or `models.zamba2` with a `models.moe.MeshContext`). A
+*share* is a list with one tensor a grid coordinate of ``mc.coords``,
+each on its coordinate's device. On a full
 grid (``mc.coord`` None: every coordinate in one process) each
 collective works group by group, a group the coordinates that differ
 only along the named axes, taken in row-major order over those axes:

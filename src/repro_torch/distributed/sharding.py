@@ -20,9 +20,9 @@ specs of meshes larger than the machine). `P` is the PartitionSpec
 counterpart: a tuple of None, an axis name, or a tuple of axis names.
 The specs say how the reference lays a tensor out. `shard` gives a grid
 coordinate's piece of each leaf (a view), `local_shapes` the pieces'
-shapes, `unshard` puts pieces back together; the transformer's sharded
-step (`models.transformer` under `make_mesh_context(rules)`) runs one
-share a coordinate on these pieces, and with ``coord=`` the share of
+shapes, `unshard` puts pieces back together; each backbone's sharded
+step (`models.transformer`, `models.rwkv6`, `models.zamba2` under
+`make_mesh_context(rules)`) runs one share a coordinate on these pieces, and with ``coord=`` the share of
 that coordinate alone (the dry run's per-device trace).
 
 **The fleet.** The KWS server's unit of parallelism is the stream slot:

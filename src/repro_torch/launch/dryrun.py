@@ -21,13 +21,10 @@ On a mesh (``--mesh 16x16``, the single pod, or ``--multi-pod``, the
 device: `launch.mesh.make_production_mesh` and `make_rules` (FSDP over
 "pod" too past 100 B parameters), and the step of grid coordinate 0's
 share alone (`lower_train_step(..., rules, coord)` and the serving
-lowerings: the transformer's sharded step, its collectives in their lone
+lowerings: each backbone's sharded step, its collectives in their lone
 form), so the FLOPs, HBM bytes, peak and argument bytes are one
 device's, and the collectives' wire bytes give a modelled collective
-term over the datasheet links of `launch.roofline.HARDWARE`. The
-rwkv6 and zamba2 backbones have no sharded step yet (ROADMAP item 8):
-``--all`` on a mesh lists their cells as waiting and traces the
-transformer's.
+term over the datasheet links of `launch.roofline.HARDWARE`.
 
 Per cell it prints one line: the predicted peak against the card's memory
 (fits or not: the caching allocator's cache, fragmentation and retries are
@@ -95,8 +92,7 @@ def run_cell(arch: str, shape: str, note: str = "", overrides: dict | None = Non
     ``device`` (default: the card) is where the fake tensors live. On one
     card by default; ``mesh`` "16x16" or "2x16x16" traces coordinate 0's
     share of that production mesh's step. Raises SystemExit for a
-    shape the config skips, NotImplementedError for a backbone without a
-    sharded step on a mesh."""
+    shape the config skips."""
     device = resolve_device(device)
     name = mesh or "1xH100"
     if name not in MESHES:
@@ -112,9 +108,6 @@ def run_cell(arch: str, shape: str, note: str = "", overrides: dict | None = Non
     rules = coord = None
     chips = 1
     if name != "1xH100":
-        if arch_cfg.backbone != "transformer":
-            raise NotImplementedError(f"{arch}: the {arch_cfg.backbone} backbone has no sharded "
-                                      "step yet (ROADMAP item 8)")
         prod = make_production_mesh(multi_pod=name == "2x16x16")
         rules = make_rules(prod, fsdp_over_pod=arch_cfg.param_count() > 100e9)
         coord = (0,) * len(prod.axis_names)
@@ -176,11 +169,6 @@ def main(argv=None) -> int:
         if not (args.arch and args.shape):
             ap.error("--arch and --shape required unless --all")
         cells = [(args.arch, args.shape)]
-    if name != "1xH100" and args.all:
-        waiting = [c for c in cells if get_config(c[0]).backbone != "transformer"]
-        cells = [c for c in cells if c not in waiting]
-        print(f"waiting for ROADMAP item 8 (no sharded step on {name} yet): "
-              + ", ".join(f"{a} x {s}" for a, s in waiting))
 
     failures = []
     for arch, shape in cells:

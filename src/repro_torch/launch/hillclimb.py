@@ -1,11 +1,11 @@
 """The dry run's iterations on three cells, each a hypothesis -> change ->
 trace. Counterpart of `repro.launch.hillclimb`: the same cells and
 overrides, traced on fake tensors by `launch.dryrun.run_cell` (the
-roofline from the port's own graph), one JSON per iteration. Cells A and
-C and the kimi fit run on one card; cell B (kimi-k2 x decode_32k,
-weights-stationary expert parallelism) needs a model axis, so it traces
-a device's share of the (16, 16) mesh, its collective term modelled over
-the datasheet links (`launch.roofline`).
+roofline from the port's own graph), one JSON per iteration. As the
+reference's `run_cell` always builds the production mesh, every cell
+traces a device's share of the (16, 16) mesh (coordinate 0 of 256): its
+peak against one card's 80 GB, its collective term modelled over the
+datasheet links (`launch.roofline`).
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb [--cell A|B|C|kimi_fit|all]
         [--out results/hillclimb] [--device cpu]
@@ -24,30 +24,33 @@ from repro_torch.launch.dryrun import run_cell
 __all__ = ["cell_a", "cell_b", "cell_c", "kimi_fit", "main"]
 
 
-def _run(arch, shape, steps, out, device, mesh=None):
+def _run(arch, shape, steps, out, device):
     for name, overrides, note in steps:
         report, _ = run_cell(arch, shape, note=note, overrides=overrides, device=device,
-                             mesh=mesh)
+                             mesh="16x16")
         os.makedirs(out, exist_ok=True)
         with open(os.path.join(out, f"{name}.json"), "w") as f:
             json.dump(report.to_json(), f, indent=2)
 
 
 def cell_a(out, device=None):
-    """musicgen-medium x train_4k: 24 heads, the (S, S) scores of a
-    4096-token sequence materialised in every layer."""
-    print("#### CELL A: musicgen-medium x train_4k")
+    """musicgen-medium x train_4k on the (16, 16) mesh: 24 heads on a
+    16-way model axis, the (S, S) scores of a 4096-token sequence
+    materialised in every layer."""
+    print("#### CELL A: musicgen-medium x train_4k @ 16x16")
     _run("musicgen-medium", "train_4k", [
-        ("A0_baseline", {}, "baseline (24 heads, vanilla attention, remat=full)"),
+        ("A0_baseline", {"attn_head_pad": None},
+         "baseline: the published 24 heads, which do not split 16 ways: every model "
+         "coordinate runs all 24 (vanilla attention, remat=full)"),
         ("A1_headpad", {"attn_head_pad": 32},
-         "hypothesis: zero-padding heads 24->32 adds a third to the attention work on one "
-         "card (no tensor-parallel axis to balance) -> compute and memory terms up"),
+         "hypothesis: zero-padding heads 24->32 splits them 2 a model coordinate -> a "
+         "device's attention work and scores down ~12x, compute and memory terms down"),
         ("A2_flash", {"attn_head_pad": 32, "attn_chunk": 1024},
-         "hypothesis: chunked attention keeps one (S, 1024) block of scores at a time -> "
-         "peak down by the scores' share"),
+         "hypothesis: chunked attention keeps one (S, 1024) block of a device's scores at a "
+         "time -> its peak down by the scores' share"),
         ("A3_dots", {"attn_head_pad": 32, "attn_chunk": 1024, "remat": "dots"},
          "hypothesis: saving the products' outputs removes the forward's recompute of them "
-         "-> compute term down ~25 %, peak up by the saved activations"),
+         "-> compute term down ~25 %, a device's peak up by the saved activations"),
     ], out, device)
 
 
@@ -63,17 +66,19 @@ def cell_b(out, device=None):
         ("B1_stationary", {},
          "hypothesis: weights-stationary EP (the tokens all-gathered, the banks never move) "
          "-> collective term down by the banks' wire bytes"),
-    ], out, device, mesh="16x16")
+    ], out, device)
 
 
 def cell_c(out, device=None):
-    """rwkv6-7b x train_4k: the chunked WKV6's (q, q, h) ratio tensors."""
-    print("#### CELL C: rwkv6-7b x train_4k")
+    """rwkv6-7b x train_4k on the (16, 16) mesh: 4 of the 64 heads a
+    device, the chunked WKV6's (q, q, h) ratio tensors."""
+    print("#### CELL C: rwkv6-7b x train_4k @ 16x16")
     cfg = get_config("rwkv6-7b")
     _run("rwkv6-7b", "train_4k", [
-        ("C0_baseline", {}, "baseline (remat=full, wkv chunk 128)"),
+        ("C0_baseline", {}, "baseline (remat=full, wkv chunk 128, 4 heads a device)"),
         ("C1_dots", {"remat": "dots"},
-         "hypothesis: remat=dots keeps the products' outputs -> compute term -25 %, peak up"),
+         "hypothesis: remat=dots keeps the products' outputs -> compute term -25 %, a "
+         "device's peak up"),
         ("C2_chunk256", {"remat": "dots", "ssm": dataclasses.replace(cfg.ssm, chunk=256)},
          "hypothesis: wkv chunk 128->256 halves the inter-chunk steps, doubles the intra-"
          "chunk (q, q) work -> memory term up with the ratio tensors"),
@@ -84,13 +89,16 @@ def cell_c(out, device=None):
 
 
 def kimi_fit(out, device=None):
-    """kimi-k2 x train_4k against one card's memory."""
-    print("#### kimi-k2 train_4k memory fit")
+    """kimi-k2 x train_4k: a device's peak on the (16, 16) mesh against one
+    card's 80 GB."""
+    print("#### kimi-k2 train_4k memory fit @ 16x16")
     _run("kimi-k2-1t-a32b", "train_4k", [
-        ("K0_baseline", {}, "baseline: int8 moments, vanilla attention"),
+        ("K0_baseline", {}, "baseline: int8 moments, vanilla attention, a device's share of "
+         "256 against one card's 80 GB"),
         ("K1_flash", {"attn_chunk": 1024},
-         "hypothesis: chunked attention removes the (4096, 4096) float32 score transients -> "
-         "peak down by them (the 1 T parameters stay far past one card)"),
+         "hypothesis: chunked attention removes a device's (4096, 4096) float32 score "
+         "transients -> its peak down by them (the saved layer inputs and the gathered expert "
+         "banks stay)"),
     ], out, device)
 
 

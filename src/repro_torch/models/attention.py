@@ -23,9 +23,12 @@ heads are split (model coordinate j runs padded heads [j * Hp / m, (j +
 whose heads do not split (GQA's 8 kv heads on 16 shards) are computed
 whole and each local q head reads its own kv group; ``wo`` row-parallel
 and a psum over "model". Decode is flash-decoding over a cache whose
-sequence is split (`distributed.sharding.cache_specs`): every head's
-scores over the local slice, a pmax and a psum of the exponentials over
-the sequence axes, the weighted values psum'd over them.
+sequence is split (`distributed.sharding.cache_specs`): each coordinate
+projects its share of the new token's k and v (its piece, or its slice
+of the KV * D columns where the kv heads do not split) and gathers them,
+every head's scores over the local slice, a pmax and a psum of the
+exponentials over the sequence axes, the weighted values psum'd over
+them.
 """
 
 from __future__ import annotations
@@ -164,8 +167,11 @@ def _project(x, w, cfg, positions, norm=None, rotate: bool = True):
     """x (B, S, d) times a (d, heads, D) weight; q and k (``rotate``)
     normed by ``norm`` (with qk-norm) and rotated, v as it is."""
     t = torch.einsum("bsd,dhe->bshe", x, w.to(x.dtype))
-    if not rotate:
-        return t
+    return _rotate(t, cfg, positions, norm) if rotate else t
+
+
+def _rotate(t, cfg, positions, norm=None):
+    """q or k (B, S, heads, D) normed by ``norm`` (with qk-norm) and rotated."""
     if cfg.qk_norm:
         t = rms_norm(t, norm, cfg.norm_eps)
     cos, sin = rope(positions, cfg.resolved_head_dim, cfg.rope_theta)
@@ -352,14 +358,42 @@ def _out_proj(outs: list, real: list, wo: list, spec, cfg, mc) -> Tuple[list, bo
                          .to(o.dtype)) for o, w_, r in zip(outs, wo, real)], False
 
 
+def _decode_kv(ps, xs, ws, spec, cfg, mc, positions, norm=None, rotate=True) -> list:
+    """The new token's k (``rotate``, ``norm`` its qk-norm scale's name) or
+    v of every kv head on each coordinate, each coordinate projecting only
+    its share: its piece of a weight whose kv heads are split over
+    "model", then an all-gather; where they do not split, its slice of the
+    kv heads' KV * D columns (the reference's partition of the product),
+    all-gathered over "model" before the qk-norm and the rotation, which
+    read whole heads. Every column on every coordinate where "model" does
+    not divide them."""
+    kv, hd, m = cfg.n_kv_heads, cfg.resolved_head_dim, mc.model_size
+    if splits_on(spec, 1, mc.model_axis):
+        return all_gather([_project(x, w, cfg, pos, p.get(norm), rotate)
+                           for p, x, w, pos in zip(ps, xs, ws, positions)], mc.model_axis, mc, 2)
+    if m == 1 or (kv * hd) % m:
+        return [_project(x, w, cfg, pos, p.get(norm), rotate)
+                for p, x, w, pos in zip(ps, xs, ws, positions)]
+    n = kv * hd // m
+    ts = [torch.einsum("bsd,de->bse", x, w.reshape(w.shape[0], kv * hd)
+                       .narrow(1, _model_index(mc, c) * n, n).to(x.dtype))
+          for x, w, c in zip(xs, ws, mc.coords)]
+    ts = [t.reshape(*t.shape[:2], kv, hd) for t in all_gather(ts, mc.model_axis, mc, 2)]
+    if not rotate:
+        return ts
+    return [_rotate(t, cfg, pos, p.get(norm)) for p, t, pos in zip(ps, ts, positions)]
+
+
 def decode_attn_grid(ps: list, specs, xs: list, cfg, caches: list, seq_axes, cache_len,
                      ring: bool = False, mc=None):
     """`decode_attn_apply` on a share: ``caches`` one (k, v) a coordinate,
     each (B_loc, S_loc, KV, D), the sequence split over ``seq_axes`` (empty:
-    every coordinate holds it whole). Every head's q and the new token's k
-    and v on every coordinate (gathered over "model" where their heads are
-    split), the token written where its slot lies, flash-decoding over the
-    slices, then ``wo`` row-parallel. Returns (outputs, new caches)."""
+    every coordinate holds it whole). Every head's q on every coordinate
+    (gathered over "model" where wq's heads are split), the new token's k
+    and v of every kv head, each coordinate projecting only its share
+    (`_decode_kv`), the token written where its slot lies, flash-decoding
+    over the slices, then ``wo`` row-parallel. Returns (outputs, new
+    caches)."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
     w = {k: gather_param([p[k] for p in ps], specs[k], mc) for k in ("wq", "wk", "wv", "wo")}
     hd = cfg.resolved_head_dim
@@ -369,20 +403,13 @@ def decode_attn_grid(ps: list, specs, xs: list, cfg, caches: list, seq_axes, cac
             return cache_len.to(x.device)
         return torch.full((), cache_len, dtype=torch.int64, device=x.device)
 
-    qs, ks, vs = [], [], []
-    for i, x in enumerate(xs):
-        cl = length(x)
-        p = {"wq": w["wq"][i], "wk": w["wk"][i], "wv": w["wv"][i],
-             "q_norm": ps[i].get("q_norm"), "k_norm": ps[i].get("k_norm")}
-        q, k, v = _project_qkv(p, x, cfg, cl.reshape(1))
-        qs.append(q)
-        ks.append(k)
-        vs.append(v)
+    positions = [length(x).reshape(1) for x in xs]
+    qs = [_project(x, wq, cfg, pos, p.get("q_norm"))
+          for p, x, wq, pos in zip(ps, xs, w["wq"], positions)]
     if splits_on(specs["wq"], 1, mc.model_axis):
         qs = all_gather(qs, mc.model_axis, mc, 2)
-    if splits_on(specs["wk"], 1, mc.model_axis):
-        ks = all_gather(ks, mc.model_axis, mc, 2)
-        vs = all_gather(vs, mc.model_axis, mc, 2)
+    ks = _decode_kv(ps, xs, w["wk"], specs["wk"], cfg, mc, positions, "k_norm")
+    vs = _decode_kv(ps, xs, w["wv"], specs["wv"], cfg, mc, positions, rotate=False)
     seq_split = bool(seq_axes) and mc.mesh is not None and \
         math.prod(mc.mesh.shape[ax] for ax in seq_axes) > 1
     parts, new_caches, stats = [], [], []

@@ -44,6 +44,11 @@ __all__ = [
     "mlp_grid",
     "embed_grid",
     "cross_entropy_grid",
+    "grid_specs",
+    "unstack_specs",
+    "head_grid",
+    "loss_grid",
+    "logits_grid",
 ]
 
 
@@ -252,3 +257,76 @@ def cross_entropy_grid(logits: list, labels: list, final_cap, vocab_split: bool,
         return [torch.mean(z - g) for z, g in zip(logz, gold)]
     sums = psum([torch.sum(z - g) for z, g in zip(logz, gold)], mc.dp_axes, mc)
     return [t / n_tokens for t in sums]
+
+
+def grid_specs(mc, params, batch, cache=None, batch_size=None) -> dict:
+    """The specs of a sharded step's trees: ``mc.specs`` for a coordinate's
+    share (computed from the whole trees by its caller), else
+    {"params", "batch"} (and "cache", given a whole cache or its ``meta``
+    stand-in and the global ``batch_size``) of the whole trees."""
+    if mc.coord is not None:
+        return mc.specs
+    from repro_torch.distributed.sharding import (batch_specs, cache_specs, context_rules,
+                                                  param_specs)
+
+    rules = context_rules(mc)
+    out = {"params": param_specs(params, rules), "batch": batch_specs(batch, rules)}
+    if cache is not None:
+        out["cache"] = cache_specs(cache, rules, batch_size)
+    return out
+
+
+def unstack_specs(tree, specs):
+    """A stack's specs without its layer axis. A layer axis the rules split
+    (a shared expert's stack read as an expert axis, where the steps
+    divide the model axis: no config on the production meshes) would need
+    every step gathered; it raises."""
+    from repro_torch.distributed.sharding import P
+    from repro_torch.training.optimizer import tree_map
+
+    def one(t, spec):
+        if spec[0] is not None:
+            raise NotImplementedError(f"a stacked leaf's layer axis split over {spec[0]!r}")
+        return P(*spec[1:])
+
+    return tree_map(one, tree, specs)
+
+
+def head_grid(shares, specs, xs, cfg, mc):
+    """The final norm and the output product on a share: (logits a
+    coordinate, whether the vocabulary is split over "model"); the tied
+    embedding's transpose where ``cfg.tie_embeddings``."""
+    hs = [rms_norm(x, p["final_norm"], cfg.norm_eps) for p, x in zip(shares, xs)]
+    if cfg.tie_embeddings:
+        w = gather_param([p["embed"] for p in shares], specs["embed"], mc)
+        return [h @ wi.T.to(h.dtype) for h, wi in zip(hs, w)], \
+            splits_on(specs["embed"], 0, mc.model_axis)
+    w = gather_param([p["head"] for p in shares], specs["head"], mc)
+    return [h @ wi.to(h.dtype) for h, wi in zip(hs, w)], splits_on(specs["head"], 1, mc.model_axis)
+
+
+def logits_grid(shares, specs, xs, cfg, mc, last: bool = False):
+    """`head_grid`'s logits put back together (`sharding.from_shares`; a
+    coordinate's own piece with ``coord``): (B, S, V) at every position,
+    or with ``last`` the soft-capped (B, V) of the last one."""
+    from repro_torch.distributed.sharding import P, from_shares
+
+    if last:
+        xs = [x[:, -1:, :] for x in xs]
+    logits, vsplit = head_grid(shares, specs["params"], xs, cfg, mc)
+    rows = next(iter(specs["batch"].values()))[0]
+    vocab = mc.model_axis if vsplit else None
+    if last:
+        return from_shares([softcap(lg[:, 0, :], cfg.final_softcap) for lg in logits],
+                           P(rows, vocab), mc)
+    return from_shares(logits, P(rows, None, vocab), mc)
+
+
+def loss_grid(logits: list, vsplit: bool, bs: list, bspecs, cfg, mc) -> torch.Tensor:
+    """The mean cross-entropy of a share of logits against its labels
+    (`cross_entropy_grid`), as the first coordinate holds it."""
+    labels = [b["labels"] for b in bs]
+    bsplit = bspecs["labels"][0] is not None
+    n_tokens = labels[0].numel() * (math.prod(mc.mesh.shape[ax] for ax in mc.dp_axes)
+                                    if bsplit else 1)
+    return cross_entropy_grid(logits, labels, cfg.final_softcap, vsplit, bsplit, n_tokens, mc)[0]

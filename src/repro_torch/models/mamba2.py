@@ -19,6 +19,8 @@ in the activation dtype. The clips take `core.quant._clip`, whose
 gradient is ``jnp.clip``'s (0.5 on a bound: the diagonal t = j and a
 chunk's last row sit on the upper bound 0). `ssd_sequential` is the
 direct recurrence, the tests' oracle. No kernel of the port runs here.
+`mamba2_block_grid` runs a block on a share of a device grid (see
+`models.zamba2`).
 """
 
 from __future__ import annotations
@@ -29,13 +31,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quant import _clip as _jnp_clip
-from repro_torch.models.layers import dense_init, rms_norm, wide
+from repro_torch.distributed.collectives import axis_index, psum
+from repro_torch.models.layers import dense_init, gather_param, rms_norm, splits_on, wide
 
 __all__ = [
     "mamba2_block_init",
     "ssd_sequential",
     "mamba2_block_apply",
     "mamba2_block_decode",
+    "mamba2_block_grid",
     "init_conv_state",
     "init_ssd_state",
 ]
@@ -161,32 +165,66 @@ def ssd_sequential(xh, a_log, bmat, cmat):
     return torch.stack(ys, dim=1)
 
 
-def _block_pre(p, x, cfg, conv_state=None):
-    """The computation before the SSD: projections, conv and dt."""
+def _channels(cfg, specs, mc, coord):
+    """(first, count) of d_inner at ``coord`` on the grid: its model
+    coordinate's slice where w_x's columns are split over "model", whole
+    heads (w_dt's split with them); all of d_inner where they are not."""
+    ssm = cfg.ssm
+    d_in = ssm.expand * cfg.d_model
+    split = splits_on(specs["w_x"], 1, mc.model_axis)
+    n = d_in // mc.model_size if split else d_in
+    if n % ssm.head_dim or split != splits_on(specs["w_dt"], 1, mc.model_axis):
+        raise NotImplementedError(f"{cfg.name}: {mc.model_size} model shards cut its "
+                                  f"{d_in // ssm.head_dim} heads of {ssm.head_dim}")
+    return (axis_index(mc.mesh, coord, mc.model_axis) * n if split else 0), n
+
+
+def _block_pre(p, x, cfg, conv_state=None, channels=None):
+    """The computation before the SSD: projections, conv and dt. With
+    ``channels`` (first, count): a coordinate of the grid whose w_z / w_x /
+    w_dt / conv_w pieces hold that slice of d_inner (whole heads); the
+    replicated conv_b, dt_bias and A_log are cut to it."""
     ssm = cfg.ssm
     dt_ = x.dtype
+    cut = (lambda t, per=1: t) if channels is None else \
+        (lambda t, per=1: t.narrow(0, channels[0] // per, channels[1] // per))  # noqa: E731
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     z = h @ p["w_z"].to(dt_)
     xc = h @ p["w_x"].to(dt_)
-    xc, new_conv = _causal_conv(xc, p["conv_w"], p["conv_b"], conv_state)
+    xc, new_conv = _causal_conv(xc, p["conv_w"], cut(p["conv_b"]), conv_state)
     bmat = h @ p["w_B"].to(dt_)
     cmat = h @ p["w_C"].to(dt_)
-    v = (h @ p["w_dt"].to(dt_)).to(wide(dt_)) + p["dt_bias"][None, None, :]
+    v = (h @ p["w_dt"].to(dt_)).to(wide(dt_)) + cut(p["dt_bias"], ssm.head_dim)[None, None, :]
     dt = torch.logaddexp(v, torch.zeros_like(v))  # softplus, (B, L, H)
-    a_log = -torch.exp(p["A_log"])[None, None, :] * dt  # <= 0
+    a_log = -torch.exp(cut(p["A_log"], ssm.head_dim))[None, None, :] * dt  # <= 0
     n_heads = xc.shape[-1] // ssm.head_dim
     xh = xc.reshape(*xc.shape[:-1], n_heads, ssm.head_dim)
     xh = xh * dt[..., None].to(dt_)  # fold dt into the input
     return z, xh, a_log, bmat, cmat, new_conv
 
 
+def _gated(p, x, y, xh, z, cfg, channels=None):
+    """y + D x, gated by silu(z) (D cut to ``channels``' heads)."""
+    d_x = xh.reshape(*x.shape[:2], -1)
+    dd = p["D"] if channels is None else \
+        p["D"].narrow(0, channels[0] // cfg.ssm.head_dim, channels[1] // cfg.ssm.head_dim)
+    d = torch.repeat_interleave(dd, cfg.ssm.head_dim)[None, None, :].to(x.dtype)
+    y = y.reshape(*x.shape[:2], -1) + d * d_x
+    return y * F.silu(z)
+
+
 def _block_post(p, x, y, xh, z, cfg):
     """y + D x, the gate, the gated RMSNorm and out_proj, plus the residual."""
-    d_x = xh.reshape(*x.shape[:2], -1)
-    d = torch.repeat_interleave(p["D"], cfg.ssm.head_dim)[None, None, :].to(x.dtype)
-    y = y.reshape(*x.shape[:2], -1) + d * d_x
-    y = rms_norm(y * F.silu(z), p["gn"], cfg.norm_eps)
+    y = rms_norm(_gated(p, x, y, xh, z, cfg), p["gn"], cfg.norm_eps)
     return x + y @ p["out_proj"].to(x.dtype)
+
+
+def _ssd_step(xh, a_log, bmat, cmat, s):
+    """One token of the recurrence: xh (B, 1, H, P), a_log (B, 1, H), bmat
+    / cmat (B, 1, N), s (B, H, N, P) -> (y (B, 1, H, P), the new state)."""
+    a = torch.exp(a_log[:, 0, :]).to(xh.dtype)  # (B, H)
+    s_new = s * a[:, :, None, None] + torch.einsum("bn,bhp->bhnp", bmat[:, 0], xh[:, 0])
+    return torch.einsum("bn,bhnp->bhp", cmat[:, 0], s_new)[:, None], s_new
 
 
 def mamba2_block_apply(p, x, cfg):
@@ -200,10 +238,51 @@ def mamba2_block_apply(p, x, cfg):
 def mamba2_block_decode(p, x, cfg, conv_state, ssd_state):
     """One-token decode. x (B, 1, d); the states carried explicitly."""
     z, xh, a_log, bmat, cmat, new_conv = _block_pre(p, x, cfg, conv_state)
-    a = torch.exp(a_log[:, 0, :]).to(x.dtype)  # (B, H)
-    s_new = ssd_state * a[:, :, None, None] + torch.einsum("bn,bhp->bhnp", bmat[:, 0], xh[:, 0])
-    y = torch.einsum("bn,bhnp->bhp", cmat[:, 0], s_new)[:, None]  # (B, 1, H, P)
+    y, s_new = _ssd_step(xh, a_log, bmat, cmat, ssd_state)
     return _block_post(p, x, y, xh, z, cfg), (new_conv, s_new)
+
+
+def _gated_norm_grid(ys: list, gn: list, cfg, mc) -> list:
+    """The gated RMSNorm of a share: each coordinate's slice of d_inner
+    normalised by the mean square over the WHOLE d_inner, a psum of the
+    slices' sums of squares over "model" (where the slices are whole, the
+    norm itself)."""
+    d_in = cfg.ssm.expand * cfg.d_model
+    y32 = [y.to(wide(y.dtype)) for y in ys]
+    ss = [torch.sum(t * t, dim=-1, keepdim=True) for t in y32]
+    if ys[0].shape[-1] != d_in:
+        ss = psum(ss, mc.model_axis, mc)
+    return [(t * torch.rsqrt(s / d_in + cfg.norm_eps) * (1.0 + g.to(t.dtype))).to(y.dtype)
+            for t, s, g, y in zip(y32, ss, gn, ys)]
+
+
+def mamba2_block_grid(ps, specs, xs, cfg, mc, states=None):
+    """`mamba2_block_apply` (``states`` None: returns each coordinate's
+    final (conv, ssd) states) or `mamba2_block_decode` (one token from
+    ``states``, a (conv, ssd) a coordinate) on a share: w_z, w_x, w_dt and
+    conv_w column-parallel over "model" (each coordinate its d_inner slice,
+    `_channels`), w_B and w_C replicated, the SSD on the local heads, the
+    gated RMSNorm over the whole d_inner (`_gated_norm_grid`), out_proj
+    row-parallel and a psum over "model"."""
+    w = {k: gather_param([p[k] for p in ps], specs[k], mc) for k in ps[0]}
+    gs, gns, new = [], [], []
+    for i, (c, x) in enumerate(zip(mc.coords, xs)):
+        p = {k: t[i] for k, t in w.items()}
+        ch = _channels(cfg, specs, mc, c)
+        conv_s, ssd_s = (None, None) if states is None else states[i]
+        z, xh, a_log, bmat, cmat, new_conv = _block_pre(p, x, cfg, conv_s, ch)
+        if states is None:
+            y, s_new = _ssd_chunked(xh, a_log, bmat, cmat, cfg.ssm.chunk)
+        else:
+            y, s_new = _ssd_step(xh, a_log, bmat, cmat, ssd_s)
+        gs.append(_gated(p, x, y, xh, z, cfg, ch))
+        gns.append(p["gn"].narrow(0, *ch))
+        new.append((new_conv, s_new))
+    gs = _gated_norm_grid(gs, gns, cfg, mc)
+    outs = [g @ w["out_proj"][i].to(x.dtype) for i, (g, x) in enumerate(zip(gs, xs))]
+    if splits_on(specs["out_proj"], 0, mc.model_axis):
+        outs = psum(outs, mc.model_axis, mc)
+    return [x + o for x, o in zip(xs, outs)], new
 
 
 def init_conv_state(cfg, batch: int, device=None) -> torch.Tensor:

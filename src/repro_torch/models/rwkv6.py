@@ -24,10 +24,28 @@ version (`kernels.wkv6`); the backbone trains through the chunked form,
 as the reference's does.
 
 The model API (`init_params`, `forward`, `loss_fn`, `init_cache`,
-`prefill`, `decode_step`) takes the reference's arguments; ``mesh_ctx``
-is accepted and ignored (one card). The reference's ``lax.scan`` over
-the stacked layer axis is a loop over it, and its ``jax.checkpoint`` a
-``torch.utils.checkpoint`` a layer (`ArchConfig.remat`).
+`prefill`, `decode_step`) takes the reference's arguments. The
+reference's ``lax.scan`` over the stacked layer axis is a loop over it,
+and its ``jax.checkpoint`` a ``torch.utils.checkpoint`` a layer
+(`ArchConfig.remat`).
+
+With a ``mesh_ctx`` (`moe.MeshContext` over a `distributed.sharding.Mesh`)
+the step is the reference's sharded one, one share a grid coordinate as
+`models.transformer`'s (a full grid in one process, or with
+``mesh_ctx.coord`` one coordinate's share and its lone collectives): the
+residual stream's batch over the data-parallel axes, replicated over
+"model"; the embedding, the head and the loss over the vocabulary slices
+(`layers.embed_grid`, `head_grid`, `loss_grid`); w_r, w_k, w_v, w_g and
+cm_w_k column-parallel, so each model coordinate runs the time mix and
+the WKV6 recurrence on its heads, with the replicated per-channel leaves
+(decay_base, decay_w2's columns, bonus_u, ln_x) cut to them; w_o
+row-parallel and a psum over "model"; cm_w_v row-parallel, its product
+reduce-scattered onto the columns of cm_w_r the coordinate holds, gated
+there and all-gathered back (`_grid_layer`); the ddlerp LoRA whole; every
+weight all-gathered over its FSDP axes where it is used. The WKV states
+keep their heads over "model" (`sharding.cache_specs`), the token-shift
+carries the hidden layout. Without a ``mesh_ctx`` the one-device step
+runs, unchanged.
 """
 
 from __future__ import annotations
@@ -38,7 +56,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quant import _clip as _jnp_clip
-from repro_torch.models.layers import cross_entropy_loss, dense_init, remat, rms_norm, wide
+from repro_torch.distributed.collectives import all_gather, axis_index, psum, reduce_scatter
+from repro_torch.models.layers import (
+    cross_entropy_loss,
+    dense_init,
+    embed_grid,
+    gather_param,
+    grid_specs,
+    head_grid,
+    logits_grid,
+    loss_grid,
+    remat,
+    rms_norm,
+    splits_on,
+    unstack_specs,
+    wide,
+)
 
 __all__ = [
     "wkv6_chunked",
@@ -254,45 +287,69 @@ def _ddlerp(p, x, xs):
             for i in range(len(_MIX_NAMES))]
 
 
-def _time_mix_pre(p, x, cfg, shift_state=None):
+def _time_mix_pre(p, x, cfg, shift_state=None, channels=None):
+    """The time mix's inputs to the recurrence. ``channels`` (first,
+    count): a coordinate of the grid whose w_r / w_k / w_v / w_g pieces
+    hold those channels (whole heads); the replicated per-channel leaves
+    (the decay's base and second LoRA factor, the bonus) are cut to them."""
     hd = cfg.resolved_head_dim
-    n_heads = cfg.d_model // hd
     dt = x.dtype
-    heads = lambda t: t.reshape(*x.shape[:2], n_heads, hd)  # noqa: E731
+    heads = lambda t: t.reshape(*t.shape[:-1], t.shape[-1] // hd, hd)  # noqa: E731
+    cut = (lambda t, dim: t) if channels is None else \
+        (lambda t, dim: t.narrow(dim, channels[0], channels[1]))  # noqa: E731
     xs = _token_shift(x, shift_state)
     x_w, x_k, x_v, x_r, x_g = _ddlerp(p, x, xs)
     r = heads(x_r @ p["w_r"].to(dt))
     k = heads(x_k @ p["w_k"].to(dt))
     v = heads(x_v @ p["w_v"].to(dt))
     g = F.silu(x_g @ p["w_g"].to(dt))
-    ww = p["decay_base"].to(wide(dt)) + (
-        torch.tanh(x_w @ p["decay_w1"].to(dt)) @ p["decay_w2"].to(dt)
+    ww = cut(p["decay_base"], 0).to(wide(dt)) + (
+        torch.tanh(x_w @ p["decay_w1"].to(dt)) @ cut(p["decay_w2"], 1).to(dt)
     ).to(wide(dt))
     logw = heads(-torch.exp(ww))  # <= 0, per channel
-    u = p["bonus_u"].reshape(n_heads, hd)
+    u = heads(cut(p["bonus_u"], 0))
     return r, k, v, g, logw, u, x[:, -1, :]
 
 
-def _time_mix_post(p, y, g, cfg):
+def _time_mix_post(p, y, g, cfg, channels=None):
+    """The per-head group norm, the gate and ``w_o`` (on a coordinate's
+    ``channels``: its ln_x cut to them, w_o its rows, a partial sum)."""
     b, l = y.shape[:2]
     # per-head group norm, jnp.var's two passes
     y32 = y.to(wide(y.dtype))
     mean = y32.mean(-1, keepdim=True)
     var = torch.square(y32 - mean).mean(-1, keepdim=True)
     yn = (y32 - mean) * torch.rsqrt(var + 64e-5)
-    yn = yn.reshape(b, l, cfg.d_model) * (1.0 + p["ln_x"].to(y32.dtype))
+    ln_x = p["ln_x"] if channels is None else p["ln_x"].narrow(0, *channels)
+    yn = yn.reshape(b, l, -1) * (1.0 + ln_x.to(y32.dtype))
     return (yn.to(g.dtype) * g) @ p["w_o"].to(g.dtype)
 
 
-def _channel_mix(p, x, shift_state=None):
+def _channel_mix_in(p, x, shift_state=None):
+    """The channel mix's key product ``relu(x_k W_k)^2 W_v`` and its gate's
+    input ``x_r W_r`` (on a coordinate: a partial sum over its d_ff slice
+    and its columns of W_r)."""
     dt = x.dtype
     xs = _token_shift(x, shift_state)
     dx = xs - x
     x_k = x + dx * p["cm_mix_k"].to(dt)
     x_r = x + dx * p["cm_mix_r"].to(dt)
     k = torch.square(F.relu(x_k @ p["cm_w_k"].to(dt)))
-    vv = k @ p["cm_w_v"].to(dt)
-    return torch.sigmoid(x_r @ p["cm_w_r"].to(dt)) * vv, x[:, -1, :]
+    return k @ p["cm_w_v"].to(dt), x_r @ p["cm_w_r"].to(dt)
+
+
+def _channel_mix(p, x, shift_state=None):
+    vv, rr = _channel_mix_in(p, x, shift_state)
+    return torch.sigmoid(rr) * vv, x[:, -1, :]
+
+
+def _wkv6_step(r, k, v, logw, u, s):
+    """One token of the recurrence: r / k / v / logw (B, 1, H, P), u (H,
+    P), s (B, H, P, P) -> (y (B, 1, H, P), the new state)."""
+    r1, k1, v1, lw1 = (t[:, 0] for t in (r, k, v, logw))
+    kv = torch.einsum("bhp,bhv->bhpv", k1, v1)
+    y = torch.einsum("bhp,bhpv->bhv", r1, s + u[None, :, :, None].to(r.dtype) * kv)[:, None]
+    return y, s * torch.exp(lw1)[..., None].to(s.dtype) + kv
 
 
 def rwkv6_block_apply(p, x, cfg):
@@ -313,10 +370,7 @@ def rwkv6_block_decode(p, x, cfg, state):
     tm_shift, s, cm_shift = state
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     r, k, v, g, logw, u, tm_new = _time_mix_pre(p, h, cfg, tm_shift)
-    r1, k1, v1, lw1 = (t[:, 0] for t in (r, k, v, logw))
-    kv = torch.einsum("bhp,bhv->bhpv", k1, v1)
-    y = torch.einsum("bhp,bhpv->bhv", r1, s + u[None, :, :, None].to(x.dtype) * kv)[:, None]
-    s_new = s * torch.exp(lw1)[..., None].to(s.dtype) + kv
+    y, s_new = _wkv6_step(r, k, v, logw, u, s)
     x = x + _time_mix_post(p, y, g, cfg)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     cm_out, cm_new = _channel_mix(p, h2, cm_shift)
@@ -362,6 +416,8 @@ def _embed(params, batch, cfg) -> torch.Tensor:
 def forward(params, batch, cfg, mesh_ctx=None):
     """Logits (B, S, V_padded) of ``batch["tokens"]`` (B, S), and the
     reference's zero auxiliary loss."""
+    if mesh_ctx is not None:
+        return _grid_forward(params, batch, cfg, mesh_ctx)
     x = _embed(params, batch, cfg)
     body = remat(lambda p, x: rwkv6_block_apply(p, x, cfg)[0], cfg)
     for i in range(cfg.n_layers):
@@ -372,6 +428,8 @@ def forward(params, batch, cfg, mesh_ctx=None):
 
 
 def loss_fn(params, batch, cfg, mesh_ctx=None):
+    if mesh_ctx is not None:
+        return _grid_loss(params, batch, cfg, mesh_ctx)
     logits, _ = forward(params, batch, cfg, mesh_ctx)
     labels = batch["labels"].to(logits.device)
     return cross_entropy_loss(logits, labels, cfg.final_softcap)
@@ -408,6 +466,8 @@ def _head_last(params, x, cfg) -> torch.Tensor:
 def prefill(params, batch, cfg, mesh_ctx=None, max_len=None):
     """The whole prompt in one pass: (logits at its last position (B, V),
     the cache a `decode_step` continues from)."""
+    if mesh_ctx is not None:
+        return _grid_prefill(params, batch, cfg, mesh_ctx)
     x = _embed(params, batch, cfg)
     states = []
     for i in range(cfg.n_layers):
@@ -420,6 +480,8 @@ def decode_step(params, cache, cache_len, batch, cfg, mesh_ctx=None):
     """One token a sequence (``batch["tokens"]`` (B, 1)) from ``cache``:
     (logits (B, V), the new cache). ``cache_len`` is unused, as in the
     reference (the state is constant in size)."""
+    if mesh_ctx is not None:
+        return _grid_decode(params, cache, batch, cfg, mesh_ctx)
     x = _embed(params, batch, cfg)
     states = []
     for i in range(cfg.n_layers):
@@ -427,3 +489,144 @@ def decode_step(params, cache, cache_len, batch, cfg, mesh_ctx=None):
         x, st = rwkv6_block_decode(_layer(params, i), x, cfg, c)
         states.append(st)
     return _head_last(params, x, cfg), _cache(states)
+
+
+# --------------------------------------------------------------------------
+# the sharded step: one share a grid coordinate (see the module docstring)
+# --------------------------------------------------------------------------
+
+def _channels(cfg, specs, mc, coord):
+    """(first, count) of the time mix's channels at ``coord``: its model
+    coordinate's slice of d_model where w_r's columns are split over
+    "model", whole heads; every channel where they are not."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    if not splits_on(specs["w_r"], 1, mc.model_axis):
+        return 0, d
+    n = d // mc.model_size
+    if n % hd:
+        raise NotImplementedError(f"{cfg.name}: {mc.model_size} model shards cut its "
+                                  f"{d // hd} heads of {hd}")
+    return axis_index(mc.mesh, coord, mc.model_axis) * n, n
+
+
+def _grid_layer(ps, specs, xs, cfg, mc, states=None):
+    """One layer on a share: the time mix on each coordinate's heads
+    (`_channels`), ``w_o`` row-parallel and a psum over "model"; the
+    channel mix with ``cm_w_k`` column- and ``cm_w_v`` row-parallel, its
+    product reduce-scattered over "model" onto the columns of ``cm_w_r``
+    the coordinate holds, gated there and all-gathered back (where
+    ``cm_w_r`` is not split, a psum and the whole gate). ``states`` None:
+    the whole sequence, returning each coordinate's final (tm_shift, wkv,
+    cm_shift); else one token from them."""
+    w = {k: gather_param([p[k] for p in ps], specs[k], mc) for k in ps[0]}
+    pieces = [{k: t[i] for k, t in w.items()} for i in range(len(xs))]
+    states = states or [(None, None, None)] * len(xs)
+    model = mc.model_axis
+    outs, tms, wkvs = [], [], []
+    for c, p, x, (tm, s, _) in zip(mc.coords, pieces, xs, states):
+        ch = _channels(cfg, specs, mc, c)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        r, k, v, g, logw, u, tm_new = _time_mix_pre(p, h, cfg, tm, ch)
+        if s is None:
+            y, s_new = wkv6_chunked(r, k, v, logw, u, cfg.ssm.chunk)
+        else:
+            y, s_new = _wkv6_step(r, k, v, logw, u, s)
+        outs.append(_time_mix_post(p, y, g, cfg, ch))
+        tms.append(tm_new)
+        wkvs.append(s_new)
+    if splits_on(specs["w_o"], 0, model):
+        outs = psum(outs, model, mc)
+    xs = [x + o for x, o in zip(xs, outs)]
+    hs = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    vvs, rrs = zip(*(_channel_mix_in(p, h, st[2]) for p, h, st in zip(pieces, hs, states)))
+    ff_split = splits_on(specs["cm_w_k"], 1, model)
+    if splits_on(specs["cm_w_r"], 1, model):
+        n = rrs[0].shape[-1]
+        if ff_split:
+            vvs = reduce_scatter(list(vvs), model, mc, 2)
+        else:
+            vvs = [vv.narrow(2, axis_index(mc.mesh, c, model) * n, n)
+                   for vv, c in zip(vvs, mc.coords)]
+        cms = all_gather([torch.sigmoid(rr) * vv for rr, vv in zip(rrs, vvs)], model, mc, 2)
+    else:
+        if ff_split:
+            vvs = psum(list(vvs), model, mc)
+        cms = [torch.sigmoid(rr) * vv for rr, vv in zip(rrs, vvs)]
+    return [x + cm for x, cm in zip(xs, cms)], \
+        [(tm, s, h[:, -1, :]) for tm, s, h in zip(tms, wkvs, hs)]
+
+
+def _grid_trunk(params, batch, cfg, mc, keep_states=False):
+    """The embedding and every layer on the grid: (shares of the final
+    hidden state, the parameter shares, the batch shares, the specs,
+    each layer's states a coordinate where ``keep_states``)."""
+    from repro_torch.distributed.sharding import to_shares
+
+    n_rows = batch["tokens"].shape[0]
+    cache = init_cache(cfg, n_rows, 1, device="meta") if keep_states else None
+    specs = grid_specs(mc, params, batch, cache, n_rows)
+    shares = to_shares(params, specs["params"], mc)
+    bs = to_shares(batch, specs["batch"], mc)
+    pspecs = specs["params"]
+    xs = embed_grid([p["embed"] for p in shares], pspecs["embed"], [b["tokens"] for b in bs],
+                    cfg.activation_dtype, mc)
+    lspecs = unstack_specs(shares[0]["layers"], pspecs["layers"])
+    body = (lambda ps, xs: _grid_layer(ps, lspecs, xs, cfg, mc)[0]) if not keep_states else None
+    if body is not None:
+        body = remat(body, cfg)
+    states = []
+    for i in range(cfg.n_layers):
+        ps = [_layer(p, i) for p in shares]
+        if keep_states:
+            xs, st = _grid_layer(ps, lspecs, xs, cfg, mc)
+            states.append(st)
+        else:
+            xs = body(ps, xs)
+    return xs, shares, bs, specs, states
+
+
+def _grid_forward(params, batch, cfg, mc):
+    xs, shares, _, specs, _ = _grid_trunk(params, batch, cfg, mc)
+    return logits_grid(shares, specs, xs, cfg, mc), torch.zeros((), dtype=torch.float32,
+                                                                device=xs[0].device)
+
+
+def _grid_loss(params, batch, cfg, mc):
+    xs, shares, bs, specs, _ = _grid_trunk(params, batch, cfg, mc)
+    logits, vsplit = head_grid(shares, specs["params"], xs, cfg, mc)
+    return loss_grid(logits, vsplit, bs, specs["batch"], cfg, mc)
+
+
+def _grid_out(shares, specs, xs, states, cfg, mc):
+    """(the logits of the last position, the caches) put back together
+    from the grid's shares (a coordinate's own pieces with ``coord``)."""
+    from repro_torch.distributed.sharding import from_shares
+
+    logits = logits_grid(shares, specs, xs, cfg, mc, last=True)
+    caches = [_cache([layer[i] for layer in states]) for i in range(len(xs))]
+    return logits, from_shares(caches, specs["cache"], mc)
+
+
+def _grid_prefill(params, batch, cfg, mc):
+    xs, shares, _, specs, states = _grid_trunk(params, batch, cfg, mc, keep_states=True)
+    return _grid_out(shares, specs, xs, states, cfg, mc)
+
+
+def _grid_decode(params, cache, batch, cfg, mc):
+    from repro_torch.distributed.sharding import to_shares
+
+    n_rows = batch["tokens"].shape[0]
+    specs = grid_specs(mc, params, batch, cache, n_rows)
+    shares = to_shares(params, specs["params"], mc)
+    bs = to_shares(batch, specs["batch"], mc)
+    cs = to_shares(cache, specs["cache"], mc)
+    pspecs = specs["params"]
+    xs = embed_grid([p["embed"] for p in shares], pspecs["embed"], [b["tokens"] for b in bs],
+                    cfg.activation_dtype, mc)
+    lspecs = unstack_specs(shares[0]["layers"], pspecs["layers"])
+    states = []
+    for i in range(cfg.n_layers):
+        xs, st = _grid_layer([_layer(p, i) for p in shares], lspecs, xs, cfg, mc,
+                             [(c["tm_shift"][i], c["wkv"][i], c["cm_shift"][i]) for c in cs])
+        states.append(st)
+    return _grid_out(shares, specs, xs, states, cfg, mc)

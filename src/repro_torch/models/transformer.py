@@ -50,18 +50,20 @@ from repro_torch.models.attention import (
     decode_attn_grid,
 )
 from repro_torch.models.layers import (
-    cross_entropy_grid,
     cross_entropy_loss,
     dense_init,
     embed_grid,
-    gather_param,
+    grid_specs,
+    head_grid,
+    logits_grid,
+    loss_grid,
     mlp_apply,
     mlp_grid,
     mlp_init,
     remat,
     rms_norm,
     softcap,
-    splits_on,
+    unstack_specs,
 )
 from repro_torch.distributed.collectives import axes_of
 from repro_torch.models.moe import moe_apply, moe_grid, moe_init
@@ -360,36 +362,11 @@ def decode_step(params, cache, cache_len, batch, cfg, mesh_ctx=None):
 # --------------------------------------------------------------------------
 
 def _specs(mc, params, batch, cache=None, batch_size=None, max_len=None, cfg=None) -> dict:
-    """The specs of the step's trees: ``mc.specs`` for a coordinate's share
-    (computed from the whole trees by its caller), else from the whole
-    trees here; a prefill's cache specs from the cache it will write."""
-    if mc.coord is not None:
-        return mc.specs
-    from repro_torch.distributed.sharding import (batch_specs, cache_specs, context_rules,
-                                                  param_specs)
-
-    rules = context_rules(mc)
-    out = {"params": param_specs(params, rules), "batch": batch_specs(batch, rules)}
-    if cache is None and max_len is not None:
+    """`layers.grid_specs`; a prefill's cache specs from the cache it will
+    write."""
+    if cache is None and max_len is not None and mc.coord is None:
         cache = init_cache(cfg, batch_size, max_len, device="meta")
-    if cache is not None:
-        out["cache"] = cache_specs(cache, rules, batch_size)
-    return out
-
-
-def _step_specs(tree, specs):
-    """A stack's specs without its layer axis. A layer axis the rules split
-    (a shared expert's stack read as an expert axis, where the steps
-    divide the model axis: no config on the production meshes) would need
-    every step gathered; it raises."""
-    from repro_torch.distributed.sharding import P
-
-    def one(t, spec):
-        if spec[0] is not None:
-            raise NotImplementedError(f"a stacked leaf's layer axis split over {spec[0]!r}")
-        return P(*spec[1:])
-
-    return tree_map(one, tree, specs)
+    return grid_specs(mc, params, batch, cache, batch_size)
 
 
 def _embed_grid(shares, specs, bs, cfg, mc) -> list:
@@ -403,17 +380,6 @@ def _embed_grid(shares, specs, bs, cfg, mc) -> list:
         f = float(torch.sqrt(torch.tensor(cfg.d_model * 1.0, dtype=torch.float32)).to(dt))
         xs = [x * f for x in xs]
     return xs
-
-
-def _head_grid(shares, specs, xs, cfg, mc):
-    """(logits a coordinate, whether the vocabulary is split over "model")."""
-    hs = [rms_norm(x, p["final_norm"], cfg.norm_eps) for p, x in zip(shares, xs)]
-    if cfg.tie_embeddings:
-        w = gather_param([p["embed"] for p in shares], specs["embed"], mc)
-        return [h @ wi.T.to(h.dtype) for h, wi in zip(hs, w)], \
-            splits_on(specs["embed"], 0, mc.model_axis)
-    w = gather_param([p["head"] for p in shares], specs["head"], mc)
-    return [h @ wi.to(h.dtype) for h, wi in zip(hs, w)], splits_on(specs["head"], 1, mc.model_axis)
 
 
 def _block_grid(ps, specs, xs, cfg, kind, mc, full_kv=False):
@@ -456,7 +422,7 @@ def _grid_trunk(params, batch, cfg, mc, on_layer=None):
         if on_layer:
             on_layer("global", kvs, i)
     layers = [p["layers"] for p in shares]
-    step_specs = _step_specs(layers[0], ps_specs["layers"])
+    step_specs = unstack_specs(layers[0], ps_specs["layers"])
     slots = _pattern_slots(cfg)
 
     def body(step_ps, xs, aux):
@@ -476,33 +442,22 @@ def _grid_trunk(params, batch, cfg, mc, on_layer=None):
 
 
 def _grid_forward(params, batch, cfg, mc):
-    from repro_torch.distributed.sharding import P, from_shares
-
-    xs, aux, shares, bs, specs = _grid_trunk(params, batch, cfg, mc)
-    logits, vsplit = _head_grid(shares, specs["params"], xs, cfg, mc)
-    bspec = next(iter(specs["batch"].values()))
-    spec = P(bspec[0], None, mc.model_axis if vsplit else None)
-    return from_shares(logits, spec, mc), aux[0]
+    xs, aux, shares, _, specs = _grid_trunk(params, batch, cfg, mc)
+    return logits_grid(shares, specs, xs, cfg, mc), aux[0]
 
 
 def _grid_loss(params, batch, cfg, mc, aux_weight):
-    from repro_torch.distributed.collectives import axes_size
-
     xs, aux, shares, bs, specs = _grid_trunk(params, batch, cfg, mc)
-    logits, vsplit = _head_grid(shares, specs["params"], xs, cfg, mc)
-    labels = [b["labels"] for b in bs]
-    bsplit = specs["batch"]["labels"][0] is not None
-    n_tokens = labels[0].numel() * (axes_size(mc.mesh, mc.dp_axes) if bsplit else 1)
-    ce = cross_entropy_grid(logits, labels, cfg.final_softcap, vsplit, bsplit, n_tokens, mc)
-    return ce[0] + aux_weight * aux[0]
+    logits, vsplit = head_grid(shares, specs["params"], xs, cfg, mc)
+    return loss_grid(logits, vsplit, bs, specs["batch"], cfg, mc) + aux_weight * aux[0]
 
 
-def _seq_entry(spec):
+def seq_entry(spec):
     """The cache leaf's sequence-axis entry (dims (..., B, S, KV, D))."""
     return spec[len(spec) - 3] if len(spec) >= 3 else None
 
 
-def _to_cache(kvs, cfg, kind, max_len, spec, mc) -> list:
+def kv_cache_share(kvs, cfg, kind, max_len, spec, mc) -> list:
     """A block's (k, v) share in its cache layout: the slot's ring or
     padded layout on the whole sequence, then the coordinate's slice of
     the sequence axes; k / v whose kv heads are split over "model" swap
@@ -510,7 +465,7 @@ def _to_cache(kvs, cfg, kind, max_len, spec, mc) -> list:
     where the sequence does not take "model"."""
     from repro_torch.distributed.collectives import all_gather, all_to_all, axes_size, axis_index
 
-    seq = axes_of(_seq_entry(spec))
+    seq = axes_of(seq_entry(spec))
     local_heads = kvs[0][0].shape[2] != cfg.n_kv_heads
     out = {"k": [], "v": []}
     for name, pos in (("k", 0), ("v", 1)):
@@ -546,28 +501,25 @@ def _grid_prefill(params, batch, cfg, mc, max_len):
 
     def on_layer(kind, kvs, where):
         if isinstance(where, int):  # a dense-prefix layer
-            dense.append(_to_cache(kvs, cfg, kind, max_len, cspecs["dense_prefix"][where]["k"],
+            dense.append(kv_cache_share(kvs, cfg, kind, max_len, cspecs["dense_prefix"][where]["k"],
                                    mc))
         else:
             spec = cspecs["layers"][where]["k"]
-            per_slot[where].append(_to_cache(kvs, cfg, kind, max_len, P(*spec[1:]), mc))
+            per_slot[where].append(kv_cache_share(kvs, cfg, kind, max_len, P(*spec[1:]), mc))
 
     xs, _, shares, bs, specs = _grid_trunk(params, batch, cfg, mc, on_layer)
-    logits, vsplit = _head_grid(shares, specs["params"], [x[:, -1:, :] for x in xs], cfg, mc)
-    logits = [softcap(lg[:, 0, :], cfg.final_softcap) for lg in logits]
+    logits = logits_grid(shares, specs, xs, cfg, mc, last=True)
     caches = []
     for i in range(len(xs)):
         c = {"layers": {name: _stack_kv([kv[i] for kv in kvs]) for name, kvs in per_slot.items()}}
         if dense:
             c["dense_prefix"] = [d[i] for d in dense]
         caches.append(c)
-    bspec = next(iter(specs["batch"].values()))
-    lspec = P(bspec[0], mc.model_axis if vsplit else None)
-    return from_shares(logits, lspec, mc), from_shares(caches, cspecs, mc)
+    return logits, from_shares(caches, cspecs, mc)
 
 
 def _grid_decode(params, cache, cache_len, batch, cfg, mc):
-    from repro_torch.distributed.sharding import P, from_shares, to_shares
+    from repro_torch.distributed.sharding import from_shares, to_shares
 
     n_rows = next(iter(batch.values())).shape[0]
     specs = _specs(mc, params, batch, cache, batch_size=n_rows)
@@ -582,7 +534,7 @@ def _grid_decode(params, cache, cache_len, batch, cfg, mc):
         hs = [rms_norm(x, p["ln1"], cfg.norm_eps) for p, x in zip(ps, xs)]
         attn, new = decode_attn_grid(
             [p["attn"] for p in ps], pspec["attn"], hs, cfg, [(c["k"], c["v"]) for c in cc],
-            axes_of(_seq_entry(cspec["k"])), cache_len,
+            axes_of(seq_entry(cspec["k"])), cache_len,
             ring=(kind == "local" and cfg.sliding_window is not None), mc=mc)
         if cfg.post_norms:
             attn = [rms_norm(a, p["ln1_post"], cfg.norm_eps) for p, a in zip(ps, attn)]
@@ -604,8 +556,8 @@ def _grid_decode(params, cache, cache_len, batch, cfg, mc):
                               xs, "global")
         new_dense.append(c_new)
     layers = [p["layers"] for p in shares]
-    step_specs = _step_specs(layers[0], ps_specs["layers"])
-    step_cspecs = _step_specs(cs[0]["layers"], cspecs["layers"])
+    step_specs = unstack_specs(layers[0], ps_specs["layers"])
+    step_cspecs = unstack_specs(cs[0]["layers"], cspecs["layers"])
     slots = _pattern_slots(cfg)
     per_slot = {name: [] for name, _ in slots}
     for i in range(_n_steps(cfg)):
@@ -615,14 +567,11 @@ def _grid_decode(params, cache, cache_len, batch, cfg, mc):
                                   [_step(c["layers"][slot_name], i) for c in cs],
                                   step_cspecs[slot_name], xs, kind)
             per_slot[slot_name].append(c_new)
-    logits, vsplit = _head_grid(shares, ps_specs, xs, cfg, mc)
-    logits = [softcap(lg[:, 0, :], cfg.final_softcap) for lg in logits]
+    logits = logits_grid(shares, specs, xs, cfg, mc, last=True)
     caches = []
     for k in range(n):
         c = {"layers": {name: _stack_kv([kv[k] for kv in kvs]) for name, kvs in per_slot.items()}}
         if new_dense:
             c["dense_prefix"] = [d[k] for d in new_dense]
         caches.append(c)
-    bspec = next(iter(specs["batch"].values()))
-    lspec = P(bspec[0], mc.model_axis if vsplit else None)
-    return from_shares(logits, lspec, mc), from_shares(caches, cspecs, mc)
+    return logits, from_shares(caches, cspecs, mc)

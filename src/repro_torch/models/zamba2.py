@@ -16,7 +16,18 @@ positions), though the parameters are shared.
 The reference's per-group ``lax.scan`` over the stacked layers is a loop
 over them; its ``jax.checkpoint`` wraps the Mamba body only
 (`layers.remat` a layer), the shared applications are not recomputed.
-``mesh_ctx`` is accepted and ignored (one card).
+
+With a ``mesh_ctx`` the step is the reference's sharded one, one share a
+grid coordinate as `models.transformer`'s: the mamba layers on
+`mamba2.mamba2_block_grid` (w_z, w_x, w_dt and conv_w column-parallel over
+"model", the SSD on each coordinate's heads, the gated RMSNorm over the
+whole d_inner by a psum of the squares, out_proj row-parallel); a shared
+block's in_proj column-parallel and its output all-gathered, then
+`attention.attn_grid` / `decode_attn_grid` and `layers.mlp_grid` on the
+concat's projection. The conv carries keep d_inner over "model", the SSD
+states their heads, the shared applications' k / v caches their
+sequence (`sharding.cache_specs`). Without a ``mesh_ctx`` the one-device
+step runs, unchanged.
 
 API (shared by every backbone through `models.registry`):
     init_params(gen, cfg, mesh_ctx, device)      -> params
@@ -34,16 +45,33 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from repro_torch.distributed.collectives import all_gather
 from repro_torch.models import mamba2 as M2
-from repro_torch.models.attention import attn_apply, attn_init, decode_attn_apply
+from repro_torch.models.attention import (
+    attn_apply,
+    attn_grid,
+    attn_init,
+    decode_attn_apply,
+    decode_attn_grid,
+)
 from repro_torch.models.layers import (
     cross_entropy_loss,
     dense_init,
+    embed_grid,
+    gather_param,
+    grid_specs,
+    head_grid,
+    logits_grid,
+    loss_grid,
     mlp_apply,
+    mlp_grid,
     mlp_init,
     remat,
     rms_norm,
+    splits_on,
+    unstack_specs,
 )
+from repro_torch.models.transformer import kv_cache_share, seq_entry
 from repro_torch.training.optimizer import tree_map
 
 __all__ = ["n_shared_applications", "init_params", "forward", "loss_fn", "init_cache",
@@ -145,6 +173,8 @@ def _head(params, x, cfg) -> torch.Tensor:
 def forward(params, batch, cfg, mesh_ctx=None):
     """Logits (B, S, V_padded) of ``batch["tokens"]`` (B, S), and the
     reference's zero auxiliary loss."""
+    if mesh_ctx is not None:
+        return _grid_forward(params, batch, cfg, mesh_ctx)
     x = _embed(params, batch, cfg)
     emb = x
     body = remat(lambda p, x: M2.mamba2_block_apply(p, x, cfg)[0], cfg)
@@ -156,6 +186,8 @@ def forward(params, batch, cfg, mesh_ctx=None):
 
 
 def loss_fn(params, batch, cfg, mesh_ctx=None):
+    if mesh_ctx is not None:
+        return _grid_loss(params, batch, cfg, mesh_ctx)
     logits, _ = forward(params, batch, cfg, mesh_ctx)
     return cross_entropy_loss(logits, batch["labels"].to(logits.device), cfg.final_softcap)
 
@@ -185,6 +217,8 @@ def prefill(params, batch, cfg, mesh_ctx=None, max_len=None):
     """Run the prompt: (logits at its last position (B, V), the cache a
     `decode_step` continues from, each application's K / V zero-padded to
     ``max_len`` (default: the prompt's length))."""
+    if mesh_ctx is not None:
+        return _grid_prefill(params, batch, cfg, mesh_ctx, max_len)
     x = _embed(params, batch, cfg)
     emb = x
     max_len = max_len or x.shape[1]
@@ -211,6 +245,8 @@ def decode_step(params, cache, cache_len, batch, cfg, mesh_ctx=None):
     holding ``cache_len`` tokens (an int, or a 0-d integer tensor): the
     current token's embedding is re-injected at every shared block.
     Returns (logits (B, V), the new cache)."""
+    if mesh_ctx is not None:
+        return _grid_decode(params, cache, cache_len, batch, cfg, mesh_ctx)
     x = _embed(params, batch, cfg)
     emb = x
     if torch.is_tensor(cache_len):
@@ -229,3 +265,144 @@ def decode_step(params, cache, cache_len, batch, cfg, mesh_ctx=None):
     new_cache = {"shared_kv": {"k": torch.stack(ks), "v": torch.stack(vs)},
                  "conv": torch.stack(convs), "ssd": torch.stack(ssds)}
     return _head(params, x, cfg)[:, 0, :], new_cache
+
+
+# --------------------------------------------------------------------------
+# the sharded step: one share a grid coordinate (see the module docstring)
+# --------------------------------------------------------------------------
+
+def _shared_grid(ps, specs, xs, embs, cfg, mc, full_kv=False, caches=None, seq_axes=(),
+                 cache_len=None):
+    """One shared-block application on a share: ``in_proj`` column-parallel
+    over "model" and its output all-gathered (the attention's input is
+    whole, as the residual stream), then `attention.attn_grid` (the whole
+    sequence: returns each coordinate's (k, v), every kv head with
+    ``full_kv``) or `attention.decode_attn_grid` against ``caches`` (one
+    (k, v) a coordinate, the sequence split over ``seq_axes``: returns the
+    new caches), and `layers.mlp_grid`."""
+    w = gather_param([p["in_proj"] for p in ps], specs["in_proj"], mc)
+    hs = [rms_norm(torch.cat([x, e], dim=-1), p["ln1"], cfg.norm_eps) @ wi.to(x.dtype)
+          for p, x, e, wi in zip(ps, xs, embs, w)]
+    if splits_on(specs["in_proj"], 1, mc.model_axis):
+        hs = all_gather(hs, mc.model_axis, mc, 2)
+    aps = [p["attn"] for p in ps]
+    if caches is None:
+        attn, kvs = attn_grid(aps, specs["attn"], hs, cfg, None, mc, full_kv)
+    else:
+        attn, kvs = decode_attn_grid(aps, specs["attn"], hs, cfg, caches, seq_axes, cache_len,
+                                     mc=mc)
+    xs = [x + a for x, a in zip(xs, attn)]
+    h2 = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    return [x + f for x, f in zip(xs, mlp_grid([p["mlp"] for p in ps], specs["mlp"], h2,
+                                                cfg.mlp_act, mc))], kvs
+
+
+def _grid_in(params, batch, cfg, mc, cache=None):
+    """(parameter shares, batch shares, specs, embedded tokens a
+    coordinate) of the grid; ``cache`` a whole cache (or its ``meta``
+    stand-in) gives the specs its "cache"."""
+    from repro_torch.distributed.sharding import to_shares
+
+    specs = grid_specs(mc, params, batch, cache, batch["tokens"].shape[0])
+    shares = to_shares(params, specs["params"], mc)
+    bs = to_shares(batch, specs["batch"], mc)
+    xs = embed_grid([p["embed"] for p in shares], specs["params"]["embed"],
+                    [b["tokens"] for b in bs], cfg.activation_dtype, mc)
+    return shares, bs, specs, xs
+
+
+def _grid_trunk(params, batch, cfg, mc, max_len=None):
+    """Every shared application and mamba layer on the grid: (shares of the
+    final hidden state, the parameter shares, the batch shares, the
+    specs, (each application's k / v and each layer's states a
+    coordinate, empty unless ``max_len`` is given: a prefill))."""
+    from repro_torch.distributed.sharding import P
+
+    keep = max_len is not None
+    cache = init_cache(cfg, batch["tokens"].shape[0], max_len, device="meta") if keep else None
+    shares, bs, specs, xs = _grid_in(params, batch, cfg, mc, cache)
+    embs = xs
+    pspecs = specs["params"]
+    mspecs = unstack_specs(shares[0]["mamba"], pspecs["mamba"])
+    body = remat(lambda ps, xs: M2.mamba2_block_grid(ps, mspecs, xs, cfg, mc)[0], cfg)
+    kvs, states = [], []
+    for gi, (start, length) in enumerate(_groups(cfg)):
+        j = gi % cfg.n_shared_blocks
+        xs, kv = _shared_grid([p["shared"][j] for p in shares], pspecs["shared"][j], xs, embs,
+                              cfg, mc, full_kv=keep)
+        if keep:
+            kspec = P(*specs["cache"]["shared_kv"]["k"][1:])
+            kvs.append(kv_cache_share(kv, cfg, "global", max_len, kspec, mc))
+        for i in range(start, start + length):
+            ps = [_layer(p, i) for p in shares]
+            if keep:
+                xs, st = M2.mamba2_block_grid(ps, mspecs, xs, cfg, mc)
+                states.append(st)
+            else:
+                xs = body(ps, xs)
+    return xs, shares, bs, specs, (kvs, states)
+
+
+def _stack_cache(kvs, states) -> Params:
+    """A coordinate's cache: each application's {"k", "v"} and each mamba
+    layer's (conv, ssd), stacked."""
+    return {"shared_kv": {"k": torch.stack([kv["k"] for kv in kvs]),
+                          "v": torch.stack([kv["v"] for kv in kvs])},
+            "conv": torch.stack([st[0] for st in states]),
+            "ssd": torch.stack([st[1] for st in states])}
+
+
+def _grid_forward(params, batch, cfg, mc):
+    xs, shares, _, specs, _ = _grid_trunk(params, batch, cfg, mc)
+    return logits_grid(shares, specs, xs, cfg, mc), torch.zeros((), dtype=torch.float32,
+                                                                device=xs[0].device)
+
+
+def _grid_loss(params, batch, cfg, mc):
+    xs, shares, bs, specs, _ = _grid_trunk(params, batch, cfg, mc)
+    logits, vsplit = head_grid(shares, specs["params"], xs, cfg, mc)
+    return loss_grid(logits, vsplit, bs, specs["batch"], cfg, mc)
+
+
+def _grid_out(shares, specs, xs, kvs, states, cfg, mc):
+    """(the logits of the last position, the caches) put back together
+    from the grid's shares (a coordinate's own pieces with ``coord``): each
+    application's k / v and each layer's states a coordinate, stacked once
+    the logits are out."""
+    from repro_torch.distributed.sharding import from_shares
+
+    logits = logits_grid(shares, specs, xs, cfg, mc, last=True)
+    caches = [_stack_cache([kv[k] for kv in kvs], [st[k] for st in states])
+              for k in range(len(xs))]
+    return logits, from_shares(caches, specs["cache"], mc)
+
+
+def _grid_prefill(params, batch, cfg, mc, max_len):
+    max_len = max_len or batch["tokens"].shape[1]
+    xs, shares, _, specs, (kvs, states) = _grid_trunk(params, batch, cfg, mc, max_len)
+    return _grid_out(shares, specs, xs, kvs, states, cfg, mc)
+
+
+def _grid_decode(params, cache, cache_len, batch, cfg, mc):
+    from repro_torch.distributed.collectives import axes_of
+    from repro_torch.distributed.sharding import P, to_shares
+
+    shares, _, specs, xs = _grid_in(params, batch, cfg, mc, cache)
+    embs = xs
+    cs = to_shares(cache, specs["cache"], mc)
+    pspecs = specs["params"]
+    mspecs = unstack_specs(shares[0]["mamba"], pspecs["mamba"])
+    seq_axes = axes_of(seq_entry(P(*specs["cache"]["shared_kv"]["k"][1:])))
+    kvs, states = [], []
+    for gi, (start, length) in enumerate(_groups(cfg)):
+        j = gi % cfg.n_shared_blocks
+        xs, new = _shared_grid([p["shared"][j] for p in shares], pspecs["shared"][j], xs, embs,
+                               cfg, mc, caches=[(c["shared_kv"]["k"][gi], c["shared_kv"]["v"][gi])
+                                                for c in cs],
+                               seq_axes=seq_axes, cache_len=cache_len)
+        kvs.append([{"k": k, "v": v} for k, v in new])
+        for i in range(start, start + length):
+            xs, st = M2.mamba2_block_grid([_layer(p, i) for p in shares], mspecs, xs, cfg, mc,
+                                          [(c["conv"][i], c["ssd"][i]) for c in cs])
+            states.append(st)
+    return _grid_out(shares, specs, xs, kvs, states, cfg, mc)

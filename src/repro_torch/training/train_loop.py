@@ -7,9 +7,9 @@ the loss the mean of the microbatches' losses), a schedule-driven
 learning rate, `adamw_update` with its global-norm clip, and the
 metrics ``loss`` and ``grad_norm``. The step runs on one device; with
 sharding ``rules`` (`distributed.sharding.ShardingRules` over a device
-grid) the backbone gets `make_mesh_context(rules)`: the transformer runs
-the reference's sharded step, one share a grid coordinate on the grid's
-devices, on the whole parameters (whose gradients are the one-device
+grid) the backbone gets `make_mesh_context(rules)`: each backbone (the
+transformer, rwkv6, zamba2) runs the reference's sharded step, one share
+a grid coordinate on the grid's devices, on the whole parameters (whose gradients are the one-device
 step's). With ``coord`` as well the step is that coordinate's share
 alone: parameters, AdamW moments and batch are its pieces
 (`sharding.local_shapes` of `param_specs`, `opt_state_specs`,

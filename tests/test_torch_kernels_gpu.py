@@ -1509,6 +1509,50 @@ def test_zamba2_train_step_and_decode_on_the_card_equal_the_cpus(dev):
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_ssm_grid_on_the_card_equals_the_cpus(dev, arch):
+    """rwkv6's and zamba2's sharded steps on a (2, 2) grid of the card
+    (reduced, float32) against the same grid on the CPU: one train step's
+    loss within 1e-5 and grad_norm within 1e-4 of the CPU's, then a prefill
+    and two decode steps (logits within 1e-4 of max |logit|); no kernel of
+    the port launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh, ShardingRules, make_mesh_context
+    from repro_torch.models.registry import get_backbone
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state, tree_map
+    from repro_torch.training.train_loop import TrainConfig, build_train_step, lm_batches
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    backbone = get_backbone(cfg)
+    params = backbone.init_params(torch.Generator().manual_seed(9), cfg, device="cpu")
+    batch = next(lm_batches(cfg.vocab, 1, batch=4, seq=64))
+    out = {}
+    build.launches.clear()
+    for d in (dev, torch.device("cpu")):
+        rules = ShardingRules(mesh=Mesh((2, 2), ("data", "model"), d))
+        mc = make_mesh_context(rules)
+        p = tree_map(lambda t, d=d: t.to(d), params)
+        step = build_train_step(cfg, TrainConfig(AdamWConfig(lr=3e-3)), d, rules)
+        _, _, m = step(p, init_opt_state(p, AdamWConfig(lr=3e-3)), batch)
+        toks = batch["tokens"].to(d)
+        with torch.no_grad():
+            _, cache = backbone.prefill(p, {"tokens": toks[:, :48]}, cfg, mc, max_len=56)
+            logits, cache = backbone.decode_step(p, cache, torch.tensor(48, device=d),
+                                                 {"tokens": toks[:, 48:49]}, cfg, mc)
+            logits2, _ = backbone.decode_step(p, cache, torch.tensor(49, device=d),
+                                              {"tokens": toks[:, 49:50]}, cfg, mc)
+        out[d.type] = (m, logits, logits2)
+    assert not build.launches
+    (m, logits, logits2), (cm, clogits, clogits2) = out["cuda"], out["cpu"]
+    assert abs(float(m["loss"]) - float(cm["loss"])) <= 1e-5
+    assert abs(float(m["grad_norm"]) / float(cm["grad_norm"]) - 1) <= 1e-4
+    for got, want in ((logits, clogits), (logits2, clogits2)):
+        assert got.is_cuda
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 @pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-3b-a800m"])
 def test_transformer_train_step_and_decode_on_the_card_equal_the_cpus(dev, arch):
     """The reduced transformer in float32 (qwen3: qk-norm, GQA, a tied

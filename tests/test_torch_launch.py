@@ -234,11 +234,34 @@ def test_hillclimb_cell_b_moves_the_tokens_not_the_banks(tmp_path, capsys, monke
     assert b1["wire_bytes"] < b0["wire_bytes"]
 
 
+@pytest.mark.parametrize("cell,names,d_model", [
+    ("A", ("A0_baseline", "A1_headpad", "A2_flash", "A3_dots"), 1024),
+    ("C", ("C0_baseline", "C1_dots", "C2_chunk256", "C3_chunk64"), 256),
+    ("kimi_fit", ("K0_baseline", "K1_flash"), 1024),
+])
+def test_hillclimb_cells_trace_a_device_of_the_pod(cell, names, d_model, tmp_path, monkeypatch):
+    """Cells A, C and the kimi fit trace a device's share of the (16, 16)
+    mesh as cell B does (reduced, d_model 1024; rwkv6's 256: one head of
+    16 a model coordinate): every JSON's mesh is 16x16 and its chips 256.
+    Cell A's padding of musicgen's heads splits them over the model axis,
+    so its device runs fewer attention FLOPs."""
+    _reduced_configs(monkeypatch, d_model=d_model, d_expert=512)
+    assert hillclimb.main(["--cell", cell, "--out", str(tmp_path), "--device", "cpu"]) == 0
+    reports = {n: json.loads((tmp_path / f"{n}.json").read_text()) for n in names}
+    for r in reports.values():
+        assert (r["mesh"], r["chips"]) == ("16x16", 256)
+        assert r["collective_s"] > 0 and r["peak_bytes_per_device"] > 0
+    if cell == "A":
+        assert reports["A1_headpad"]["hlo_flops"] < reports["A0_baseline"]["hlo_flops"]
+
+
 def test_the_command_line_traces_a_device_of_two_pods(tmp_path, capsys, monkeypatch):
     """``--multi-pod``: coordinate (0, 0, 0)'s share of the (2, 16, 16)
     mesh, 512 chips, a nonzero collective term over the network (a
     16-way "model" group spans two nodes of 8); the file carries the
-    mesh's name; on a mesh the rwkv6 / zamba2 backbones wait."""
+    mesh's name; the rwkv6 and zamba2 backbones trace a device's share
+    too (at d_model 1024: 64 heads of 16, 128 SSD heads of 16, whole
+    heads on each of 16 model coordinates)."""
     _reduced_configs(monkeypatch)
     assert dryrun.main(["--arch", "qwen3-4b", "--shape", "decode_32k", "--multi-pod",
                         "--device", "cpu", "--out", str(tmp_path)]) == 0
@@ -249,8 +272,10 @@ def test_the_command_line_traces_a_device_of_two_pods(tmp_path, capsys, monkeypa
     assert report["collective_s"] > 0 and report["wire_bytes"] > 0
     assert report["useful_ratio"] == pytest.approx(
         report["model_flops"] / (report["hlo_flops"] * 512))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dryrun.run_cell("rwkv6-7b", "train_4k", device="cpu", mesh="16x16")
+    _reduced_configs(monkeypatch, d_model=1024)
+    for arch in ("rwkv6-7b", "zamba2-7b"):
+        report, _ = dryrun.run_cell(arch, "decode_32k", device="cpu", mesh="2x16x16")
+        assert report.chips == 512 and report.collective_s > 0
 
 
 def test_importing_the_dry_run_sets_no_environment_variable():
