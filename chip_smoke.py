@@ -70,7 +70,18 @@ plain PyTorch version on the card:
      step_batch after it, the qat tick on 1 and on 4 shards (device ms, launches a tick);
      `logits_all_frames` and `predict` (integer: K2, and K1 for predict's
      features) equal to the CPU plain path;
- 12. QAT training through `training.kws.train` (the entry point of
+12. the serving command line (`python -m repro_torch.serving.serve_streaming`,
+     `phase_driver`) in process at 32 streams x 62 ticks: qat live, integer
+     --offline, delta-int --cascade --pipelined --window 4 (a partial last
+     window), the hardware frontend with --metrics --autoscale, float on two
+     shards of the card with a live --grow; one tick_fused launch a tick a
+     shard; each run equal per stream to the same driver with --device cpu
+     (run meanwhile in a process of its own on the card run's params, norm
+     stats and frontend state); ms a tick on the host clock; then the
+     quickstart (`repro_torch.quickstart.run`) on the card: K1's frames equal
+     to the plain version, the integer scores bit-identical to qat, the
+     FV_Raw diffs of the CPU run;
+13. QAT training through `training.kws.train` (the entry point of
      ``python -m repro_torch.training.kws``): the synthetic corpus (24
      clips a class, test set seed 1) recorded on the card (K1), 25 steps
      at batch 64 with AdamW and ReduceLROnPlateau and a checkpoint, whose
@@ -80,17 +91,17 @@ plain PyTorch version on the card:
      step's gradients on the card within 1e-5 of max |g| of the same step
      on the CPU; a warm step's time, and its device activities and busy
      share under torch.profiler;
- 13. K6 through `kernels.gru_sequence`: the paper's classifier at full
+14. K6 through `kernels.gru_sequence`: the paper's classifier at full
      width in float (layer 1 16 -> 48 feeding layer 2 48 -> 48) over 4096
      clips of 62 frames, float32 and one bf16 pass of layer 1, one launch
      a layer, each held against the plain version on the card, each
      launch's geometry and blocks an SM (occupancy API); cuDNN's
      `torch.nn.GRU` on the same weights as the library yardstick;
- 14. K7 through `kernels.wkv6` at rwkv6-7b's head layout and train_4k
+15. K7 through `kernels.wkv6` at rwkv6-7b's head layout and train_4k
      length (8, 4096, 64, 64) in float32, one launch, against the plain
      sequential form (relative to max |y|), strong decay and bf16 at small
      sizes, and the chunked training form at B = 1 timed as information;
- 15. times on CUDA events after warm-up: ms per step_batch tick and each
+16. times on CUDA events after warm-up: ms per step_batch tick and each
      kernel's time beside its plain version's, its bound and a library
      yardstick where one exists (the qat, integer and ΔGRU ticks on raw
      audio and on the reference's sparsity traffic as FV input, the ΔGRU
@@ -107,17 +118,17 @@ plain PyTorch version on the card:
      tick kernels' dynamic shared memory and blocks an SM (occupancy
      API); one JSON line per kernel (K4's `delta_gather` with its phase's
      time, plain time and bound), then all kernels in one JSON line;
- 16. data-parallel QAT training through `training.kws.train(dp=4,
+17. data-parallel QAT training through `training.kws.train(dp=4,
      compress_grads=True, devices=["cuda:0"] * 4)`: the reference
      example's recipe on four shards of the one card, 5 steps (the
      corpus by K1, the integer replay by K2); the first step's loss,
      synced gradients and per-shard residuals against the same step on
      the CPU, a plain DP step against the single-device step; s a step;
- 17. the LM train step on rwkv6-7b at full width cut to 2 layers: 10 steps
+18. the LM train step on rwkv6-7b at full width cut to 2 layers: 10 steps
      at 1 x 4096 tokens (s a step, tokens a second, peak memory, the
      loss), a prefill of 4096 tokens and 16 decode steps whose logits
      equal the full forward's within a bfloat16 tolerance;
- 18. the transformer backbone (attention, the dense MLPs, the one-card MoE
+19. the transformer backbone (attention, the dense MLPs, the one-card MoE
      route) through the same train step: qwen3-4b and granite-moe-3b at
      full width cut in depth to what fits the card, gemma2-27b at full
      width with one local / global step; 4 steps each at 1 x 4096 tokens
@@ -125,7 +136,7 @@ plain PyTorch version on the card:
      of a profiled step), a prefill and 16 decode steps whose logits equal
      a full forward's within a bfloat16 tolerance (gemma2's 4100-token
      prompt wraps its local rings);
- 19. the model-axis MoE route (`phase_moe_grid`) on device grids whose
+20. the model-axis MoE route (`phase_moe_grid`) on device grids whose
      entries are all the card: granite-moe-3b at full width on a (1, 16)
      grid through the transformer's sharded step, 40 experts padded to
      48, GRID_LAYERS deep (the peak `lower_train_step(..., rules=)`
@@ -134,19 +145,19 @@ plain PyTorch version on the card:
      full-width MoE layer on a (2, 8) grid with FSDP through `moe_apply`,
      128 decode tokens on the weights-stationary path, bf16 and int8
      banks, y against the one-card route's, ms a layer and its busy share;
- 20. the production meshes (`phase_mesh`): coordinate (0, 0)'s share of
+21. the production meshes (`phase_mesh`): coordinate (0, 0)'s share of
      qwen3-4b x train_4k on the (16, 16) mesh run for real at full depth
      (its peak held to the trace), qwen3-4b trained on a (2, 2) grid of
      the card against the one-card step and its prefill / decode against
      the one-card route, then qwen3-4b's and kimi-k2's cells traced per
      device on both meshes;
- 21. rwkv6 and zamba2 on the production mesh (`phase_ssm_mesh`):
+22. rwkv6 and zamba2 on the production mesh (`phase_ssm_mesh`):
      coordinate (0, 0)'s share of rwkv6-7b x train_4k on the (16, 16)
      mesh run for real at its 32 layers (its peak held to the trace),
      zamba2-7b trained on a (2, 2) grid of the card at 12 layers against
      the one-card step and its prefill / decode against the one-card
      route, then their train_4k and decode_32k cells traced per device;
- 22. the result line ``{"ok": true, "device": {...}}``.
+23. the result line ``{"ok": true, "device": {...}}``.
 
 Every failure raises, so the exit code is not 0. Without a CUDA device,
 or run outside a checkout of the repository, it exits 1 and prints no
@@ -2240,6 +2251,240 @@ def _entry_points(dev):
     return {"entry intgemm": counts["intgemm"], "entry fex_fused": counts["fex_fused"]}, 0
 
 
+DRIVER_STREAMS = 32
+DRIVER_SECONDS = 1.0  # 62 ticks of 16 ms
+# the serving command line's runs: (label, its flags); each also runs
+# with --device cpu (the plain tick) on the card run's params, norm stats
+# and frontend state, in a process of its own while the card goes on
+DRIVER_RUNS = (
+    ("qat", ["--classifier", "qat"]),
+    ("integer offline", ["--classifier", "integer", "--offline"]),
+    ("delta-int cascade pipelined", ["--classifier", "delta-int", "--theta", "0.15",
+                                     "--cascade", "--pipelined", "--window", "4"]),
+    ("hardware metrics autoscale", ["--frontend", "hardware", "--metrics", "--autoscale"]),
+    ("float grow 2 shards", ["--classifier", "float", "--grow", "64", "--devices", "cuda:0",
+                             "cuda:0"]),
+)
+DRIVER_TIMEOUT = 300  # s, the CPU twins' processes
+
+_DRIVER_WORKER = """
+import sys
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+job = torch.load(sys.argv[1], weights_only=False)
+if job["kind"] == "quickstart":
+    from repro_torch import quickstart
+    out = quickstart.run("cpu")
+else:
+    from repro_torch.serving import serve_streaming
+    out = chip_smoke._driver_snapshot(serve_streaming.serve(
+        serve_streaming.parse_args(job["argv"]), job["params"], job["stats"], job["state"]))
+torch.save(out, sys.argv[2])
+"""
+
+
+def _driver_argv(flags, device=None):
+    argv = ["--streams", str(DRIVER_STREAMS), "--seconds", str(DRIVER_SECONDS)] + flags
+    if device == "cpu":
+        argv = [("cpu" if a.startswith("cuda") else a) for a in argv] + ["--device", "cpu"]
+    return argv
+
+
+def _driver_snapshot(res):
+    """What a driver run produced, on the host: the server's state in
+    global slot order, its slot map, sparsity, wake rate, the metrics'
+    deterministic parts, the per-stream top and the autoscaler's
+    decisions."""
+    import dataclasses
+
+    srv = res["server"]
+    state = {f.name: getattr(srv.state, f.name) for f in dataclasses.fields(srv.state)}
+    snap = srv.metrics_snapshot() if srv.metrics is not None else None
+    metrics = None
+    if snap is not None:
+        def key(e):
+            return e["name"], tuple(sorted(e["labels"].items()))
+        metrics = {"counters": sorted((key(e), e["value"]) for e in snap["counters"]),
+                   "gauges": sorted((key(e), e["value"]) for e in snap["gauges"]),
+                   "histograms": sorted((key(e), e["count"]) for e in snap["histograms"]),
+                   "journal": [e["kind"] for e in snap["journal"]]}
+    return {"state": _tree_to(state, "cpu"), "active": dict(srv.active),
+            "sparsity": srv.sparsity, "wake_rate": srv.wake_rate, "top": res["top"],
+            "top_counts": res["top_counts"], "metrics": metrics, "n_frames": res["n_frames"],
+            "decisions": [(d["action"], d["from"], d["to"], d["reason"])
+                          for d in res["decisions"]],
+            "ms_per_tick": res["ms_per_tick"], "n_devices": srv.n_devices,
+            "max_streams": srv.max_streams}
+
+
+def _tree_to(tree, device):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _driver_tmp():
+    """A scratch directory for the twins' jobs and results, removed at exit."""
+    import atexit
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    atexit.register(shutil.rmtree, tmp, True)
+    return tmp
+
+
+def _driver_job(tmp, name, job):
+    """Start a CPU twin's process on ``job``: (Popen, its output path). A
+    twin still running when the script exits is killed."""
+    import atexit
+
+    import torch
+
+    src, out = Path(tmp) / f"{name}.job", Path(tmp) / f"{name}.out"
+    torch.save(job, src)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.Popen([sys.executable, "-c", _DRIVER_WORKER, str(src), str(out)],
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                            env=env)
+    atexit.register(proc.kill)
+    return proc, out
+
+
+def quickstart_twin():
+    """The quickstart's --device cpu run (the plain versions, ~1 min of one
+    core), started in a process of its own. Nothing of it depends on the
+    card, so `main` starts it before the phases and `phase_driver` joins it."""
+    return _driver_job(_driver_tmp(), "quickstart", {"kind": "quickstart"})
+
+
+def _driver_join(name, proc, out):
+    import torch
+
+    _, err = proc.communicate(timeout=DRIVER_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"driver twin {name}: exit {proc.returncode}\n{err[-4000:]}")
+    return torch.load(out, weights_only=False)
+
+
+def _assert_driver_equal(label, card, cpu, flt):
+    """A card run against its --device cpu twin, per stream id: GRU state,
+    carry, detector state, top, sparsity, wake rate and the decisions
+    equal; scores within SCORE_TOL (FLOAT_TOL and the GRU state too for
+    float). Returns the largest score (and float state) difference."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.frontend import tree_leaves
+
+    for key in ("top", "top_counts", "decisions", "metrics", "n_frames", "max_streams"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"driver {label}: {key} {card[key]} on the card, "
+                                 f"{cpu[key]} on the CPU")
+    sids = sorted(card["active"])
+    if sids != sorted(cpu["active"]):
+        raise AssertionError(f"driver {label}: open streams differ")
+    rows = [card["active"][s] for s in sids], [cpu["active"][s] for s in sids]
+    worst = 0.0
+    for field in ("gru", "carry", "det", "scores"):
+        got, want = tree_leaves(card["state"][field]), tree_leaves(cpu["state"][field])
+        if len(got) != len(want):
+            raise AssertionError(f"driver {label}: {field} has {len(got)} leaves, {len(want)}")
+        for a, b in zip(got, want):
+            a, b = a[rows[0]], b[rows[1]]
+            if field == "scores" or (flt and field == "gru"):
+                err = float((a.double() - b.double()).abs().max())
+                worst = max(worst, err)
+                if err > (FLOAT_TOL if flt else SCORE_TOL):
+                    raise AssertionError(f"driver {label}: {field} differs by {err}")
+            elif a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"driver {label}: {field} differs from the CPU run")
+    for key in ("sparsity", "wake_rate"):
+        if not np.array_equal(card[key][rows[0]], cpu[key][rows[1]]):
+            raise AssertionError(f"driver {label}: {key} differs from the CPU run")
+    return worst
+
+
+def phase_driver(dev, quick=None):
+    """The serving command line (`python -m repro_torch.serving.serve_streaming`)
+    in process at DRIVER_STREAMS streams x 62 ticks for each DRIVER_RUNS run,
+    and the quickstart (`repro_torch.quickstart.run`), on the card. Each run's
+    launches are counted from its set-up on: tick_fused once a tick a shard
+    (K4 inside it for the ΔGRU); the set-up's K1 (norm stats), and for the
+    hardware run its calibration's kernels. Each is held against the same
+    driver with --device cpu (the plain tick) on the card run's params, norm
+    stats and frontend state, run in a process of its own meanwhile; the
+    quickstart's K1 frames against the CPU run's plain version, its integer
+    scores bit-identical to qat, its FV_Raw diffs the CPU run's (``quick``:
+    that run's process from `quickstart_twin`, else started here). Returns
+    ({kernel: launches}, {run: max score error}, times)."""
+    import collections
+
+    from repro_torch import quickstart
+    from repro_torch.kernels import build
+    from repro_torch.serving import serve_streaming
+
+    t_phase = time.perf_counter()
+    launches, errs, times = collections.Counter(), {}, {}
+    twins = {"quickstart": quick or quickstart_twin()}
+    tmp = _driver_tmp()
+    cards = {}
+    for label, flags in DRIVER_RUNS:
+        build.launches.clear()
+        res = serve_streaming.serve(serve_streaming.parse_args(_driver_argv(flags)))
+        counts = dict(build.launches)
+        srv = res["server"]
+        # one tick_fused launch a tick a shard, a pipelined window of 4
+        # ticks included (`run_batch_async` launches each tick's kernel)
+        want = res["n_frames"] * srv.n_devices
+        if res["n_frames"] != int(DRIVER_SECONDS / 16e-3) or counts.get("tick_fused") != want:
+            raise AssertionError(f"driver {label}: launches {counts}, want tick_fused={want}")
+        launches.update({f"{label} {k}": n for k, n in counts.items()})
+        cards[label] = _driver_snapshot(res)
+        times[f"driver {label} ms_per_tick"] = res["ms_per_tick"]
+        pipe = res["pipeline"]
+        twins[label] = _driver_job(tmp, label.replace(" ", "_"), {
+            "kind": "driver", "argv": _driver_argv(flags, "cpu"),
+            "params": _tree_to(res["params"], "cpu"),
+            "stats": _state_to(pipe.state, "cpu").norm_stats,
+            "state": _state_to(pipe.state, "cpu")})
+        print(f"driver {label}: {want} tick_fused launches over {res['n_frames']} ticks on "
+              f"{srv.n_devices} shard(s), {res['ms_per_tick']:.4f} ms a tick (host clock, "
+              f"build excluded), set-up and run launches {counts}")
+    build.launches.clear()
+    q = quickstart.run(dev)
+    q_counts = dict(build.launches)
+    launches.update({f"quickstart {k}": n for k, n in q_counts.items()})
+    times["quickstart s"] = q["seconds"]
+    for label, _ in DRIVER_RUNS:
+        cpu = _driver_join(label, *twins[label])
+        errs[label] = _assert_driver_equal(label, cards[label], cpu, "float" in label)
+        print(f"driver {label}: equal to --device cpu per stream (scores within "
+              f"{errs[label]:.3g}); the CPU run {cpu['ms_per_tick']:.2f} ms a tick")
+    cq = _driver_join("quickstart", *twins["quickstart"])
+    if not q["integer_exact"]:
+        raise AssertionError("quickstart: the integer scores are not qat's on the card")
+    if q["fv_raw_diff"] != cq["fv_raw_diff"]:
+        raise AssertionError(f"quickstart FV_Raw diffs {q['fv_raw_diff']} on the card, "
+                             f"{cq['fv_raw_diff']} on the CPU")
+    errs["quickstart frames"] = float(abs(q["frames"] - cq["frames"]).max())
+    if errs["quickstart frames"] != 0.0:
+        raise AssertionError(f"quickstart: K1's frames differ from the plain version by "
+                             f"{errs['quickstart frames']}")
+    secs = time.perf_counter() - t_phase
+    times["driver phase s"] = secs
+    print(f"quickstart on the card in {q['seconds']:.3f} s, launches {q_counts}: K1's frames "
+          f"equal to the plain version, integer bit-identical to qat, FV_Raw diffs "
+          f"{q['fv_raw_diff']} as on the CPU; top {q['top']} (CPU {cq['top']})")
+    print(f"phase_driver: {secs:.1f} s")
+    return dict(launches), errs, times
+
+
 TRAIN_PER_CLASS = 24  # the reference example's corpus: 24 clips a class, test set seed 1
 # two runs of 25: the second resumes from the first's checkpoint (200, then
 # 100, until the script's time grew past three quarters of its limit)
@@ -3880,6 +4125,7 @@ def main() -> int:
     for name, report in reports.items():
         for line in report.splitlines():
             print(f"  {name}: {line.strip()}")
+    quick = quickstart_twin()  # runs on the host beside the phases until phase_driver
 
     intgemm_err = phase_intgemm(dev)
     die = phase_calibration(dev)
@@ -3917,6 +4163,12 @@ def main() -> int:
         dev, hw_state)
     ingress_times, _ = phase_ingress(dev)
     fleet_times, fleet_launches, entry_err = phase_fleet(dev)
+    driver_launches, driver_errs, driver_times = phase_driver(dev, quick)
+
+    def driver(kernel, *runs):
+        """The phase's launches of ``kernel``, in ``runs`` (default: all)."""
+        return sum(n for key, n in driver_launches.items()
+                   if key.endswith(f" {kernel}") and (not runs or key[:-len(kernel) - 1] in runs))
     train_launches, train_times = phase_train(dev)
     dp_launches, dp_times = phase_train_dp(dev)
     _, lm_times = phase_lm(dev)
@@ -3934,6 +4186,7 @@ def main() -> int:
     times.update(fit_times)
     times.update(ingress_times)
     times.update(fleet_times)
+    times.update(driver_times)
     times.update(train_times)
     times.update(dp_times)
     times.update(lm_times)
@@ -3972,13 +4225,16 @@ def main() -> int:
     k4 = _label("delta", THETA)
     kernels = [
         # the server runs, then the fleet's (resized, sharded, recovered and
-        # autoscaled servers with their twins)
+        # autoscaled servers with their twins), then the serving command line's
         tick_entry("tick_fused", "qat raw",
                    launches["qat"]["tick_fused"] + launches["integer"]["tick_fused"]
-                   + fleet_launches["qat"] + fleet_launches["autoscale"],
-                   max(tick_err["qat"], tick_err["integer"])),
-        tick_entry("tick_fused[float]", "float raw", launches["float"]["tick_fused"],
-                   tick_err["float"]),
+                   + fleet_launches["qat"] + fleet_launches["autoscale"]
+                   + driver("tick_fused", "qat", "integer offline"),
+                   max(tick_err["qat"], tick_err["integer"], driver_errs["qat"],
+                       driver_errs["integer offline"])),
+        tick_entry("tick_fused[float]", "float raw",
+                   launches["float"]["tick_fused"] + driver("tick_fused", "float grow 2 shards"),
+                   max(tick_err["float"], driver_errs["float grow 2 shards"])),
         tick_entry("tick_fused[delta]", d_key, launches["delta"]["tick_fused"],
                    tick_err["delta"]),
         tick_entry("tick_fused[delta-int]", f"{_label('delta-int', THETA)} raw",
@@ -3992,7 +4248,8 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/tick_fused.cu",
             "replaces": "src/repro/kernels/tick_fused/kernel.py:76",
             "launches": launches["delta"]["tick_fused"] + launches["delta-int"]["tick_fused"]
-            + fleet_launches[_label("delta-int", THETA)],
+            + fleet_launches[_label("delta-int", THETA)]
+            + driver("tick_fused", "delta-int cascade pipelined"),
             "max_abs_err": max(tick_err["delta"], tick_err["delta-int"]),
             "ms": times[f"{k4} split classifier_ms"],
             "plain_ms": times[f"{k4} split classifier plain_ms"],
@@ -4001,21 +4258,26 @@ def main() -> int:
             "library_ms": None,  # no PyTorch call computes the thresholded sparse update
         },
         tick_entry("tick_fused[hardware]", "qat hardware raw",
-                   sum(n["tick_fused"] for label, n in launches.items() if "hardware" in label),
-                   max(hw_tick_err.values())),
+                   sum(n["tick_fused"] for label, n in launches.items() if "hardware" in label)
+                   + driver("tick_fused", "hardware metrics autoscale"),
+                   max(*hw_tick_err.values(), driver_errs["hardware metrics autoscale"])),
         # the gated branch (detector, gate, decay) inside the same launch
-        tick_entry("tick_fused[cascade]", "cascade qat energy 0.15", casc_launches, casc_err),
-        # record_features (software), then predict, then the training corpora
+        tick_entry("tick_fused[cascade]", "cascade qat energy 0.15",
+                   casc_launches + driver("tick_fused", "delta-int cascade pipelined"),
+                   max(casc_err, driver_errs["delta-int cascade pipelined"])),
+        # record_features (software), then predict, then the training corpora,
+        # then the serving command line's norm stats and the quickstart
         feature_entry("fex_fused", "fex_fused",
                       feat_launches["software"]["fex_fused"] + fleet_launches["entry fex_fused"]
-                      + train_launches["fex_fused"] + dp_launches["fex_fused"],
-                      feat_errs["fex_fused"]),
+                      + train_launches["fex_fused"] + dp_launches["fex_fused"]
+                      + driver("fex_fused"),
+                      max(feat_errs["fex_fused"], driver_errs["quickstart frames"])),
         # the K1 kernel's per-sample entry: the hardware frontends' Rec-BPF scan
         feature_entry("fex_fused[scan]", "scan",
-                      sum(n.get("biquad_stream", 0) for n in feat_launches.values()),
-                      feat_errs["scan"]),
-        feature_entry("tdc", "tdc", feat_launches["hardware-pallas"]["tdc"], feat_errs["tdc"],
-                      source="src/repro_torch/kernels/csrc/tdc.cu",
+                      sum(n.get("biquad_stream", 0) for n in feat_launches.values())
+                      + driver("biquad_stream"), feat_errs["scan"]),
+        feature_entry("tdc", "tdc", feat_launches["hardware-pallas"]["tdc"] + driver("tdc"),
+                      feat_errs["tdc"], source="src/repro_torch/kernels/csrc/tdc.cu",
                       replaces="src/repro/kernels/tdc/kernel.py:77"),
         {
             "name": "intgemm", "route": "cuda",
@@ -4023,7 +4285,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/intgemm/kernel.py:46",
             # streaming_step, logits_all_frames and predict, the trained models' replays
             "launches": intgemm_launches + fleet_launches["entry intgemm"]
-            + train_launches["intgemm"] + dp_launches["intgemm"],
+            + train_launches["intgemm"] + dp_launches["intgemm"] + driver("intgemm"),
             "max_abs_err": max(intgemm_err, entry_err),
             "ms": times["intgemm_ms"], "plain_ms": times["intgemm_plain_ms"],
             "bound_ms": times["intgemm_bound_ms"], "bound_by": times["intgemm_bound_by"],

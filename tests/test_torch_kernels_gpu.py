@@ -1715,3 +1715,32 @@ def test_moe_backward_on_the_card_is_deterministic(dev):
     assert not build.launches
     for other in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+def test_serve_streaming_driver_on_the_card_equals_the_cpu(dev):
+    """The serving command line (`python -m repro_torch.serving.serve_streaming`)
+    at 32 streams for 12 ticks, ΔGRU with the cascade: one tick_fused launch a
+    tick, and every stream equal to the same driver run with ``--device cpu``
+    on the card run's params and norm stats."""
+    from repro_torch.serving import serve_streaming
+
+    argv = ["--streams", "32", "--seconds", "0.2", "--classifier", "delta-int", "--theta",
+            "0.15", "--cascade"]
+    build.launches.clear()
+    card = serve_streaming.serve(serve_streaming.parse_args(argv))
+    assert build.launches["tick_fused"] == card["n_frames"] == 12
+    stats = card["pipeline"].norm_stats
+    params = {"gru": [{k: v.cpu() for k, v in layer.items()} for layer in card["params"]["gru"]],
+              "fc": {k: v.cpu() for k, v in card["params"]["fc"].items()}}
+    cpu = serve_streaming.serve(serve_streaming.parse_args(argv + ["--device", "cpu"]), params,
+                                FExNormStats(stats.mu.cpu(), stats.sigma.cpu()))
+    a, b = card["server"], cpu["server"]
+    assert a.tick_dispatch == "cuda" and b.tick_dispatch == "cpu"
+    assert card["top"] == cpu["top"] and a.active == b.active
+    xs = tree_leaves([a.state.gru, a.state.carry, a.state.det])
+    ys = tree_leaves([b.state.gru, b.state.carry, b.state.det])
+    assert len(xs) == len(ys)
+    for x, y in zip(xs, ys):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y)
+    assert np.abs(a.scores - b.scores).max() <= 1e-6
+    assert np.array_equal(a.sparsity, b.sparsity) and np.array_equal(a.wake_rate, b.wake_rate)
