@@ -27,7 +27,7 @@ plain PyTorch version on the card:
      across two calls), K5 within 1 count of the float64 oracle
      (also at b = frames = c = 1), hardware-pallas within the
      reference's 2 LSB of hardware; norm stats fitted from the recorded
-     hardware-pallas codes;
+     hardware-pallas codes on the card, array-equal to the CPU's fit;
   6. tick_fused against the plain tick for the five backends (delta and
      delta-int at θ = 0 and 0.15, held against the plain tick with K4's
      plain gather step), raw audio and FV_Norm, with the software
@@ -77,7 +77,9 @@ plain PyTorch version on the card:
      shards of the card with a live --grow; one tick_fused launch a tick a
      shard; each run equal per stream to the same driver with --device cpu
      (run meanwhile in a process of its own on the card run's params, norm
-     stats and frontend state); ms a tick on the host clock; then the
+     stats and frontend state); each run's own norm stats, fitted on the
+     card, array-equal to the --device cpu fit; ms a tick on the host
+     clock; then the
      quickstart (`repro_torch.quickstart.run`) on the card: K1's frames equal
      to the plain version, the integer scores bit-identical to qat, the
      FV_Raw diffs of the CPU run;
@@ -1544,14 +1546,15 @@ def phase_features(dev, state):
           f"(2 clips) alone {times['tdc one block ms']:.5f} ms")
     stats = fit_norm_stats_from_counts(torch.as_tensor(codes["hardware-pallas"], device=dev), tdcfg)
     cpu_stats = fit_norm_stats_from_counts(torch.as_tensor(codes["hardware-pallas"]), tdcfg)
-    # the FV_Log values are the same table on both; only the order of the
-    # mean's and the std's float32 sums differs
-    fit_diff = max(float((stats.mu.cpu() / cpu_stats.mu - 1).abs().max()),
-                   float((stats.sigma.cpu() / cpu_stats.sigma - 1).abs().max()))
-    if fit_diff > 1e-5:
-        raise AssertionError(f"norm stats fitted on the card differ from the CPU's by {fit_diff:.3g}")
-    print(f"norm stats fitted from the hardware-pallas codes on the card, within {fit_diff:.3g} "
-          f"(relative) of the CPU's fit (limit 1e-5)")
+    # the same FV_Log table, then the same float32 sums in XLA's order, a
+    # true division and a correctly rounded root on both (`eager_mean_std`)
+    for field in ("mu", "sigma"):
+        got, want = getattr(stats, field).cpu(), getattr(cpu_stats, field)
+        if not torch.equal(got, want):
+            raise AssertionError(f"norm stats fitted on the card: {field} differs from the CPU's "
+                                 f"fit by up to {float((got - want).abs().max()):.3g}")
+    print(f"norm stats fitted from the hardware-pallas codes ({codes['hardware-pallas'].shape}) on "
+          f"the card array-equal to the CPU's fit")
     return codes, launches, errs, times, stats
 
 
@@ -2276,6 +2279,9 @@ job = torch.load(sys.argv[1], weights_only=False)
 if job["kind"] == "quickstart":
     from repro_torch import quickstart
     out = quickstart.run("cpu")
+elif job["kind"] == "norm_stats":
+    from repro_torch.serving import serve_streaming
+    out = serve_streaming.norm_stats(serve_streaming.corpus(job["streams"]), "cpu")
 else:
     from repro_torch.serving import serve_streaming
     out = chip_smoke._driver_snapshot(serve_streaming.serve(
@@ -2421,9 +2427,13 @@ def phase_driver(dev, quick=None):
     stats and frontend state, run in a process of its own meanwhile; the
     quickstart's K1 frames against the CPU run's plain version, its integer
     scores bit-identical to qat, its FV_Raw diffs the CPU run's (``quick``:
-    that run's process from `quickstart_twin`, else started here). Returns
+    that run's process from `quickstart_twin`, else started here). The norm
+    stats each run fitted on the card in its own set-up are array-equal to
+    the driver's fit with --device cpu (a twin of its own). Returns
     ({kernel: launches}, {run: max score error}, times)."""
     import collections
+
+    import torch
 
     from repro_torch import quickstart
     from repro_torch.kernels import build
@@ -2433,7 +2443,9 @@ def phase_driver(dev, quick=None):
     launches, errs, times = collections.Counter(), {}, {}
     twins = {"quickstart": quick or quickstart_twin()}
     tmp = _driver_tmp()
-    cards = {}
+    twins["norm stats"] = _driver_job(tmp, "norm_stats",
+                                      {"kind": "norm_stats", "streams": DRIVER_STREAMS})
+    cards, fits = {}, {}
     for label, flags in DRIVER_RUNS:
         build.launches.clear()
         res = serve_streaming.serve(serve_streaming.parse_args(_driver_argv(flags)))
@@ -2448,6 +2460,7 @@ def phase_driver(dev, quick=None):
         cards[label] = _driver_snapshot(res)
         times[f"driver {label} ms_per_tick"] = res["ms_per_tick"]
         pipe = res["pipeline"]
+        fits[label] = _state_to(pipe.state, "cpu").norm_stats
         twins[label] = _driver_job(tmp, label.replace(" ", "_"), {
             "kind": "driver", "argv": _driver_argv(flags, "cpu"),
             "params": _tree_to(res["params"], "cpu"),
@@ -2466,6 +2479,14 @@ def phase_driver(dev, quick=None):
         errs[label] = _assert_driver_equal(label, cards[label], cpu, "float" in label)
         print(f"driver {label}: equal to --device cpu per stream (scores within "
               f"{errs[label]:.3g}); the CPU run {cpu['ms_per_tick']:.2f} ms a tick")
+    cpu_fit = _driver_join("norm stats", *twins["norm stats"])
+    for label, fit in fits.items():
+        for field in ("mu", "sigma"):
+            if not torch.equal(getattr(fit, field), getattr(cpu_fit, field)):
+                raise AssertionError(f"driver {label}: the norm stats' {field} fitted on the card "
+                                     f"differs from the --device cpu fit")
+    print(f"driver norm stats: each run's own fit on the card ({DRIVER_STREAMS} clips, "
+          f"{DRIVER_STREAMS * 62} frames) array-equal to the --device cpu fit")
     cq = _driver_join("quickstart", *twins["quickstart"])
     if not q["integer_exact"]:
         raise AssertionError("quickstart: the integer scores are not qat's on the card")

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.fex import FExNormStats
+from repro_torch.core.fex import FExNormStats, eager_mean_std
 from repro_torch.core.filters import design_filterbank
 from repro_torch.core.frontend import FrontendState, hardware_state
 from repro_torch.core.tdfex import TDFExConfig, TDFExState, tdfex_raw_counts
@@ -149,7 +149,9 @@ def fit_norm_stats_from_counts(
 
     FV_Log comes from the closed-form log (`quant.log_compress_eager`), as
     the reference's eager fit computes it: 512 at code 63, where the ROM
-    the serving tick reads gives 511 (ROADMAP queue 3, P1)."""
+    the serving tick reads gives 511 (ROADMAP queue 3, P1). mu and sigma
+    follow the reference's eager ``flat.mean(0)`` / ``flat.std(0)``
+    (`src/repro/core/calibration.py:133-141`, `fex.eager_mean_std`)."""
     fv_log = quant.log_compress_eager(fv_raw, cfg.fex.quant_bits, cfg.fex.log_bits)
-    flat = fv_log.reshape(-1, fv_log.shape[-1])
-    return FExNormStats(mu=flat.mean(dim=0), sigma=flat.std(dim=0, correction=0) + eps)
+    mu, std = eager_mean_std(fv_log.reshape(-1, fv_log.shape[-1]))
+    return FExNormStats(mu=mu, sigma=std + eps)

@@ -48,6 +48,8 @@ __all__ = [
     "frame_average",
     "SUM_BLOCK",
     "frame_sum",
+    "xla_sum",
+    "eager_mean_std",
     "fex_frames",
     "fex_forward",
     "fit_norm_stats",
@@ -246,6 +248,55 @@ def frame_sum(a: torch.Tensor, frame_len: int) -> torch.Tensor:
     return total
 
 
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over dim 0 of a float32 tensor (N, ...) in the order of
+    XLA's CPU reduce: past one window (`SUM_BLOCK`, 32) the rows are padded
+    with zeros evenly to whole windows (the odd zero after them), each
+    window is summed left to right from 0, then the window sums the same
+    way; 32 rows or fewer are summed left to right from 0. Explicit adds,
+    so the bits are the same on every device."""
+    n = x.shape[0]
+    if n > SUM_BLOCK:
+        pad, rest = -n % SUM_BLOCK, x.shape[1:]
+        x = torch.cat([x.new_zeros((pad // 2, *rest)), x,
+                       x.new_zeros((pad - pad // 2, *rest))])
+        wins = x.reshape(-1, SUM_BLOCK, *rest)
+        acc = torch.zeros_like(wins[:, 0])
+        for i in range(SUM_BLOCK):
+            acc = acc + wins[:, i]
+        return xla_sum(acc)
+    acc = x.new_zeros(x.shape[1:])
+    for i in range(n):
+        acc = acc + x[i]
+    return acc
+
+
+def eager_mean_std(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-column mean and population std of float32 rows (N, C), as the
+    reference's eager ``x.mean(0)`` and ``x.std(0)`` compute them on the
+    CPU. The mean is `xla_sum` times float32(1/N): XLA folds the division
+    by a constant into that product. The std takes d = x - mean and d * d,
+    each rounded, sums them by `xla_sum`, and divides by N: a true
+    division, since the jitted ``_std`` gets ``ddof`` as a traced argument
+    and its divisor is no constant. At N <= 32 XLA fuses it all into one
+    loop and contracts ``d * d + acc`` into an FMA. The same float32
+    operations on every device, so the bits are the same."""
+    n = flat.shape[0]
+    mu = xla_sum(flat) * torch.tensor(1.0 / n, dtype=torch.float32).item()
+    d = flat - mu
+    if n > SUM_BLOCK:
+        sq = xla_sum(d * d)
+    else:
+        sq = flat.new_zeros(flat.shape[1:])
+        for i in range(n):
+            sq = fma_f32(d[i], d[i], sq)
+    # a CUDA tensor divided by a Python number is multiplied by its
+    # reciprocal; the vectorized CPU torch.sqrt is an ulp off on ~0.6 % of
+    # inputs, while the float64 root of a float32 rounds to it correctly
+    var = sq / torch.full_like(sq, float(n))
+    return mu, torch.sqrt(var.double()).float()
+
+
 def fex_frames(
     audio: torch.Tensor, config: FExConfig, coeffs=None
 ) -> torch.Tensor:
@@ -294,8 +345,8 @@ def fex_forward(
 
 
 def fit_norm_stats(fv_log: torch.Tensor, eps: float = 1e-3) -> FExNormStats:
-    """mu/sigma over all frames of the training set (per channel)."""
-    flat = fv_log.reshape(-1, fv_log.shape[-1])
-    return FExNormStats(
-        mu=flat.mean(dim=0), sigma=flat.std(dim=0, correction=0) + eps
-    )
+    """mu/sigma over all frames of the training set (per channel), as the
+    reference's eager fit (`src/repro/core/fex.py:267-271`) computes them
+    (`eager_mean_std`)."""
+    mu, std = eager_mean_std(fv_log.reshape(-1, fv_log.shape[-1]))
+    return FExNormStats(mu=mu, sigma=std + eps)

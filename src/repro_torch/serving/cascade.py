@@ -49,7 +49,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.fex import SUM_BLOCK, fma_f32
+from repro_torch.core.fex import fma_f32, xla_sum
 from repro_torch.kernels.build import resolve_device
 from repro_torch.kernels.fma_rows import fma_rows
 
@@ -256,26 +256,6 @@ def _xla_log1p(e: torch.Tensor) -> torch.Tensor:
     return torch.where(e.abs() < _LOG1P_SMALL, small, _xla_log(e + 1.0))
 
 
-def _xla_sum(v: torch.Tensor) -> torch.Tensor:
-    """The sum of a 1-D float32 tensor in the order of XLA's CPU reduce:
-    longer than its window (`SUM_BLOCK`, 32), padded evenly to whole
-    windows, each window summed left to right from 0, then the window sums
-    the same way."""
-    n = v.shape[0]
-    if n > SUM_BLOCK:
-        pad = -n % SUM_BLOCK
-        v = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
-        wins = v.reshape(-1, SUM_BLOCK)
-        acc = torch.zeros(wins.shape[0], dtype=v.dtype, device=v.device)
-        for i in range(SUM_BLOCK):
-            acc = acc + wins[:, i]
-        return _xla_sum(acc)
-    acc = torch.zeros((), dtype=v.dtype, device=v.device)
-    for i in range(n):
-        acc = acc + v[i]
-    return acc
-
-
 def _xla_logits(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """z = xs @ w + b in `_fit_grad`'s order."""
     n, c = xs.shape
@@ -322,7 +302,7 @@ def _fit_grad(xs: torch.Tensor, ys: torch.Tensor, w: torch.Tensor, b: torch.Tens
     (`kernels.fma_rows`), but on one channel, `fma_rows.ref.head_channel`
     (C = 1 past 32 rows; channel 0 at C = 2 and the one channel past the
     8-channel tiles at C = 8k + 1, from 3 rows), its first 8 rows
-    multiplied and added apart; dL/db `_xla_sum` of dz. Read from the
+    multiplied and added apart; dL/db `xla_sum` of dz. Read from the
     compiled code (``--xla_dump_to``: IR and object code) at N = 600
     (C = 1, 5, 12, 20), N = 16 (C = 1, 5, 9, 16), N = 6 (C = 2, 5, 16),
     N = 14 and 8 (C = 16) and N = 1 (C = 2, 16); held equal at every
@@ -334,7 +314,7 @@ def _fit_grad(xs: torch.Tensor, ys: torch.Tensor, w: torch.Tensor, b: torch.Tens
     y, pow2n = _exp_parts(z - softplus)
     inv_n = _f32(1.0 / n)
     dz = fma_f32(y * pow2n, torch.full_like(z, inv_n), ys * -inv_n)
-    return fma_rows(dz, xs), _xla_sum(dz)
+    return fma_rows(dz, xs), xla_sum(dz)
 
 
 def detector_scores(fv: torch.Tensor, config: CascadeConfig) -> torch.Tensor:

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.fex import FExConfig, FExNormStats, fex_frames
+from repro_torch.core.fex import FExConfig, FExNormStats, eager_mean_std, fex_frames
 from repro_torch.core.gru_delta import DeltaConfig
 from repro_torch.core.pipeline import KWSPipeline, KWSPipelineConfig
 from repro_torch.data.gscd import CLASSES, make_dataset
@@ -131,18 +131,15 @@ def corpus(streams: int) -> np.ndarray:
 def norm_stats(audio: np.ndarray, device) -> FExNormStats:
     """FV_Log mean and population std (+ 1e-3) of the clips' software
     frames, per channel (K1 on the card). FV_Log is the closed-form log
-    (`quant.log_compress_eager`), as the reference's eager set-up
-    evaluates it; mu equals the reference's, sigma is within one ulp of
-    it (F15)."""
+    (`quant.log_compress_eager`), and mu / sigma follow the eager
+    ``mean(0)`` / ``std(0)`` (`fex.eager_mean_std`), as the reference's
+    set-up evaluates them (`examples/serve_streaming.py:135-136`)."""
     fcfg = FExConfig()
     frames = fex_frames(torch.as_tensor(audio, device=device), fcfg)
     fv_raw = quant.quantize_unsigned(frames, fcfg.quant_bits, fcfg.quant_full_scale)
     fv_log = quant.log_compress_eager(fv_raw, fcfg.quant_bits, fcfg.log_bits)
-    flat = fv_log.reshape(-1, fcfg.num_channels)
-    # the codes' sum is exact; XLA folds the mean's division into a
-    # product with the reciprocal (the std keeps its own order: F15)
-    mu = flat.sum(dim=0) * float(np.float32(1.0 / flat.shape[0]))
-    return FExNormStats(mu=mu, sigma=flat.std(dim=0, correction=0) + 1e-3)
+    mu, std = eager_mean_std(fv_log.reshape(-1, fcfg.num_channels))
+    return FExNormStats(mu=mu, sigma=std + 1e-3)
 
 
 def setup(args, params=None, stats=None, frontend_state=None):

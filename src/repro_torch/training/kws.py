@@ -248,17 +248,19 @@ def evaluate(model: Dict, feats, labels: np.ndarray, batch: int = 128,
 
 
 def corpus_features(train_audio: np.ndarray, test_audio: np.ndarray, device):
-    """FV_Norm of the two corpora on ``device``: FV_Raw recorded by the
-    software frontend (K1 on the card), the normalizer fitted on the
-    training set's eager log (`quant.log_compress_eager`, as the
-    reference's example fits it), then the chip's back-end."""
+    """FV_Norm of the two corpora on ``device``, as the reference's example
+    makes them eagerly (`examples/train_kws.py:55-75`): FV_Raw recorded by
+    the software frontend (K1 on the card), FV_Log by the eager closed
+    form (`quant.log_compress_eager`: 512 at code 63, where the chip's ROM
+    gives 511), the normalizer fitted on the training set's FV_Log
+    (`fit_norm_stats`), then ``(x - mu) / sigma`` on the Q6.8 grid."""
     pipe = KWSPipeline(KWSPipelineConfig())
-    raw_tr = torch.as_tensor(pipe.record_features(train_audio, device=device), device=device)
-    raw_te = torch.as_tensor(pipe.record_features(test_audio, device=device), device=device)
     fexc = pipe.config.fex
-    stats = fit_norm_stats(quant.log_compress_eager(raw_tr, fexc.quant_bits, fexc.log_bits))
-    pipe = KWSPipeline(pipe.config, norm_stats=stats)
-    return pipe.features_from_raw(raw_tr), pipe.features_from_raw(raw_te)
+    logs = [quant.log_compress_eager(
+        torch.as_tensor(pipe.record_features(audio, device=device), device=device),
+        fexc.quant_bits, fexc.log_bits) for audio in (train_audio, test_audio)]
+    stats = fit_norm_stats(logs[0])
+    return tuple(quant.fake_quant((x - stats.mu) / stats.sigma, quant.ACT_Q6_8) for x in logs)
 
 
 def _batch(seed: int, step: int, n: int, batch: int) -> np.ndarray:

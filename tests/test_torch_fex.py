@@ -119,12 +119,36 @@ def test_software_raw_codes_match(coeffs):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_fit_norm_stats_matches():
-    x = np.random.default_rng(3).random((3, 7, 16)).astype(np.float32) * 900
+# Row counts of the norm-stat fits: one fused loop (N <= 32, the sum of
+# squares contracted into FMAs), odd pads (33: 15 + 16 zeros, 63: 0 + 1),
+# even ones (62: 1 + 1, 496 and 4464: 8 + 8), and 74 400 = 12 classes x
+# 100 clips x 62 frames, windowed three times (2325, 73, then 3 window
+# sums; 5 + 6 and 11 + 12 zeros).
+FIT_ROWS = [21, 32, 33, 62, 63, 496, 4464, 74400]
+
+
+@pytest.mark.parametrize("rows", FIT_ROWS)
+def test_fit_norm_stats_matches(rows):
+    """mu and sigma array-equal to the reference's eager fit."""
+    x = np.random.default_rng([3, rows]).random((rows, 16)).astype(np.float32) * 900
+    x = x.reshape(-1, 62 if rows % 62 == 0 else rows, 16)
     j = jfex.fit_norm_stats(jnp.asarray(x))
     t = tfex.fit_norm_stats(torch.from_numpy(x))
-    np.testing.assert_allclose(t.mu.numpy(), np.asarray(j.mu), rtol=1e-6)
-    np.testing.assert_allclose(t.sigma.numpy(), np.asarray(j.sigma), rtol=1e-5)
+    np.testing.assert_array_equal(t.mu.numpy(), np.asarray(j.mu))
+    np.testing.assert_array_equal(t.sigma.numpy(), np.asarray(j.sigma))
+
+
+@pytest.mark.parametrize("rows", [0, 1, 31, 32, 33, 63, 96, 1025, 74400])
+def test_xla_sum_matches_the_references_sum(rows):
+    """`xla_sum` over (N, C) and over one column against the reference's
+    eager ``jnp.sum(x, 0)``: the column form is the detector fit's
+    (`serving.cascade`)."""
+    x = np.random.default_rng(rows).standard_normal((rows, 5)).astype(np.float32)
+    np.testing.assert_array_equal(tfex.xla_sum(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jnp.sum(jnp.asarray(x), 0)))
+    col = np.ascontiguousarray(x[:, 2])
+    np.testing.assert_array_equal(tfex.xla_sum(torch.from_numpy(col)).numpy(),
+                                  np.asarray(jnp.sum(jnp.asarray(col))))
 
 
 def test_oversample2x_matches():

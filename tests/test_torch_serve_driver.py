@@ -40,9 +40,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 REFERENCE = ROOT / "examples" / "serve_streaming.py"
 SCORE_ATOL = 1e-6
 FLOAT_ATOL = 2e-6
-# F15: the driver's own sigma against the reference's (8 of 16 channels
-# one ulp apart at 8 streams)
-SIGMA_ULPS = 1
 CLOCK_STEP = 1e-3  # seconds a clock read advances
 
 # 12 ticks (0.2 s) a run; 8 streams, 16 for the autoscaler (which then
@@ -251,14 +248,12 @@ def test_two_shards_equal_the_references_one_device_run(reference_module):
 
 def test_own_setup_equals_the_references(reference_module):
     """The port's corpus, norm stats and seeded params, made by the driver
-    itself: mu array-equal to the reference's, sigma within F15's ulp."""
+    itself: mu and sigma array-equal to the reference's."""
     jsrv, _, jpipe, _ = _reference(reference_module, "qat-live")
     audio = serve_streaming.corpus(8)
     stats = serve_streaming.norm_stats(audio, "cpu")
     np.testing.assert_array_equal(stats.mu.numpy(), np.asarray(jpipe.state.norm_stats.mu))
-    # F15: jnp.std's compiled sum of squares is not followed; 1 ulp
-    np.testing.assert_array_max_ulp(stats.sigma.numpy(), np.asarray(jpipe.state.norm_stats.sigma),
-                                    maxulp=SIGMA_ULPS)
+    np.testing.assert_array_equal(stats.sigma.numpy(), np.asarray(jpipe.state.norm_stats.sigma))
     args = serve_streaming.parse_args(["--streams", "8", "--device", "cpu"])
     pipe, params, srv, got = serve_streaming.setup(args, stats=stats)
     np.testing.assert_array_equal(got, audio)

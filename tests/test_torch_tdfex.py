@@ -289,17 +289,25 @@ def test_calibration_matches_reference_bench():
                                TCFG.beta_nominal, rtol=0.01)
 
 
-def test_fit_norm_stats_from_counts():
-    """Against the reference on every code, 63 included: both fits read
-    FV_Log by the eager closed form, 512 at code 63 (ROADMAP queue 3,
-    F2)."""
-    rng = np.random.default_rng(8)
-    codes = np.floor(rng.random((4, 9, 16)) * 4096).astype(np.float32)
+# (B, F) of the recorded counts: one fused loop (21, 32 rows), odd pads
+# (33, 63 rows), even ones (36, 62, 496, 4464), and 1200 clips x 62
+# frames = 74 400 rows, windowed three times.
+COUNT_SHAPES = [(3, 7), (4, 8), (3, 11), (4, 9), (1, 62), (7, 9), (8, 62), (72, 62),
+                (1200, 62)]
+
+
+@pytest.mark.parametrize("clips,frames", COUNT_SHAPES)
+def test_fit_norm_stats_from_counts(clips, frames):
+    """Array-equal to the reference's eager fit on every code, 63
+    included: both fits read FV_Log by the eager closed form, 512 at code
+    63 (ROADMAP queue 3, F2), and take the eager mean / std (F15)."""
+    rng = np.random.default_rng([8, clips, frames])
+    codes = np.floor(rng.random((clips, frames, 16)) * 4096).astype(np.float32)
     codes[0, :, 3] = 63.0
     want = jcal.fit_norm_stats_from_counts(jnp.asarray(codes), JCFG)
     got = tcal.fit_norm_stats_from_counts(torch.from_numpy(codes), TCFG)
-    np.testing.assert_allclose(got.mu.numpy(), np.asarray(want.mu), rtol=1e-6)
-    np.testing.assert_allclose(got.sigma.numpy(), np.asarray(want.sigma), rtol=1e-5)
+    np.testing.assert_array_equal(got.mu.numpy(), np.asarray(want.mu))
+    np.testing.assert_array_equal(got.sigma.numpy(), np.asarray(want.sigma))
     at63 = np.full((1, 2, 16), 63.0, np.float32)
     assert float(tcal.fit_norm_stats_from_counts(torch.from_numpy(at63), TCFG).mu[0]) == 512.0
     assert float(jcal.fit_norm_stats_from_counts(jnp.asarray(at63), JCFG).mu[0]) == 512.0
